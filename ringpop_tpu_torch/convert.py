@@ -1,0 +1,77 @@
+"""Carry simulation state between the JAX package and the port.
+
+The JAX package's ``ClusterState``/``NetState`` and a ``PRNGKey``,
+given as numpy arrays (e.g. ``{k: np.asarray(v) for k, v in
+state._asdict().items()}``), become the port's tensors on a device, and
+back.  The state is this system's "weights": with it, both sides run
+from identical inputs.  Fields the port does not carry yet must be
+None.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ringpop_tpu_torch import resolve_device
+from ringpop_tpu_torch.models.swim_sim import ClusterState, NetState
+
+
+def _to_tensors(
+    cls: type, fields: Mapping[str, Any], device: torch.device | str | None
+) -> Any:
+    dev = resolve_device(device)
+    extra = sorted(k for k, v in fields.items() if k not in cls._fields and v is not None)
+    if extra:
+        raise NotImplementedError(f"{cls.__name__} fields not ported yet: {extra}")
+    return cls(
+        **{
+            name: None if fields.get(name) is None
+            else torch.as_tensor(np.array(fields[name])).to(dev)
+            for name in cls._fields
+        }
+    )
+
+
+def _to_numpy(obj: Any) -> dict[str, np.ndarray | None]:
+    return {
+        name: None if v is None else v.detach().cpu().numpy()
+        for name, v in obj._asdict().items()
+    }
+
+
+def state_from_numpy(
+    fields: Mapping[str, Any], device: torch.device | str | None = None
+) -> ClusterState:
+    """A JAX ``ClusterState`` (as a mapping of numpy arrays) on ``device``."""
+    return _to_tensors(ClusterState, fields, device)
+
+
+def net_from_numpy(
+    fields: Mapping[str, Any], device: torch.device | str | None = None
+) -> NetState:
+    """A JAX ``NetState`` (as a mapping of numpy arrays) on ``device``."""
+    return _to_tensors(NetState, fields, device)
+
+
+def state_to_numpy(state: ClusterState) -> dict[str, np.ndarray | None]:
+    """The port's state as numpy arrays under the reference's field names."""
+    return _to_numpy(state)
+
+
+def net_to_numpy(net: NetState) -> dict[str, np.ndarray | None]:
+    return _to_numpy(net)
+
+
+def key_from_numpy(key: Any) -> torch.Tensor:
+    """A raw ``uint32[2]`` PRNG key as the port's int64[2] key."""
+    k = np.asarray(key)
+    if k.shape != (2,):
+        raise ValueError(f"a raw PRNG key has shape (2,), got {k.shape}")
+    return torch.as_tensor(k.astype(np.int64))
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    return key.cpu().numpy().astype(np.uint32)

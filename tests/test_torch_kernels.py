@@ -1,0 +1,195 @@
+"""The port's kernel modules against the JAX package's TPU kernels.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+against the Pallas kernels in interpret mode and the host FarmHash,
+with exact equality (integer lattice keys and uint32 hashes).  The
+CUDA kernels themselves are held against the plain versions by the
+tests marked below, which skip unless a card is visible, and by
+``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from ringpop_tpu.ops.farmhash import farmhash32 as ref_farmhash32
+from ringpop_tpu.ops.farmhash_pallas import farmhash32_batch_pallas
+from ringpop_tpu.ops.recv_merge_pallas import recv_merge_pallas
+from ringpop_tpu_torch.models import checksum as tck
+from ringpop_tpu_torch.ops import checksum_device as tckdev
+from ringpop_tpu_torch.ops import farmhash as tfh
+from ringpop_tpu_torch.ops.recv_merge import recv_merge, recv_merge_plain
+
+
+def _merge_case(n: int, deliver: float, seed: int):
+    rng = np.random.default_rng(seed)
+    fwd_ok = rng.random(n) < deliver
+    t_safe = np.where(fwd_ok, rng.integers(0, n, n), 0).astype(np.int32)
+    claims = (rng.integers(0, 1 << 20, (n, n)) * (rng.random((n, n)) < 0.4)).astype(np.int32)
+    return t_safe, fwd_ok, np.where(fwd_ok[:, None], claims, 0)
+
+
+def _torch_args(t_safe, fwd_ok, claims, device="cpu"):
+    return (
+        torch.as_tensor(t_safe, dtype=torch.int64, device=device),
+        torch.as_tensor(fwd_ok, device=device),
+        torch.as_tensor(claims, device=device),
+    )
+
+
+@pytest.mark.parametrize("n", [16, 64, 130])
+@pytest.mark.parametrize("deliver", [0.0, 0.5, 1.0])
+def test_recv_merge_plain_matches_pallas(n, deliver):
+    t_safe, fwd_ok, claims = _merge_case(n, deliver, 100 * n + int(10 * deliver))
+    want_k, want_i = recv_merge_pallas(t_safe, fwd_ok, claims, interpret=True)
+    got_k, got_i = recv_merge_plain(*_torch_args(t_safe, fwd_ok, claims))
+    assert got_k.dtype == torch.int32 and got_i.dtype == torch.int32
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+def test_recv_merge_all_to_one():
+    n = 40
+    rng = np.random.default_rng(5)
+    t_safe = np.full(n, 3, np.int32)
+    fwd_ok = np.ones(n, bool)
+    claims = rng.integers(0, 1 << 20, (n, n)).astype(np.int32)
+    want_k, want_i = recv_merge_pallas(t_safe, fwd_ok, claims, interpret=True)
+    got_k, got_i = recv_merge(*_torch_args(t_safe, fwd_ok, claims))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert int(got_i[3]) == n and int(got_i.sum()) == n
+
+
+def test_recv_merge_wrapper_checks_inputs():
+    t, f, c = _torch_args(*_merge_case(8, 0.5, 1))
+    with pytest.raises(TypeError):
+        recv_merge(t.to(torch.int32), f, c)
+    with pytest.raises(TypeError):
+        recv_merge(t, f, c.to(torch.int64))
+    with pytest.raises(TypeError):
+        recv_merge(t, f, c[:, :4])
+
+
+def _hash_batch(lengths, width, seed):
+    rng = np.random.default_rng(seed)
+    bufs = np.zeros((len(lengths), width), np.uint8)
+    for i, n in enumerate(lengths):
+        bufs[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    return bufs, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize(
+    "lengths",
+    [list(range(0, 5)), list(range(5, 13)), list(range(13, 25)), list(range(25, 200, 7))],
+    ids=["0-4", "5-12", "13-24", "long"],
+)
+def test_farmhash_plain_matches_host_and_pallas(lengths):
+    width = max(max(lengths), 25)
+    bufs, lens = _hash_batch(lengths, width, seed=len(lengths))
+    got = tfh.farmhash32_batch(torch.as_tensor(bufs), torch.as_tensor(lens)).numpy()
+    pallas = np.asarray(farmhash32_batch_pallas(bufs, lens, interpret=True)).astype(np.int64)
+    host = np.array([ref_farmhash32(bufs[i, :n].tobytes()) for i, n in enumerate(lens)])
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(got, pallas)
+    own = np.array([tfh.farmhash32(bufs[i, :n].tobytes()) for i, n in enumerate(lens)])
+    np.testing.assert_array_equal(own, host)
+
+
+def test_farmhash_known_vector():
+    assert tfh.farmhash32(b"test") == 1633095781 == ref_farmhash32(b"test")
+
+
+def test_farmhash_random_lengths_long_rows():
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(0, 2000, 64).tolist()
+    bufs, lens = _hash_batch(lengths, 2000, seed=3)
+    got = tfh.farmhash32_plain(torch.as_tensor(bufs), torch.as_tensor(lens)).numpy()
+    host = np.array([ref_farmhash32(bufs[i, :n].tobytes()) for i, n in enumerate(lens)])
+    np.testing.assert_array_equal(got, host)
+
+
+def test_mul32_wraps_like_uint32():
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)
+    for c in (0xCC9E2D51, 0x1B873593, 0x85EBCA6B, 0xC2B2AE35, 5):
+        want = (a * np.uint32(c)).astype(np.int64)
+        got = tfh.mul32(torch.as_tensor(a.astype(np.int64)), c).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [5, 64])
+def test_device_checksums_match_host(n):
+    """String assembly on tensors + the FarmHash wrapper == the host
+    oracle built in Python, over rows with every status and absent
+    members, and across row chunks."""
+    rng = np.random.default_rng(n)
+    status = rng.choice([0, 1, 2, 3, 4], size=(n, n))
+    inc = rng.integers(0, (1 << 27) - 1, (n, n))
+    keys = np.where(status > 0, inc * 8 + status, 0).astype(np.int32)
+    book = tck.AddressBook(tck.default_addresses(n))
+    base = 1_400_000_000_000
+    host = tck.view_checksums_packed(book, keys, base)
+    dbook = tckdev.DeviceBook(book.addresses, base, device="cpu")
+    got = tckdev.view_checksums_device(dbook, torch.as_tensor(keys))
+    np.testing.assert_array_equal(got.numpy(), host.astype(np.int64))
+    chunked = tckdev.view_checksums_device(
+        dbook, torch.as_tensor(keys), max_elements=2 * n * dbook.entry_width
+    )
+    np.testing.assert_array_equal(chunked.numpy(), host.astype(np.int64))
+    # the host oracle itself is the reference string format
+    row = keys[0]
+    parts = [
+        f"{book.addresses[j]}{tck.STATUS_NAMES[row[j] & 7]}{base + int(row[j] >> 3)}"
+        for j in book.sorted_order if row[j] & 7
+    ]
+    assert host[0] == ref_farmhash32(";".join(parts).encode())
+
+
+def test_row_strings_are_the_reference_strings():
+    n = 12
+    keys = np.full((2, n), 8 * 3 + 1, np.int32)
+    keys[1, 4] = 0
+    keys[1, 7] = 8 * 5000 + 2
+    dbook = tckdev.DeviceBook(tck.default_addresses(n), 1_400_000_000_000, device="cpu")
+    bufs, lens = tckdev.row_strings(dbook, torch.as_tensor(keys))
+    book = tck.AddressBook(tck.default_addresses(n))
+    for r in range(2):
+        parts = [
+            f"{book.addresses[j]}{tck.STATUS_NAMES[keys[r, j] & 7]}"
+            f"{1_400_000_000_000 + int(keys[r, j] >> 3)}"
+            for j in book.sorted_order if keys[r, j]
+        ]
+        want = ";".join(parts).encode()
+        assert bytes(bufs[r, : int(lens[r])].numpy()) == want
+
+
+# ---------------------------------------------------------------------------
+# card-only: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+@pytest.mark.parametrize("n", [16, 64, 130, 1000])
+def test_recv_merge_kernel_on_card(n):
+    _need_card()
+    args = _torch_args(*_merge_case(n, 0.7, n), device="cuda")
+    got = recv_merge(*args)
+    want = recv_merge_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_farmhash_kernel_on_card():
+    _need_card()
+    bufs, lens = _hash_batch(list(range(0, 300)), 300, seed=9)
+    b, l_ = torch.as_tensor(bufs, device="cuda"), torch.as_tensor(lens, device="cuda")
+    got = tfh.farmhash32_batch(b, l_)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfh.farmhash32_plain(b, l_))
