@@ -9,33 +9,52 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
 2. build every kernel from ``ringpop_tpu_torch/csrc`` (one nvcc each, in
    parallel) and print the build time and the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card
-   (exact equality) at the main path's shapes, and time kernel, plain
+   (exact equality) at the main paths' shapes, and time kernel, plain
    version and, where one exists, a single PyTorch call for the same
    function (CUDA events, median of 10 runs after a warm-up);
-4. step a 256-node cluster with a kill on the card and on the CPU for 10
-   ticks: every state field and metric must be equal on every tick;
-5. the main path at BASELINE config 3 (10k nodes, 1% loss): 5 ticks,
-   kill node 4242, tick until every live node holds it faulty and the
-   views converge, then device checksums must form one group; both
-   kernels' launch counters must have risen during this phase; then the
-   device checksums of a few rows equal the host oracle's, and the
-   FarmHash kernel equals its plain version on real rows' strings;
-6. print the ``kernels`` JSON line, then the result line.
+4. step a 256-node dense cluster with a kill on the card and on the CPU
+   for 10 ticks: every state field and metric must be equal on every
+   tick; the same for a 256-node delta cluster at production-style caps
+   for 12 ticks; and, on the card, the delta step with ample caps must
+   densify to the dense step's state on every tick (n = 128);
+5. the dense main path at BASELINE config 3 (10k nodes, 1% loss): 5
+   ticks, kill node 4242, tick until every live node holds it faulty and
+   the views converge, then device checksums must form one group; both
+   of its kernels' launch counters must have risen during this phase;
+   then the device checksums of a few rows equal the host oracle's, and
+   the FarmHash kernel equals its plain version on real rows' strings;
+6. the delta main path: the BASELINE north star's 65,536-node cluster
+   on config 3's protocol with the reference's default caps: 5 ticks,
+   kill node 54321, tick until every live view holds it faulty and
+   ``converged()`` (exact agreement of all live views), then the device
+   checksums of a stated sample of rows; the launch counters of the
+   row-searchsorted, merge-insert and FarmHash kernels must have risen
+   during this phase;
+7. print the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 10_000
 VICTIM = 4242
+N_DELTA = 65_536
+VICTIM_DELTA = 54_321
+DELTA_CAPS = {"capacity": 256, "wire_cap": 16, "claim_grid": 64}  # reference defaults
+CHECKSUM_SAMPLE = 64  # live rows hashed at n = 65,536, spread over the ids
 MAX_TICKS = 150
+SENTINEL = (1 << 31) - 1
+SUSPECT = 2
+SL_START = 26
 RUNS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core 32-bit rate (fp32 table row)
@@ -202,6 +221,147 @@ def check_farmhash(torch, dev) -> dict:
     }
 
 
+def sorted_table(torch, gen, n: int, c: int, span: int):
+    """int32[n, c] rows sorted ascending with duplicates and SENTINEL
+    tails of random length (a delta table's shape)."""
+    dev = gen.device
+    rows = torch.randint(0, span, (n, c), generator=gen, device=dev, dtype=torch.int32)
+    rows = torch.sort(rows, dim=1).values
+    live = torch.randint(0, c + 1, (n, 1), generator=gen, device=dev)
+    cols = torch.arange(c, device=dev)[None, :]
+    return torch.where(cols >= live, SENTINEL, rows).contiguous()
+
+
+def queries(torch, gen, n: int, k: int, span: int):
+    dev = gen.device
+    q = torch.randint(-2, span + 2, (n, k), generator=gen, device=dev, dtype=torch.int32)
+    pad = torch.rand((n, k), generator=gen, device=dev) < 0.1
+    return torch.where(pad, SENTINEL, q).contiguous()
+
+
+def check_row_searchsorted(torch, dev) -> dict:
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted, row_searchsorted_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, c, k = N_DELTA, DELTA_CAPS["capacity"], DELTA_CAPS["claim_grid"]
+    # the main shape ([N, C] tables, claim-grid queries), a row too wide
+    # for shared memory, and C queries per row (the converged check)
+    shapes = [(n, c, k), (256, 20_000, 65), (n, c, c)]
+    err = 0
+    for rows, cols, kk in shapes:
+        table = sorted_table(torch, gen, rows, cols, span=max(4, cols // 2))
+        q = queries(torch, gen, rows, kk, span=max(4, cols // 2))
+        for side in ("left", "right"):
+            got = row_searchsorted(table, q, side=side)
+            want = row_searchsorted_plain(table, q, side=side)
+            err = max(err, int((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"row_searchsorted kernel != plain at [{rows}, {cols}] x [{rows}, {kk}] "
+                    f"side {side} (max abs err {err})")
+    table = sorted_table(torch, gen, n, c, span=c // 2)
+    q = queries(torch, gen, n, k, span=c // 2)
+    ms = time_ms(torch, lambda: row_searchsorted(table, q))
+    plain_ms = time_ms(torch, lambda: row_searchsorted_plain(table, q))
+    library_ms = time_ms(torch, lambda: torch.searchsorted(table, q, out_int32=True))
+    # read the table and the queries once, write the positions once; a
+    # binary search does ceil(log2(C + 1)) compares per query
+    moved = 4 * n * (c + 2 * k)
+    ops = n * k * math.ceil(math.log2(c + 1))
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+    done = ", ".join(f"[{a}, {b}] x [{a}, {d}]" for a, b, d in shapes)
+    log(f"row_searchsorted: exact at {done}, both sides; at [{n}, {c}] x [{n}, {k}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.searchsorted {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(4 * N * (C + 2K) bytes = {moved} at 3.35 TB/s)")
+    return {
+        "name": "row_searchsorted", "route": "cuda",
+        "source": "ringpop_tpu_torch/csrc/row_searchsorted.cu",
+        "replaces": "ringpop_tpu/ops/searchsorted_pallas.py:39",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def merge_inputs(torch, gen, n: int, c: int, ki: int):
+    """Sorted tables with free slots (every 7th row full) and sorted,
+    SENTINEL-padded insert lists whose live subjects are absent from
+    their row and fit its free slots; alive, suspect and faulty keys."""
+    dev = gen.device
+    span = 4 * (c + ki)
+    # c + ki distinct subjects per row: the table takes the first occ,
+    # the inserts the next m
+    u = torch.rand((n, span), generator=gen, device=dev).argsort(dim=1)[:, : c + ki]
+    u = u.to(torch.int32)
+    occ = torch.randint(0, c + 1, (n, 1), generator=gen, device=dev)
+    occ[::7] = c
+    m = torch.clamp(torch.minimum(torch.full_like(occ, ki - 1), c - occ), min=0)
+    cols = torch.arange(c, device=dev)[None, :]
+    d_subj = torch.sort(torch.where(cols < occ, u[:, :c], SENTINEL), dim=1).values
+    live = d_subj < SENTINEL
+
+    def rand_keys(shape, statuses):
+        st = torch.as_tensor(statuses, device=dev)
+        pick = torch.randint(0, len(statuses), shape, generator=gen, device=dev)
+        inc = torch.randint(1, 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
+        return inc * 8 + st[pick].to(torch.int32)
+
+    d_key = torch.where(live, rand_keys((n, c), [1, 2, 3, 4]), 0)
+    d_pb = torch.where(live, torch.randint(-1, 30, (n, c), generator=gen, device=dev,
+                                           dtype=torch.int8), -1).to(torch.int8)
+    d_sl = torch.where(live, torch.randint(-1, 26, (n, c), generator=gen, device=dev,
+                                           dtype=torch.int8), -1).to(torch.int8)
+    kcols = torch.arange(ki, device=dev)[None, :]
+    ins = torch.gather(u, 1, torch.clamp(occ + kcols, max=c + ki - 1))
+    ins_subj, order = torch.sort(torch.where(kcols < m, ins, SENTINEL), dim=1)
+    ins_key = torch.where(ins_subj < SENTINEL, rand_keys((n, ki), [1, 2, 2, 3]), 0)
+    return [t.contiguous() for t in (d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)]
+
+
+def check_merge_insert(torch, dev) -> dict:
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert, merge_insert_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, c = N_DELTA, DELTA_CAPS["capacity"]
+    err = 0
+    for ki in (DELTA_CAPS["claim_grid"] + 1, c + 17):
+        args = merge_inputs(torch, gen, n, c, ki)
+        got = merge_insert(*args, sl_start=SL_START, suspect=SUSPECT)
+        want = merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)
+        for g, w in zip(got, want):
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"merge_insert kernel != plain at [{n}, {c}], ki = {ki} "
+                                 f"(max abs err {err})")
+        fresh_suspects = int((got[3] == SL_START).sum())
+        pads = int((args[4] == SENTINEL).sum())
+        if fresh_suspects == 0 or pads == 0:
+            raise AssertionError("merge_insert inputs hold no suspect or no SENTINEL inserts")
+    ki = DELTA_CAPS["claim_grid"] + 1
+    args = merge_inputs(torch, gen, n, c, ki)
+    ms = time_ms(torch, lambda: merge_insert(*args, sl_start=SL_START, suspect=SUSPECT))
+    plain_ms = time_ms(torch, lambda: merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT))
+    # read the four table channels (10 bytes a slot) and the insert list
+    # (8 bytes an entry) once, write the four channels once; a binary
+    # search per insert over the row and per slot over the positions
+    moved = 10 * n * c + 8 * n * ki + 10 * n * c
+    ops = n * (ki * math.ceil(math.log2(c + 1)) + c * math.ceil(math.log2(ki + 1)))
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+    log(f"merge_insert: exact at [{n}, {c}] with ki = {DELTA_CAPS['claim_grid'] + 1} and "
+        f"{c + 17} (suspect and SENTINEL inserts, full rows); at ki = {ki}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(20 * N * C + 8 * N * ki bytes = {moved} at 3.35 TB/s); no single PyTorch call "
+        f"computes this merge")
+    return {
+        "name": "merge_insert", "route": "cuda",
+        "source": "ringpop_tpu_torch/csrc/delta_merge.cu",
+        "replaces": "ringpop_tpu/ops/delta_merge_pallas.py:65",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
+        "library_ms": None,
+    }
+
+
 def check_cuda_equals_cpu(torch) -> None:
     from ringpop_tpu_torch.models.cluster import SimCluster
     from ringpop_tpu_torch.models.swim_sim import SwimParams
@@ -223,8 +383,75 @@ def check_cuda_equals_cpu(torch) -> None:
     log("step: cuda == cpu on every field and metric for 10 ticks at n=256 (kill at tick 3)")
 
 
+def check_delta_cuda_equals_cpu(torch) -> None:
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    # 30% loss makes enough suspicion churn for these caps to drop claims
+    # at routing and inserts at full tables
+    params = SwimParams(loss=0.3, suspicion_ticks=5)
+    caps = {"capacity": 32, "wire_cap": 4, "claim_grid": 8}
+    gpu = SimCluster(256, params, seed=0, device="cuda", backend="delta", **caps)
+    cpu = SimCluster(256, params, seed=0, device="cpu", backend="delta", **caps)
+    before = (row_searchsorted.launches, merge_insert.launches)
+    claims_dropped = 0
+    for t in range(12):
+        if t == 3:
+            gpu.kill(17)
+            cpu.kill(17)
+        mg, mc = gpu.tick(), cpu.tick()
+        if mg != mc:
+            raise AssertionError(f"delta tick {t}: metrics differ: cuda {mg} cpu {mc}")
+        claims_dropped += mg["claims_dropped"]
+        for f, a in gpu.state._asdict().items():
+            b = getattr(cpu.state, f)
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+                raise AssertionError(f"delta tick {t}: {f} differs between cuda and cpu")
+    drops = int(gpu.state.overflow_drops)
+    if claims_dropped == 0 or drops == 0:
+        raise AssertionError(f"the caps dropped nothing (claims {claims_dropped}, slots {drops})")
+    log(f"delta step: cuda == cpu on every DeltaState field and metric for 12 ticks at n=256 "
+        f"({caps}, 30% loss, kill at tick 3; claims_dropped {claims_dropped}, overflow_drops "
+        f"{drops}); "
+        f"kernel launches (row_searchsorted, merge_insert) {before} -> "
+        f"{(row_searchsorted.launches, merge_insert.launches)}")
+
+
+def check_delta_equals_dense(torch) -> None:
+    """With ample caps the delta step is the dense step: both step on the
+    card from the same keys, and the densified delta state equals the
+    dense state on every tick."""
+    from ringpop_tpu_torch import prng
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+
+    n = 128
+    params = sim.SwimParams(loss=0.01)
+    dparams = sdelta.DeltaParams(swim=params, wire_cap=n, claim_grid=3 * n * n)
+    dense = sim.init_state(n, device="cuda")
+    delta = sdelta.init_delta(n, capacity=n, device="cuda")
+    net = sim.make_net(n, device="cuda")
+    for t, key in enumerate(prng.split(prng.PRNGKey(7), 12)):
+        if t == 3:
+            up = net.up.clone()
+            up[17] = False
+            net = net._replace(up=up)
+        dense, _ = sim.swim_step_impl(dense, net, key, params)
+        delta, _ = sdelta.delta_step_impl(delta, net, key, dparams)
+        dd = sdelta.densify(delta)
+        for f in ("view_key", "pb", "suspect_left", "tick"):
+            if not torch.equal(getattr(dd, f), getattr(dense, f)):
+                raise AssertionError(f"tick {t}: densified delta {f} != dense {f}")
+    log(f"delta step: densify(delta) == dense (view_key, pb, suspect_left) on the card for 12 "
+        f"ticks at n={n} (ample caps: capacity {n}, wire_cap {n}, claim_grid {3 * n * n}; "
+        f"1% loss, kill at tick 3)")
+
+
 def main_path(torch) -> dict:
-    """BASELINE config 3 at full size; returns launches per kernel."""
+    """BASELINE config 3 at full size on the dense backend; returns
+    launches per kernel."""
     from ringpop_tpu_torch.models import swim_sim as sim
     from ringpop_tpu_torch.models.cluster import SimCluster
     from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
@@ -286,6 +513,100 @@ def main_path(torch) -> dict:
     return launches
 
 
+def delta_main_path(torch) -> dict:
+    """The 65,536-node cluster of the BASELINE north star on config 3's
+    protocol (1% loss, kill one node) with the reference's default caps;
+    returns launches per kernel."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    torch.cuda.reset_peak_memory_stats()
+    row_searchsorted.launches = 0
+    merge_insert.launches = 0
+    farmhash32_batch.launches = 0
+
+    n = N_DELTA
+    c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend="delta",
+                   **DELTA_CAPS)
+    tick_ms, syncs = [], []
+    totals = {"claims_dropped": 0}
+
+    def timed_tick():
+        # host syncs are counted as the warnings of the sync debug mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                m = c.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        totals["claims_dropped"] += m["claims_dropped"]
+
+    for _ in range(5):
+        timed_tick()
+    c.kill(VICTIM_DELTA)
+    victim = torch.full((n,), VICTIM_DELTA, dtype=torch.int32, device="cuda")
+    detected = None
+    for t in range(MAX_TICKS):
+        timed_tick()
+        live = torch.as_tensor(c.live_indices(), device="cuda")
+        col = sdelta.view_lookup(c.state, victim).index_select(0, live) & 7
+        if bool((col == sim.FAULTY).all()) and c.converged():
+            detected = t + 1
+            break
+    if detected is None:
+        raise AssertionError(f"node {VICTIM_DELTA} not faulty everywhere after {MAX_TICKS} ticks")
+
+    # converged() is exact agreement of every live view, so all live rows
+    # hash alike; a sweep of all 65,535 rows (2.2 MB strings each) is out
+    # of reach, so a stated sample is hashed on the card
+    live_ids = c.live_indices()
+    spread = live_ids[np.linspace(0, len(live_ids) - 1, CHECKSUM_SAMPLE).astype(np.int64)]
+    sample = [int(i) for i in spread] + [VICTIM_DELTA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = c.checksums(indices=sample, backend="device")
+    torch.cuda.synchronize()
+    ck_ms = (time.perf_counter() - t0) * 1e3
+    live_sums = {sums[c.book.addresses[i]] for i in spread}
+    if len(live_sums) != 1:
+        raise AssertionError(f"{len(live_sums)} checksum groups among {len(spread)} sampled "
+                             "live rows after convergence")
+    launches = {"row_searchsorted": row_searchsorted.launches,
+                "merge_insert": merge_insert.launches, "farmhash32": farmhash32_batch.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"delta main path: n={n} {DELTA_CAPS} loss=0.01, node {VICTIM_DELTA} faulty in every "
+        f"live view and converged() {detected} ticks after the kill ({len(tick_ms)} ticks); "
+        f"median tick {statistics.median(tick_ms):.3f} ms (first 5 ticks "
+        f"{statistics.median(tick_ms[:5]):.3f} ms, max {max(tick_ms):.3f} ms); host syncs "
+        f"{sum(syncs)} ({sum(syncs) / len(syncs):.2f} per tick); overflow_drops "
+        f"{int(c.state.overflow_drops)}, claims_dropped {totals['claims_dropped']}; device "
+        f"checksums of a sample of {len(spread)} live rows (spread over the ids) plus the "
+        f"killed node's row, {ck_ms:.1f} ms: the sampled live rows form one group; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the delta main path")
+
+    host_rows = [int(i) for i in spread[:3]]
+    host = c.checksums(indices=host_rows, backend="host")
+    if host != {a: sums[a] for a in host}:
+        raise AssertionError(f"delta device checksums != host on rows {host_rows}")
+    log(f"delta checksums: device == host (pure Python) on live rows {host_rows}")
+    return launches
+
+
 def check_farmhash_real_rows(torch, c) -> None:
     """The FarmHash kernel against its plain version on the checksum
     strings of real rows of the main path's cluster: a few dozen live
@@ -331,11 +652,18 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     dev = torch.device("cuda")
-    rows = [check_recv_merge(torch, dev), check_farmhash(torch, dev)]
+    rows = [check_recv_merge(torch, dev), check_farmhash(torch, dev),
+            check_row_searchsorted(torch, dev), check_merge_insert(torch, dev)]
     check_cuda_equals_cpu(torch)
+    check_delta_cuda_equals_cpu(torch)
+    check_delta_equals_dense(torch)
     launches = main_path(torch)
+    launches_delta = delta_main_path(torch)
+    # each kernel's launches on the main path it belongs to: the dense
+    # path for the receiver merge and FarmHash, the delta path for the
+    # delta kernels (FarmHash also ran there: see the line above)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], launches_delta.get(row["name"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

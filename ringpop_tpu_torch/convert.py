@@ -1,8 +1,8 @@
 """Carry simulation state between the JAX package and the port.
 
-The JAX package's ``ClusterState``/``NetState`` and a ``PRNGKey``,
-given as numpy arrays (e.g. ``{k: np.asarray(v) for k, v in
-state._asdict().items()}``), become the port's tensors on a device, and
+The JAX package's ``ClusterState``/``DeltaState``/``NetState`` and a
+``PRNGKey``, given as numpy arrays (e.g. ``{k: np.asarray(v) for k, v
+in state._asdict().items()}``), become the port's tensors on a device, and
 back.  The state is this system's "weights": with it, both sides run
 from identical inputs.  Fields the port does not carry yet must be
 None.
@@ -16,7 +16,12 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import resolve_device
+from ringpop_tpu_torch.models.swim_delta import DeltaState
 from ringpop_tpu_torch.models.swim_sim import ClusterState, NetState
+
+# DeltaState planes that are uint32 in the reference and int64 holding
+# the same 32-bit values in the port
+_UINT32_FIELDS = ("bp_mask", "digest", "d_bpmask")
 
 
 def _to_tensors(
@@ -63,6 +68,29 @@ def state_to_numpy(state: ClusterState) -> dict[str, np.ndarray | None]:
 
 def net_to_numpy(net: NetState) -> dict[str, np.ndarray | None]:
     return _to_numpy(net)
+
+
+def delta_state_from_numpy(
+    fields: Mapping[str, Any], device: torch.device | str | None = None
+) -> DeltaState:
+    """A JAX ``DeltaState`` (as a mapping of numpy arrays) on ``device``;
+    None fields stay None and uint32 planes become int64 holding the
+    same bits."""
+    fields = {
+        k: np.asarray(v).astype(np.int64) if k in _UINT32_FIELDS and v is not None else v
+        for k, v in fields.items()
+    }
+    return _to_tensors(DeltaState, fields, device)
+
+
+def delta_state_to_numpy(state: DeltaState) -> dict[str, np.ndarray | None]:
+    """The port's delta state as numpy arrays under the reference's field
+    names and dtypes (uint32 planes as uint32)."""
+    out = _to_numpy(state)
+    for k in _UINT32_FIELDS:
+        if out[k] is not None:
+            out[k] = out[k].astype(np.uint32)
+    return out
 
 
 def key_from_numpy(key: Any) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""SimCluster: the host-side front end of the dense SWIM simulation.
+"""SimCluster: the host-side front end of the SWIM simulation.
 
-The port of ``ringpop_tpu/models/cluster.py`` (``backend="dense"``):
+The port of ``ringpop_tpu/models/cluster.py`` (``backend="dense"`` and
+``backend="delta"``):
 drive protocol periods, group live nodes by membership checksum (the
 convergence metric of ringpop's tick-cluster), and inject faults (kill,
 suspend, revive, partitions, packet loss) as edits of ``NetState``.
@@ -18,11 +19,14 @@ import torch
 
 from ringpop_tpu_torch import prng, resolve_device
 from ringpop_tpu_torch.models import checksum as cksum
+from ringpop_tpu_torch.models import swim_delta as sdelta
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
 from ringpop_tpu_torch.ops import checksum_device as ckdev
 
 DEFAULT_BASE_INC = 1_400_000_000_000  # host clock epoch (ms)
+# View-row keys materialized at once by a device checksum sweep
+ROW_CHUNK_ELEMENTS = 1 << 26
 
 
 def groups_to_gid(groups: Sequence[Sequence[int]], n: int) -> np.ndarray:
@@ -47,19 +51,30 @@ class SimCluster:
         device: torch.device | str | None = None,
         damping: bool = False,
         backend: str = "dense",
+        capacity: int = 256,
+        wire_cap: int = 16,
+        claim_grid: int = 64,
     ):
         """A cluster of ``n`` simulated nodes on ``device`` (``cuda``
         unless the caller names another; raises when no card is visible
-        and none was named).  Only the dense backend is ported."""
-        if backend == "delta":
-            raise NotImplementedError("the delta backend is not ported yet")
-        if backend != "dense":
+        and none was named).  ``backend='dense'``: the N x N state;
+        ``backend='delta'``: the O(N * C) delta-from-base state, whose
+        resource caps are ``capacity``/``wire_cap``/``claim_grid``."""
+        if backend not in ("dense", "delta"):
             raise ValueError(f"unknown backend: {backend!r}")
+        if backend == "delta" and damping:
+            raise ValueError("the delta backend does not support damping tensors")
+        if backend == "delta" and params.sparse_cap:
+            raise ValueError(
+                "sparse_cap is a dense-backend knob; the delta backend bounds "
+                "messages with wire_cap"
+            )
         if damping:
             raise NotImplementedError("damping tensors are not ported yet")
         self.device = resolve_device(device)
         self.backend = backend
         self.params = params
+        self.dparams = sdelta.DeltaParams(swim=params, wire_cap=wire_cap, claim_grid=claim_grid)
         self.book = cksum.AddressBook(addresses or cksum.default_addresses(n))
         if len(self.book) != n:
             raise ValueError("addresses must have length n")
@@ -67,7 +82,12 @@ class SimCluster:
         rel = np.zeros(n, dtype=np.int32) if inc is None else (
             np.asarray(inc, dtype=np.int64) - base_inc
         ).astype(np.int32)
-        self.state = sim.init_state(n, rel, mode=init, device=self.device)
+        if backend == "delta":
+            self.state = sdelta.init_delta(
+                n, rel, capacity=capacity, mode=init, device=self.device
+            )
+        else:
+            self.state = sim.init_state(n, rel, mode=init, device=self.device)
         self.net: NetState = sim.make_net(n, device=self.device)
         self.key = prng.PRNGKey(seed)
         self.metrics_log: list[dict[str, int]] = []
@@ -86,7 +106,16 @@ class SimCluster:
     def tick(self, ticks: int = 1) -> dict[str, int]:
         """Advance every node ``ticks`` protocol periods; returns the last
         tick's counters (plus ``ticks``)."""
-        if ticks == 1:
+        if self.backend == "delta":
+            if ticks == 1:
+                self.state, metrics = sdelta.delta_step_impl(
+                    self.state, self.net, self._split(), self.dparams
+                )
+            else:
+                self.state, metrics = sdelta.delta_run_impl(
+                    self.state, self.net, self._split(), self.dparams, ticks
+                )
+        elif ticks == 1:
             self.state, metrics = sim.swim_step_impl(
                 self.state, self.net, self._split(), self.params
             )
@@ -113,19 +142,35 @@ class SimCluster:
 
     # -- convergence -----------------------------------------------------------
 
+    def _device_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """int32[len(idx), N] view rows on the device."""
+        rows = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=self.device)
+        if self.backend == "delta":
+            return sdelta.materialize_rows(self.state, rows)
+        return self.state.view_key.index_select(0, rows)
+
     def _view_rows(self, idx: np.ndarray) -> np.ndarray:
         """int32[len(idx), N] view rows (host copies)."""
-        rows = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=self.device)
-        return self.state.view_key.index_select(0, rows).cpu().numpy()
+        return self._device_rows(idx).cpu().numpy()
+
+    def _own_keys(self) -> torch.Tensor:
+        """int32[N]: each node's view of itself (the gossip gate)."""
+        if self.backend == "delta":
+            return sdelta.view_lookup(
+                self.state, torch.arange(self.n, dtype=torch.int32, device=self.device)
+            )
+        return torch.diagonal(self.state.view_key)
 
     def live_indices(self) -> np.ndarray:
         up = (self.net.up & self.net.responsive).cpu().numpy()
-        own = torch.diagonal(self.state.view_key).cpu().numpy() & 7
+        own = self._own_keys().cpu().numpy() & 7
         gossiping = up & ((own == sim.ALIVE) | (own == sim.SUSPECT))
         return np.flatnonzero(gossiping)
 
     def converged(self) -> bool:
         """Exact view agreement among live nodes (no hash involved)."""
+        if self.backend == "delta":
+            return bool(sdelta._converged_impl(self.state, self.net.up, self.net.responsive))
         return bool(sim.converged_impl(self.state, self.net))
 
     def checksums(
@@ -137,7 +182,8 @@ class SimCluster:
         cluster's device (the FarmHash32 kernel on the card).
         ``backend='host'``: pure Python over pulled rows, the oracle for
         small clusters.  The default is ``'device'`` on a card and
-        ``'host'`` on the CPU."""
+        ``'host'`` on the CPU.  Delta rows are materialized in chunks
+        of at most ``ROW_CHUNK_ELEMENTS`` keys."""
         idx = self.live_indices() if indices is None else np.asarray(indices, dtype=np.int64)
         if backend is None:
             backend = "device" if self.device.type == "cuda" else "host"
@@ -146,10 +192,14 @@ class SimCluster:
                 self._device_book = ckdev.DeviceBook(
                     self.book.addresses, self.base_inc, device=self.device
                 )
-            rows = self.state.view_key.index_select(
-                0, torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-            )
-            sums = ckdev.view_checksums_device(self._device_book, rows).cpu().numpy()
+            chunk = max(1, ROW_CHUNK_ELEMENTS // self.n)
+            parts = [
+                ckdev.view_checksums_device(
+                    self._device_book, self._device_rows(idx[lo : lo + chunk])
+                )
+                for lo in range(0, len(idx), chunk)
+            ]
+            sums = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int64)
         elif backend == "host":
             sums = cksum.view_checksums_packed(self.book, self._view_rows(idx), self.base_inc)
         else:
@@ -190,10 +240,17 @@ class SimCluster:
     def revive(self, i: int, inc: int | None = None, seed: int | None = None) -> None:
         """Restart a killed node as a fresh process and re-join it."""
         if inc is None:
-            inc = int(self.state.view_key.max()) // 8 + 1000
+            if self.backend == "delta":
+                top = max(int(self.state.base_key.max()), int(self.state.d_key.max()))
+            else:
+                top = int(self.state.view_key.max())
+            inc = top // 8 + 1000
         else:
             inc = inc - self.base_inc
-        self.state = sim.revive(self.state, i, inc)
+        if self.backend == "delta":
+            self.state = sdelta.revive(self.state, i, inc)
+        else:
+            self.state = sim.revive(self.state, i, inc)
         self._set_flag("up", i, True)
         self._set_flag("responsive", i, True)
         if seed is None:
@@ -204,21 +261,33 @@ class SimCluster:
         self.join(i, seed)
 
     def join(self, joiner: int, seed: int) -> None:
-        self.state = sim.admin_join(self.state, joiner, seed)
+        if self.backend == "delta":
+            self.state = sdelta.admin_join(self.state, joiner, seed)
+        else:
+            self.state = sim.admin_join(self.state, joiner, seed)
 
     def leave(self, i: int) -> None:
-        self.state = sim.admin_leave(self.state, i)
+        if self.backend == "delta":
+            self.state = sdelta.admin_leave(self.state, i)
+        else:
+            self.state = sim.admin_leave(self.state, i)
 
     def partition(self, groups: Sequence[Sequence[int]]) -> None:
         """Disconnect the given groups from each other.  A partition that
         covers every node takes the int32[N] group-id form; a partial one
         (ungrouped nodes reach everyone) the bool[N, N] mask.  A net that
-        already carries a mask keeps the mask form."""
+        already carries a mask keeps the mask form.  The delta backend
+        takes the group-id form only."""
         gid = groups_to_gid(groups, self.n)
         keep_mask = self.net.adj is not None and self.net.adj.dim() == 2
         if (gid >= 0).all() and not keep_mask:
             self.net = self.net._replace(adj=torch.as_tensor(gid).to(self.device))
             return
+        if self.backend == "delta":
+            raise NotImplementedError(
+                "delta-backend partitions must cover every node (group-id "
+                "adjacency); partial groupings need the dense mask form"
+            )
         same = (gid[:, None] == gid[None, :]) | (gid[:, None] < 0) | (gid[None, :] < 0)
         self.net = self.net._replace(adj=torch.as_tensor(same).to(self.device))
 
@@ -234,3 +303,29 @@ class SimCluster:
 
     def set_loss(self, p: float) -> None:
         self.params = self.params._replace(loss=float(p))
+        self.dparams = self.dparams._replace(swim=self.params)
+
+    # -- delta maintenance (no-ops on the dense backend) -------------------------
+
+    def compact(self) -> None:
+        """Drop delta slots healed back to the base (``swim_delta.compact``)."""
+        if self.backend == "delta":
+            self.state = sdelta.compact(self.state)
+
+    def rebase(self, anti_entropy: bool = False) -> None:
+        """Fold majority divergence into the base (``swim_delta.rebase``)."""
+        if self.backend == "delta":
+            self.state = sdelta.rebase(self.state, anti_entropy=anti_entropy)
+
+    # -- not ported yet ------------------------------------------------------------
+
+    def enable_delay(self, depth: int) -> None:
+        raise NotImplementedError("the in-flight claim buffers (per-link delay) are not ported yet")
+
+    def split_sides(self, groups: Sequence[Sequence[int]]) -> None:
+        if self.backend != "delta":
+            raise ValueError("split_sides is a delta-backend operation")
+        raise NotImplementedError("the delta backend's sided mode is not ported yet")
+
+    def fold_sides(self) -> None:
+        raise NotImplementedError("the delta backend's sided mode is not ported yet")

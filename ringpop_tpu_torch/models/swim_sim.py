@@ -292,7 +292,9 @@ def _drop(key: torch.Tensor, shape: tuple, loss: float, device: torch.device) ->
     if loss <= 0.0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
     u = prng.uniform(key, shape, device=device)
-    return u < torch.tensor(loss, dtype=torch.float32, device=device)
+    # float32 threshold made by a fill: a host tensor would be copied in
+    # and wait for the card
+    return u < torch.full((), loss, dtype=torch.float32, device=device)
 
 
 def _drop_net(
@@ -303,6 +305,27 @@ def _drop_net(
     if net.link_src is not None:
         raise NotImplementedError("NetState link rules are not ported yet")
     return _drop(key, shape, loss, rows.device)
+
+
+def _sweep_divisor(phase_mod: int, per: torch.Tensor | None) -> None:
+    """Per-node sweep-advance divisor for staggered protocol periods; the
+    lockstep form (``phase_mod == 1``, no period tensor) has none, and is
+    the only form ported."""
+    if per is not None:
+        raise NotImplementedError("NetState.period (per-node periods) is not ported yet")
+    if not isinstance(phase_mod, int) or phase_mod > 1:
+        raise NotImplementedError("phase_mod > 1 (staggered periods) is not ported yet")
+    return None
+
+
+def _stagger_send_gate(
+    sends: torch.Tensor, tick: torch.Tensor, n: int, phase_mod: int,
+    per: torch.Tensor | None,
+) -> torch.Tensor:
+    """Probe-initiation gate for staggered periods: in the lockstep form
+    every node initiates every tick, so ``sends`` passes unchanged."""
+    _sweep_divisor(phase_mod, per)
+    return sends
 
 
 def _adj(net: NetState, rows, cols) -> torch.Tensor | bool:

@@ -1,19 +1,27 @@
-"""Where a dense tick's time goes on the card.
+"""Where a tick's time goes on the card.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
-    python3 -m ringpop_tpu_torch.profile_tick [--n 10000] [--ticks 3]
+    python3 -m ringpop_tpu_torch.profile_tick [--backend dense|delta] [--n N] [--ticks 3]
 
 It drives ``SimCluster(n, SwimParams(loss=0.01), seed=0)``, the BASELINE
-config 3 deployment, through two windows of ``--ticks`` ticks each under
-``torch.profiler``: a steady window (no membership change in flight, the
-ping-req exchange skipped) and a churn window right after a node is
-killed and suspected (the exchange stages run).  For each window it
-prints the wall time per tick, the device-busy time per tick (the sum of
-kernel times, so the idle share is ``1 - busy / wall``), the step's
-phase spans (``swim.*`` labels: the device time of the kernels
-launched inside each, and its host time), the costliest kernels, and
-the port's own CUDA kernels.
+config 3 protocol, on the dense backend (default n = 10 000) or on the
+delta backend with the reference's default caps (default n = 65 536,
+the BASELINE north star), through two windows of ``--ticks`` ticks each
+under ``torch.profiler``: a steady window (no node killed yet; at
+n = 10 000 no change is in flight and the ping-req exchange skips, at
+n = 65 536 lost pings keep some suspicion in flight) and a churn window
+right after a node is killed and suspected.  Each window runs twice
+from the same state, net and key: once unprofiled, for the wall time
+per tick, then under the profiler, for the device-busy time per tick
+(the sum of kernel times) and the spans, so the idle share is
+``1 - busy / wall`` of the same ticks (the profiler's own host cost
+inflates its wall for a tick of thousands of small launches; that
+profiled share is printed beside it).  It also prints the host syncs
+per tick (counted by ``torch.cuda.set_sync_debug_mode``), the step's
+phase spans (``swim.*`` and ``delta.*`` labels: the device time
+of the kernels launched inside each, and its host time), the costliest
+kernels, and the port's own CUDA kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
+import warnings
 
 import torch
 from torch.autograd import DeviceType
@@ -29,24 +38,46 @@ from torch.profiler import ProfilerActivity, profile
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.cluster import SimCluster
 
+SPANS = ("swim.", "delta.")
+PORT_KERNELS = (
+    "recv_merge_kernel", "farmhash32_kernel", "row_searchsorted_kernel", "merge_insert_kernel",
+)
+
 
 def _window(c: SimCluster, ticks: int, label: str, top: int) -> None:
+    # the step never writes its inputs, so the window replays from here
+    start = (c.state, c.net, c.key)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        c.tick()
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    c.state, c.net, c.key = start
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            c.tick()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                for _ in range(ticks):
+                    c.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    syncs = sum("synchroniz" in str(w.message) for w in caught) / ticks
     events = prof.key_averages()
     # device rows are kernels and copies, plus the device-side copies of
-    # the swim.* labels (span lengths, left out of the busy sum)
+    # the span labels (span lengths, left out of the busy sum)
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in on_device if not e.key.startswith("swim.")]
+    kernels = [e for e in on_device if not e.key.startswith(SPANS)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
-    print(f"[{label}] wall {wall_ms:.3f} ms/tick, device busy {busy_ms:.3f} ms/tick, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}")
-    spans = sorted((e for e in events if e.key.startswith("swim.") and e.device_type != DeviceType.CUDA),
+    print(f"[{label}] wall {bare_ms:.3f} ms/tick unprofiled, "
+          f"{wall_ms:.3f} ms/tick profiled; device busy {busy_ms:.3f} ms/tick; idle share "
+          f"{1 - busy_ms / bare_ms:.3f} unprofiled, {1 - busy_ms / wall_ms:.3f} profiled; "
+          f"host syncs {syncs:g}/tick")
+    spans = sorted((e for e in events if e.key.startswith(SPANS) and e.device_type != DeviceType.CUDA),
                    key=lambda e: -e.device_time_total)
     for e in spans:
         print(f"[{label}]   span {e.key:<22} kernels {e.device_time_total / 1e3 / ticks:9.3f} "
@@ -57,28 +88,32 @@ def _window(c: SimCluster, ticks: int, label: str, top: int) -> None:
               f"x{e.count / ticks:g}  {e.key[:100]}")
     # the port's own kernels, launched through ctypes rather than ATen
     for e in kernels:
-        if "recv_merge_kernel" in e.key or "farmhash32_kernel" in e.key:
+        if any(name in e.key for name in PORT_KERNELS):
             print(f"[{label}]   port kernel {e.self_device_time_total / 1e3 / ticks:9.3f} "
                   f"ms/tick x{e.count / ticks:g}  {e.key[:100]}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=10_000)
+    ap.add_argument("--backend", choices=("dense", "delta"), default="dense")
+    ap.add_argument("--n", type=int, default=None,
+                    help="cluster size (default 10000 dense, 65536 delta)")
     ap.add_argument("--ticks", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick needs a CUDA card")
+    n = args.n or (65_536 if args.backend == "delta" else 10_000)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
-    c = SimCluster(args.n, sim.SwimParams(loss=0.01), seed=0, device="cuda")
+    print(f"backend {args.backend}, n {n}")
+    c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend=args.backend)
     for _ in range(3):
         c.tick()
     _window(c, args.ticks, "steady", args.top)
-    c.kill(args.n // 3)
+    c.kill(n // 3)
     for _ in range(2):
         c.tick()
     _window(c, args.ticks, "churn", args.top)

@@ -109,8 +109,9 @@ def test_cluster_surface():
 def test_unported_backends_raise():
     from ringpop_tpu_torch.models.cluster import SimCluster
 
+    delta = SimCluster(8, backend="delta", capacity=4, device="cpu")  # ported
     with pytest.raises(NotImplementedError):
-        SimCluster(8, backend="delta", device="cpu")
+        delta.enable_delay(3)
     with pytest.raises(NotImplementedError):
         SimCluster(8, damping=True, device="cpu")
     with pytest.raises(ValueError):

@@ -11,9 +11,19 @@ numpy arrays.  ``run_port`` drives the port through
 the same ops, and ``assert_same_trajectory`` compares the two exactly.
 
 A case is ``{"name", "n", "params", "seed", "init", "checksums",
-"ops"}``; each op is ``["tick", k]`` or a ``SimCluster`` method name
-with its arguments (``["kill", 3]``, ``["partition", [[0, 1], [2]]]``,
-``["heal_partition"]``, ...), the same on both sides.
+"ops"}``, plus for the delta backend ``"backend": "delta"`` and its
+caps under ``"caps"`` (``capacity``, ``wire_cap``, ``claim_grid``);
+each op is ``["tick", k]`` or a ``SimCluster`` method name with its
+arguments (``["kill", 3]``, ``["partition", [[0, 1], [2]]]``,
+``["heal_partition"]``, ``["rebase", True]``, ...), the same on both
+sides.  ``run_references`` runs the cases once per reference lowering
+(``DELTA_LOWERINGS``: environment variables that the reference reads
+when it is imported), one child process each, side by side.
+
+``run_reference_calls`` evaluates single reference functions on given
+arrays in one child process, for the unit tests of single port
+functions; ``flatten_outputs`` lays the port's results out the same
+way.
 """
 
 from __future__ import annotations
@@ -30,8 +40,18 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STATE_FIELDS = ("view_key", "pb", "suspect_left", "tick")
+DELTA_FIELDS = (
+    "base_key", "bp_mask", "bp_rank", "bp_list", "d_subj", "d_key", "d_pb", "d_sl",
+    "tick", "overflow_drops", "digest",
+)
 
-_REFERENCE = r"""
+
+def case_fields(case: dict) -> tuple[str, ...]:
+    return DELTA_FIELDS if case.get("backend") == "delta" else STATE_FIELDS
+
+
+# The two runtime patches for jax 0.9, applied only in child processes.
+_PATCHES = r"""
 import json, sys
 import numpy as np
 from jax.experimental.pallas import tpu as pltpu
@@ -39,6 +59,9 @@ if not hasattr(pltpu, "TPUMemorySpace"):
     pltpu.TPUMemorySpace = pltpu.MemorySpace
 from jax._src.interpreters import batching
 type(batching.primitive_batchers).__contains__ = lambda self, key: True
+"""
+
+_REFERENCE = _PATCHES + r"""
 from ringpop_tpu.models import swim_sim as sim
 from ringpop_tpu.models.cluster import SimCluster
 
@@ -47,19 +70,20 @@ with open(sys.argv[1]) as f:
 out = {}
 for case in cases:
     name = case["name"]
+    fields = case["fields"]
     c = SimCluster(case["n"], sim.SwimParams(**case.get("params", {})),
-                   seed=case.get("seed", 0), init=case.get("init", "converged"))
+                   seed=case.get("seed", 0), init=case.get("init", "converged"),
+                   backend=case.get("backend", "dense"), **case.get("caps", {}))
     snaps = []
     def snap():
-        snaps.append({f: np.asarray(getattr(c.state, f)) for f in
-                      ("view_key", "pb", "suspect_left", "tick")})
+        snaps.append({f: np.asarray(getattr(c.state, f)) for f in fields})
     snap()
     t = 0
     for op in case["ops"]:
         if op[0] != "tick":
             getattr(c, op[0])(*op[1:])
             continue
-        for f in ("view_key", "pb", "suspect_left", "tick"):
+        for f in fields:
             out[f"{name}/pre{t}/{f}"] = np.asarray(getattr(c.state, f))
         out[f"{name}/key{t}"] = np.asarray(c.key)
         out[f"{name}/up{t}"] = np.asarray(c.net.up)
@@ -74,25 +98,135 @@ for case in cases:
             out[f"{name}/ck{t}_addr"] = np.array(list(ck), dtype=object).astype(str)
             out[f"{name}/ck{t}_val"] = np.array(list(ck.values()), dtype=np.int64)
         t += 1
-    for f in ("view_key", "pb", "suspect_left", "tick"):
+    for f in fields:
         out[f"{name}/{f}"] = np.stack([s[f] for s in snaps])
 np.savez_compressed(sys.argv[2], **out)
 """
 
 
+# The delta reference's two lowerings of its kernel sites: the XLA
+# defaults, and the Pallas kernels (interpret mode on the CPU) that the
+# port's CUDA kernels replace.  The switches are read when the reference
+# module is imported, so each lowering runs in its own child process.
+DELTA_LOWERINGS = {
+    "default": {},
+    "pallas": {"RINGPOP_WIDE_METHOD": "pallas", "RINGPOP_DELTA_MERGE": "pallas"},
+}
+
+
 def run_reference(cases: list[dict], tmp_dir: str) -> dict[str, np.ndarray]:
     """Run ``cases`` through the JAX reference in a child process."""
+    return run_references(cases, tmp_dir, {"default": {}})["default"]
+
+
+def run_references(
+    cases: list[dict], tmp_dir: str, envs: dict[str, dict[str, str]]
+) -> dict[str, dict[str, np.ndarray]]:
+    """Run ``cases`` through the JAX reference once per entry of
+    ``envs`` (name -> extra environment), one child process each, all
+    at once; returns each run's trajectories under its name."""
     spec = os.path.join(tmp_dir, "cases.json")
-    out = os.path.join(tmp_dir, "reference.npz")
     with open(spec, "w") as f:
-        json.dump(cases, f)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+        json.dump([{**c, "fields": list(case_fields(c))} for c in cases], f)
+    procs = {}
+    for name, extra in envs.items():
+        out = os.path.join(tmp_dir, f"reference-{name}.npz")
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, "-c", _REFERENCE, spec, out],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    results = {}
+    try:
+        for name, (out, proc) in procs.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"reference run {name!r} failed:\n{err[-4000:]}")
+            with np.load(out) as z:
+                results[name] = {k: z[k] for k in z.files}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+# Calls of single reference functions: each call names a module of
+# ``ringpop_tpu.models`` and a function in it, and its arguments, each
+# ``["array", key]`` (an array of the npz handed over), ``["delta_state",
+# {field: key}]`` (a ``DeltaState`` of such arrays) or ``["py", value]``.
+_CALLS = _PATCHES + r"""
+import jax.numpy as jnp
+from ringpop_tpu.models import swim_delta, swim_sim
+
+with open(sys.argv[1]) as f:
+    calls = json.load(f)
+z = np.load(sys.argv[2])
+mods = {"swim_delta": swim_delta, "swim_sim": swim_sim}
+
+def arg(a):
+    kind, v = a
+    if kind == "array":
+        return jnp.asarray(z[v])
+    if kind == "delta_state":
+        return swim_delta.DeltaState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
+    return v
+
+out = {}
+def flat(x, key):
+    if x is None:
+        return
+    if hasattr(x, "_asdict"):
+        for f, v in x._asdict().items():
+            flat(v, f"{key}/{f}")
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            flat(v, f"{key}/{i}")
+    else:
+        out[key] = np.asarray(x)
+
+for c in calls:
+    fn = getattr(mods[c["module"]], c["fn"])
+    flat(fn(*[arg(a) for a in c["args"]], **c.get("kwargs", {})), c["name"])
+np.savez_compressed(sys.argv[3], **out)
+"""
+
+
+def flatten_outputs(x, key: str, out: dict) -> dict:
+    """Numpy leaves of a (nested) result under ``key/field`` or
+    ``key/index`` names, None leaves left out: the child's layout."""
+    if x is None:
+        return out
+    if hasattr(x, "_asdict"):
+        for f, v in x._asdict().items():
+            flatten_outputs(v, f"{key}/{f}", out)
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            flatten_outputs(v, f"{key}/{i}", out)
+    else:
+        out[key] = x.numpy() if torch.is_tensor(x) else np.asarray(x)
+    return out
+
+
+def run_reference_calls(
+    calls: list[dict], arrays: dict[str, np.ndarray], tmp_dir: str
+) -> dict[str, np.ndarray]:
+    """Evaluate single reference functions in one child process (the
+    default lowering); returns the flattened outputs of every call."""
+    spec = os.path.join(tmp_dir, "calls.json")
+    inputs = os.path.join(tmp_dir, "call-inputs.npz")
+    out = os.path.join(tmp_dir, "call-outputs.npz")
+    with open(spec, "w") as f:
+        json.dump(calls, f)
+    np.savez(inputs, **arrays)
     proc = subprocess.run(
-        [sys.executable, "-c", _REFERENCE, spec, out],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+        [sys.executable, "-c", _CALLS, spec, inputs, out],
+        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"reference run failed:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"reference calls failed:\n{proc.stderr[-4000:]}")
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
 
@@ -104,6 +238,7 @@ def port_cluster(case: dict):
     return SimCluster(
         case["n"], tsim.SwimParams(**case.get("params", {})),
         seed=case.get("seed", 0), init=case.get("init", "converged"), device="cpu",
+        backend=case.get("backend", "dense"), **case.get("caps", {}),
     )
 
 
@@ -118,7 +253,7 @@ def run_port(case: dict, on_tick=None) -> list[dict]:
             getattr(c, op[0])(*op[1:])
             continue
         m = c.tick(op[1])
-        recs.append({"metrics": m, **{f: c.state._asdict()[f].numpy() for f in STATE_FIELDS}})
+        recs.append({"metrics": m, **{f: c.state._asdict()[f].numpy() for f in case_fields(case)}})
         if on_tick is not None:
             on_tick(len(recs) - 1, c)
     return recs
@@ -128,7 +263,7 @@ def assert_same_trajectory(ref: dict[str, np.ndarray], case: dict, recs: list[di
     """Every state field and metric equal on every tick op."""
     name = case["name"]
     for t, rec in enumerate(recs):
-        for f in STATE_FIELDS:
+        for f in case_fields(case):
             want = ref[f"{name}/{f}"][t + 1]
             np.testing.assert_array_equal(rec[f], want, err_msg=f"{name}: {f} at tick op {t}")
         want_m = {
@@ -137,6 +272,54 @@ def assert_same_trajectory(ref: dict[str, np.ndarray], case: dict, recs: list[di
         }
         got_m = {k: v for k, v in rec["metrics"].items() if k != "ticks"}
         assert got_m == {k: v for k, v in want_m.items() if k != "ticks"}, (name, t)
+
+
+def step_from_reference(ref: dict, case: dict, t: int):
+    """The port's ``delta_step_impl`` from the reference's state, net and
+    key before tick op ``t`` (a one-tick op): (state, metrics)."""
+    from ringpop_tpu_torch import convert, prng
+    from ringpop_tpu_torch.models import swim_delta as tdelta
+    from ringpop_tpu_torch.models import swim_sim as tsim
+
+    name = case["name"]
+    state = convert.delta_state_from_numpy(
+        {f: ref[f"{name}/pre{t}/{f}"] for f in DELTA_FIELDS}, device="cpu"
+    )
+    net = tsim.make_net(case["n"], device="cpu")._replace(
+        up=torch.as_tensor(ref[f"{name}/up{t}"]),
+        responsive=torch.as_tensor(ref[f"{name}/responsive{t}"]),
+        adj=torch.as_tensor(ref[f"{name}/adj{t}"]) if f"{name}/adj{t}" in ref else None,
+    )
+    _, sub = prng.split(convert.key_from_numpy(ref[f"{name}/key{t}"]))
+    params = tdelta.DeltaParams(swim=tsim.SwimParams(**case.get("params", {})),
+                                **{k: v for k, v in case["caps"].items() if k != "capacity"})
+    return tdelta.delta_step_impl(state, net, sub, params)
+
+
+def assert_steps_from_reference(ref: dict, case: dict) -> int:
+    """Every one-tick op of ``case``, stepped from the reference's own
+    pre-tick state: every field (with its reference dtype) and metric;
+    returns how many were checked."""
+    from ringpop_tpu_torch import convert
+
+    ticks = [op for op in case["ops"] if op[0] == "tick"]
+    checked = 0
+    for t, op in enumerate(ticks):
+        if op[1] != 1:
+            continue
+        state, metrics = step_from_reference(ref, case, t)
+        got = convert.delta_state_to_numpy(state)
+        for f in DELTA_FIELDS:
+            want = ref[f"{case['name']}/{f}"][t + 1]
+            assert got[f].dtype == want.dtype, (case["name"], t, f)
+            np.testing.assert_array_equal(got[f], want, err_msg=f"{case['name']}: {f} at {t}")
+        want_m = {k.rsplit("/", 1)[1]: int(v) for k, v in ref.items()
+                  if k.startswith(f"{case['name']}/m{t}/")}
+        assert {k: int(v) for k, v in metrics.items()} == {
+            k: v for k, v in want_m.items() if k != "ticks"
+        }, (case["name"], t)
+        checked += 1
+    return checked
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +334,14 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.ops.recv_merge",
     "ringpop_tpu_torch.ops.farmhash",
     "ringpop_tpu_torch.ops.checksum_device",
+    "ringpop_tpu_torch.ops.bitpack",
+    "ringpop_tpu_torch.ops.searchsorted",
+    "ringpop_tpu_torch.ops.delta_merge",
     "ringpop_tpu_torch.models.swim_sim",
+    "ringpop_tpu_torch.models.swim_delta",
     "ringpop_tpu_torch.models.checksum",
     "ringpop_tpu_torch.models.cluster",
+    "ringpop_tpu_torch.profile_tick",
 )
 
 
