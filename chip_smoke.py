@@ -30,7 +30,23 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    checksums of a stated sample of rows; the launch counters of the
    row-searchsorted, merge-insert and FarmHash kernels must have risen
    during this phase;
-7. print the ``kernels`` JSON line, then the result line.
+7. the dense ring path: BASELINE config 3 sharded over D = 4 shards on
+   the card (``parallel.sharded_step``, every cross-shard transfer a
+   launch of the ring-hop kernel): the sharded step and the unsharded
+   step run in lockstep from the same state and keys for the 5 ticks
+   before the kill of node 4242 and the 5 after it, every field and
+   metric equal on every tick; then the sharded step alone until every
+   live node holds the victim faulty and the views converge, which must
+   take as many ticks as the unsharded main path of phase 5, and the
+   device checksums must form one group; the hop kernel's launch counter
+   must have risen;
+8. the delta ring path: phase 6's cluster sharded over D = 4 shards
+   (``parallel.sharded_delta_step``), in lockstep with the unsharded
+   delta step for 5 + 5 ticks around the kill of node 54321, then alone
+   to convergence in as many ticks as phase 6 took, and the sample
+   checksums; the hop, row-searchsorted and merge-insert kernels must
+   have been launched by the sharded step alone;
+9. print the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -52,6 +68,8 @@ VICTIM_DELTA = 54_321
 DELTA_CAPS = {"capacity": 256, "wire_cap": 16, "claim_grid": 64}  # reference defaults
 CHECKSUM_SAMPLE = 64  # live rows hashed at n = 65,536, spread over the ids
 MAX_TICKS = 150
+SHARDS = 4  # ring size of the sharded paths, all shards on the one card
+LOCKSTEP = 5  # sharded == unsharded ticks on each side of the kill
 SENTINEL = (1 << 31) - 1
 SUSPECT = 2
 SL_START = 26
@@ -362,6 +380,62 @@ def check_merge_insert(torch, dev) -> dict:
     }
 
 
+def check_ring_hop(torch, dev) -> dict:
+    from ringpop_tpu_torch.ops.gossip_remote_copy import hop, hop_plain
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def stack(shape, dtype):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=gen, device=dev) < 0.5
+        return torch.randint(-(1 << 30), 1 << 30, shape, generator=gen, device=dev).to(dtype)
+
+    dense_shape = (SHARDS, N_MAIN // SHARDS, N_MAIN)  # the dense path's view plane
+    delta_shape = (SHARDS, N_DELTA // SHARDS, DELTA_CAPS["capacity"])  # a delta table
+    # the three widths of the kernel: 16-byte steps (the main shapes, and
+    # int64 at D = 8), 4-byte steps (a 140-byte block at D = 2, an int8
+    # block of 17 000 bytes at D = 3, and a stack whose base is only
+    # 4-byte aligned), byte steps (a bool block of 63 bytes)
+    shaped = [(dense_shape, torch.int32), (delta_shape, torch.int32), ((4, 7, 9), torch.bool),
+              ((2, 5, 7), torch.int32), ((3, 1000, 17), torch.int8), ((8, 64, 3), torch.int64)]
+    err = 0
+    cases = [stack(shape, dtype) for shape, dtype in shaped]
+    cases.append(stack((1 + 4 * 64,), torch.int32)[1:].view(4, 64))
+    for x in cases:
+        got, want = hop(x), hop_plain(x)
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"ring_hop kernel != plain at {x.dtype}{list(x.shape)} "
+                                 f"(max abs err {err})")
+    del cases
+    rows = {}
+    for shape in (dense_shape, delta_shape):
+        x = stack(shape, torch.int32)
+        block_bytes = x[0].numel() * x.element_size()
+        moved = 2 * shape[0] * block_bytes  # each block read once and written once
+        rows[shape] = {
+            "ms": time_ms(torch, lambda: hop(x)),
+            "plain_ms": time_ms(torch, lambda: hop_plain(x)),
+            "library_ms": time_ms(torch, lambda: torch.roll(x, 1, dims=0)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "moved": moved,
+        }
+        del x
+    for shape, r in rows.items():
+        log(f"ring_hop at int32{list(shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, torch.roll {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"(2 * D * block_bytes = {r['moved']} at 3.35 TB/s)")
+    done = ", ".join(f"{dt}{list(sh)}" for sh, dt in shaped)
+    log(f"ring_hop: exact at {done} and a 4-byte-aligned int32[4, 64] view")
+    r = rows[dense_shape]
+    return {
+        "name": "ring_hop", "route": "cuda",
+        "source": "ringpop_tpu_torch/csrc/ring_hop.cu",
+        "replaces": "ringpop_tpu/ops/gossip_remote_copy.py:184",
+        "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"],
+    }
+
+
 def check_cuda_equals_cpu(torch) -> None:
     from ringpop_tpu_torch.models.cluster import SimCluster
     from ringpop_tpu_torch.models.swim_sim import SwimParams
@@ -510,7 +584,7 @@ def main_path(torch) -> dict:
         raise AssertionError(f"device checksums {dev_sums} != host {host}")
     log(f"checksums: device == host (pure Python) on live rows {[int(i) for i in live]}")
     check_farmhash_real_rows(torch, c)
-    return launches
+    return launches, detected
 
 
 def delta_main_path(torch) -> dict:
@@ -604,6 +678,138 @@ def delta_main_path(torch) -> dict:
     if host != {a: sums[a] for a in host}:
         raise AssertionError(f"delta device checksums != host on rows {host_rows}")
     log(f"delta checksums: device == host (pure Python) on live rows {host_rows}")
+    return launches, detected
+
+
+def _same_state(torch, a, b, what: str) -> None:
+    for f, x in a._asdict().items():
+        y = getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: {f} differs between the sharded and unsharded step")
+
+
+def ring_path(torch, backend: str, converge_ticks: int) -> dict:
+    """The main path of ``backend`` sharded over SHARDS shards on the
+    card, held tick for tick against the unsharded step around the kill,
+    then alone to convergence; returns the launches per kernel of the
+    phase and of its sharded-only part."""
+    import numpy as np
+
+    from ringpop_tpu_torch import parallel, prng
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.gossip_remote_copy import hop
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    counted = {"ring_hop": hop, "recv_merge": recv_merge, "farmhash32": farmhash32_batch,
+               "row_searchsorted": row_searchsorted, "merge_insert": merge_insert}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+
+    delta = backend == "delta"
+    n, victim = (N_DELTA, VICTIM_DELTA) if delta else (N_MAIN, VICTIM)
+    params = sim.SwimParams(loss=0.01)
+    kw = dict(backend="delta", **DELTA_CAPS) if delta else {}
+    c = SimCluster(n, params, seed=0, device="cuda", **kw)  # carries the sharded run
+    twin = SimCluster(n, params, seed=0, device="cuda", **kw)  # the unsharded step
+    mesh = parallel.make_mesh(devices=[torch.device("cuda")] * SHARDS)
+    if delta:
+        c.state = parallel.shard_delta(c.state, mesh)
+        step = parallel.sharded_delta_step(mesh)
+        step_params = c.dparams
+    else:
+        c.state, c.net = parallel.shard_cluster(c.state, c.net, mesh)
+        step = parallel.sharded_step(mesh)
+        step_params = params
+    tick_ms = []
+
+    def sharded_tick() -> dict:
+        # SimCluster.tick(1)'s key schedule, through the sharded step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.key, sub = prng.split(c.key)
+        c.state, metrics = step(c.state, c.net, sub, step_params)
+        values = torch.stack(list(metrics.values())).tolist()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        return dict(zip(metrics.keys(), (int(v) for v in values)))
+
+    def lockstep_tick(t: int) -> None:
+        got = sharded_tick()
+        want = {k: v for k, v in twin.tick().items() if k != "ticks"}
+        if got != want:
+            raise AssertionError(f"{backend} ring tick {t}: metrics differ: sharded {got} "
+                                 f"unsharded {want}")
+        _same_state(torch, c.state, twin.state, f"{backend} ring tick {t}")
+
+    def victim_faulty() -> bool:
+        live = torch.as_tensor(c.live_indices(), device="cuda")
+        if delta:
+            col = sdelta.view_lookup(c.state, torch.full((n,), victim, dtype=torch.int32,
+                                                         device="cuda")).index_select(0, live)
+        else:
+            col = c.state.view_key[live, victim]
+        return bool(((col & 7) == sim.FAULTY).all()) and c.converged()
+
+    for t in range(LOCKSTEP):
+        lockstep_tick(t)
+    c.kill(victim)
+    twin.kill(victim)
+    phase = {name: fn.launches for name, fn in counted.items()}  # set again after the lockstep
+    detected = None
+    for t in range(1, MAX_TICKS + 1):
+        if t <= LOCKSTEP:
+            lockstep_tick(LOCKSTEP + t - 1)
+            if t == LOCKSTEP:
+                twin = None
+                phase = {name: fn.launches for name, fn in counted.items()}
+        else:
+            sharded_tick()
+        if victim_faulty():
+            detected = t
+            break
+    alone = {name: fn.launches - phase[name] for name, fn in counted.items()}
+    if detected != converge_ticks:
+        raise AssertionError(f"{backend} ring path converged {detected} ticks after the kill, "
+                             f"the unsharded path {converge_ticks}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if delta:
+        live_ids = c.live_indices()
+        spread = live_ids[np.linspace(0, len(live_ids) - 1, CHECKSUM_SAMPLE).astype(np.int64)]
+        sums = c.checksums(indices=[int(i) for i in spread] + [victim], backend="device")
+        groups = len({sums[c.book.addresses[i]] for i in spread})
+        hashed = f"a sample of {len(spread)} live rows plus the killed node's"
+    else:
+        groups = len(c.checksum_groups(backend="device"))
+        hashed = f"all {len(c.live_indices())} live rows"
+    torch.cuda.synchronize()
+    ck_ms = (time.perf_counter() - t0) * 1e3
+    if groups != 1:
+        raise AssertionError(f"{backend} ring path: {groups} checksum groups after convergence")
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{backend} ring path: n={n} over {SHARDS} shards on the card, sharded == unsharded on "
+        f"every field and metric for {2 * LOCKSTEP} ticks ({LOCKSTEP} before and after the kill "
+        f"of node {victim}); converged {detected} ticks after the kill (unsharded: "
+        f"{converge_ticks}); median sharded tick {statistics.median(tick_ms):.3f} ms over "
+        f"{len(tick_ms)} ticks (lockstep ticks {statistics.median(tick_ms[:2 * LOCKSTEP]):.3f} "
+        f"ms, alone {statistics.median(tick_ms[2 * LOCKSTEP:] or [0.0]):.3f} ms); device "
+        f"checksums of {hashed} in one group, {ck_ms:.1f} ms; peak memory {peak / 2**30:.2f} "
+        f"GiB; launches in the phase {launches}, by the sharded step alone after the "
+        f"lockstep {alone}")
+    need = ("ring_hop", "row_searchsorted", "merge_insert") if delta else ("ring_hop",)
+    for name in need:
+        if alone[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the sharded {backend} step")
+    if launches["farmhash32"] <= 0:
+        raise AssertionError(f"{backend} ring path: the checksums launched no FarmHash kernel")
     return launches
 
 
@@ -653,15 +859,20 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rows = [check_recv_merge(torch, dev), check_farmhash(torch, dev),
-            check_row_searchsorted(torch, dev), check_merge_insert(torch, dev)]
+            check_row_searchsorted(torch, dev), check_merge_insert(torch, dev),
+            check_ring_hop(torch, dev)]
     check_cuda_equals_cpu(torch)
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
-    launches = main_path(torch)
-    launches_delta = delta_main_path(torch)
+    launches, converged_dense = main_path(torch)
+    launches_delta, converged_delta = delta_main_path(torch)
+    launches_ring = ring_path(torch, "dense", converged_dense)
+    launches_ring_delta = ring_path(torch, "delta", converged_delta)
     # each kernel's launches on the main path it belongs to: the dense
     # path for the receiver merge and FarmHash, the delta path for the
-    # delta kernels (FarmHash also ran there: see the line above)
+    # delta kernels (FarmHash also ran there: see the line above), both
+    # ring paths for the hop (each printed above)
+    launches["ring_hop"] = launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
     for row in rows:
         row["launches"] = launches.get(row["name"], launches_delta.get(row["name"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

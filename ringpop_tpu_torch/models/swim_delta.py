@@ -56,6 +56,8 @@ from ringpop_tpu_torch.models.swim_sim import (
     _check_inc,
     _distinct_ranks,
     _drop_net,
+    _gather_rows,
+    _on_ring,
     _scoped,
     _stagger_send_gate,
     _sweep_divisor,
@@ -154,7 +156,16 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the first axis."""
+    """``x[idx]`` along the first axis: a plain gather, also under a
+    gossip ring, where the reference gathers plainly too (``h_post[t_safe]``
+    in phase 4, ``materialize_rows``).  Where the reference calls
+    ``_gather_rows``, the port calls ``swim_sim._gather_rows``, which runs
+    as ring hops under a ring.  Those sites, port function then
+    ``ringpop_tpu/models/swim_delta.py`` lines: the ack replies in
+    ``delta_step_impl`` (:1743-1744), ``_ack_full_sync`` (:1821-1822),
+    stage 5b ``segs_b`` (:2102-2103), 5c ``segs_c`` (:2145-2146, and the
+    witness anti-echo :2153, :2156, :2167), 5d ``segs_d`` (:2212-2213)
+    and the ring form of ``_route_claims_multi`` (:1360-1361)."""
     return x.index_select(0, idx.long())
 
 
@@ -777,8 +788,26 @@ def _route_claims_multi(
     idx = torch.clamp(starts[:, None] + ar[None, :], max=nrows - 1)
     row_ok = ar[None, :] < counts[:, None]
     src = torch.where(row_ok, order[idx], 0)
-    g_subj = torch.where(row_ok[:, :, None], rows_subj[src], SENTINEL).reshape(n, r * w)
-    g_key = torch.where(row_ok[:, :, None], rows_key[src], 0).reshape(n, r * w)
+    if _on_ring():
+        # the ring form: each segment's [N, W] payload block circulates
+        # the ring on its own and a receiver keeps the <= R rows addressed
+        # to it; the row-id arithmetic above stays replicated
+        seg_i = torch.div(src, n, rounding_mode="floor")
+        snd = src - seg_i * n  # [N, R] sender row within its segment
+        g_subj = torch.full((n, r, w), SENTINEL, dtype=torch.int32, device=dev)
+        g_key = torch.zeros((n, r, w), dtype=torch.int32, device=dev)
+        for s_i, (subj, key, valid, _) in enumerate(segments):
+            pick = row_ok & (seg_i == s_i)
+            snd_s = torch.where(pick, snd, 0)
+            f_subj = _gather_rows(torch.where(valid, subj, SENTINEL), snd_s)
+            f_key = _gather_rows(torch.where(valid, key, 0), snd_s)
+            g_subj = torch.where(pick[:, :, None], f_subj, g_subj)
+            g_key = torch.where(pick[:, :, None], f_key, g_key)
+        g_subj = g_subj.reshape(n, r * w)
+        g_key = g_key.reshape(n, r * w)
+    else:
+        g_subj = torch.where(row_ok[:, :, None], rows_subj[src], SENTINEL).reshape(n, r * w)
+        g_key = torch.where(row_ok[:, :, None], rows_key[src], 0).reshape(n, r * w)
     kept = torch.where(row_ok, rows_nvalid[src], 0).sum(dtype=torch.int32)
     dropped = rows_nvalid.sum(dtype=torch.int32) - kept
 
@@ -945,8 +974,8 @@ def delta_step_impl(
     h_post = state.digest
     rep_subj, rep_key = _windowed_changes(state, within_rep, w)
     ack = fwd_ok & _adj(net, t_safe, ids) & ~_drop_net(k_loss2, (n,), loss, net, t_safe, ids)
-    a_subj = _rows(rep_subj, t_safe)  # [N, W]
-    a_key = _rows(rep_key, t_safe)
+    a_subj = _gather_rows(rep_subj, t_safe)  # [N, W]
+    a_key = _gather_rows(rep_key, t_safe)
     a_subj_q = torch.where(a_subj < SENTINEL, a_subj, 0)
 
     # anti-echo: drop reply claims about a subject this sender delivered
@@ -1083,8 +1112,8 @@ def _ack_full_sync(
     n = st.n
     dev = st.device
     ids = _ids(n, dev)
-    fs_subj0 = _rows(st.d_subj, t_safe)  # [N, C]
-    fs_key0 = _rows(st.d_key, t_safe)
+    fs_subj0 = _gather_rows(st.d_subj, t_safe)  # [N, C]
+    fs_key0 = _gather_rows(st.d_key, t_safe)
     fs_valid0 = (fs_subj0 < SENTINEL) & fs_apply[:, None]
     m_subj = torch.cat(
         [torch.where(a_valid, a_subj, SENTINEL), torch.where(fs_valid0, fs_subj0, SENTINEL)],
@@ -1192,8 +1221,8 @@ def _exchange(
         def segs_b(st3):
             segs = []
             for m in range(kk):
-                b_subj = _rows(sb_subj, wit_safe[:, m])
-                b_key = _rows(sb_key, wit_safe[:, m])
+                b_subj = _gather_rows(sb_subj, wit_safe[:, m])
+                b_key = _gather_rows(sb_key, wit_safe[:, m])
                 segs.append((b_subj, b_key, (b_subj < SENTINEL) & ping_del[:, m][:, None], t_safe))
             return segs
 
@@ -1211,17 +1240,18 @@ def _exchange(
 
         def segs_c(st3):
             segs = []
-            subj = _rows(sc_subj, t_safe)
-            key_c = _rows(sc_key, t_safe)
+            subj = _gather_rows(sc_subj, t_safe)
+            key_c = _gather_rows(sc_key, t_safe)
             subj_q = torch.where(subj < SENTINEL, subj, 0)
             for m in range(kk):
                 w_m = wit_safe[:, m]
                 # anti-echo: the witness delivered this subject in 5b and
                 # its current belief equals the claim
-                _, in_sent = _lookup_pos(_rows(wit_sent_subj, w_m), subj_q)
-                pos_w, found_w = _lookup_pos(_rows(st3.d_subj, w_m), subj_q)
+                _, in_sent = _lookup_pos(_gather_rows(wit_sent_subj, w_m), subj_q)
+                pos_w, found_w = _lookup_pos(_gather_rows(st3.d_subj, w_m), subj_q)
                 cur_w = torch.where(
-                    found_w, _take(_rows(st3.d_key, w_m), pos_w), st3.base_key[subj_q.long()]
+                    found_w, _take(_gather_rows(st3.d_key, w_m), pos_w),
+                    st3.base_key[subj_q.long()],
                 )
                 echo = in_sent & (key_c == cur_w)
                 segs.append(
@@ -1244,8 +1274,8 @@ def _exchange(
             segs = []
             for m in range(kk):
                 w_m = wit_safe[:, m]
-                subj = _rows(sd_subj, w_m)
-                key_d = _rows(sd_key, w_m)
+                subj = _gather_rows(sd_subj, w_m)
+                key_d = _gather_rows(sd_key, w_m)
                 subj_q = torch.where(subj < SENTINEL, subj, 0)
                 _, in_sent = _lookup_pos(src_sent_subj, subj_q)
                 echo = in_sent & (key_d == view_lookup(st3, subj_q))

@@ -16,7 +16,11 @@ suspicion countdown (-1 = no timer).
 
 This slice is written functionally: every update makes new tensors and
 nothing is updated in place.  The receiver merge runs through the CUDA
-kernel of ``ops/recv_merge.py`` on the card.  Arms of the reference
+kernel of ``ops/recv_merge.py`` on the card.  Under a gossip ring
+(``parallel/mesh.py``'s sharded entry points) the cross-row seams
+``_receiver_merge``, ``_gather_rows``, ``_row_at``, ``_diag`` and
+``_row_update`` run as the ring primitives of
+``ops/gossip_remote_copy.py``, as the reference's do.  Arms of the reference
 that are not ported yet raise ``NotImplementedError``: ``sparse_cap``,
 traced knobs, ``prov``, the delay buffer, damping, link rules and
 per-node periods, ``relay_full_sync``, ``phase_mod > 1`` and
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import prng, resolve_device
+from ringpop_tpu_torch.ops import gossip_remote_copy as _grc
 from ringpop_tpu_torch.ops.farmhash import mul32
 from ringpop_tpu_torch.ops.recv_merge import recv_merge
 
@@ -343,22 +348,40 @@ def _ids(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
+def _on_ring() -> bool:
+    """Is a gossip ring active (``parallel.mesh`` opens one around its
+    sharded calls)?  Then the cross-row seams below run as the ring
+    primitives of ``ops/gossip_remote_copy.py``; exact either way."""
+    return _grc.active_ring() is not None
+
+
 def _diag(plane: torch.Tensor) -> torch.Tensor:
+    """``torch.diagonal(plane)``, routed like ``_row_at``."""
+    if _on_ring():
+        return _grc.ring_take_per_row(plane, _ids(plane.shape[0], plane.device))
     return torch.diagonal(plane)
 
 
 def _row_at(plane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     """``plane[arange(N), col]``: viewer i's entry for column col[i]."""
+    if _on_ring():
+        return _grc.ring_take_per_row(plane, col)
     return plane[_ids(plane.shape[0], plane.device), col]
 
 
 def _row_update(plane: torch.Tensor, col: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """A copy of ``plane`` with ``plane[i, col[i]] = values[i]``."""
+    if _on_ring():
+        return _grc.ring_update_per_row(plane, col, values)
     return plane.index_put((_ids(plane.shape[0], plane.device), col), values)
 
 
 def _gather_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return plane.index_select(0, idx)
+    """``plane[idx]`` for a member plane indexed across rows: ring hops
+    under a gossip ring, a plain gather otherwise."""
+    if _on_ring():
+        return _grc.ring_fetch_rows(plane, idx)
+    return plane.index_select(0, idx.long())
 
 
 class _Merge(NamedTuple):
@@ -382,7 +405,7 @@ def _merge_incoming(
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     cur_key = state.view_key
     # Refutation: only the diagonal can carry a rumor about self.
-    in_self = _diag(in_key)
+    in_self = torch.diagonal(in_key)
     self_status = in_self & 7
     refuted = active & ((self_status == SUSPECT) | (self_status == FAULTY))
     self_inc = _diag(cur_key) >> 3
@@ -560,7 +583,10 @@ def _receiver_merge(
     t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(in_key int32[N, N], inbound int32[N]): per-receiver lattice max of
-    the delivered claim rows, and the delivered-ping count."""
+    the delivered claim rows, and the delivered-ping count.  Under a
+    gossip ring, the D-1-hop ring merge; otherwise the kernel."""
+    if _on_ring():
+        return _grc.ring_recv_merge(t_safe, fwd_ok, claim_rows)
     return recv_merge(t_safe, fwd_ok, claim_rows)
 
 
@@ -730,7 +756,7 @@ def _phase5_pingreq(
         state = st
 
     # the declaration sees the post-exchange view
-    was_alive_at_target = (_row_at(state.view_key, t_safe) & 7) == ALIVE
+    was_alive_at_target = (state.view_key[ids, t_safe] & 7) == ALIVE
     state, declared = _declare(state, declare_suspect, t_safe, SUSPECT, sl_start)
     return _PingReq(state, failed, declare_suspect, declared, was_alive_at_target, applied)
 
@@ -751,7 +777,7 @@ def _phase6_expiry(
 
 def converged_impl(state: ClusterState, net: NetState) -> torch.Tensor:
     """Exact view agreement among live (gossiping) nodes: bool[]."""
-    own = _diag(state.view_key) & 7
+    own = torch.diagonal(state.view_key) & 7
     live = net.up & net.responsive & ((own == ALIVE) | (own == SUSPECT))
     ref = torch.argmax(live.to(torch.uint8))
     row_same = (state.view_key == state.view_key[ref][None, :]).all(dim=1)

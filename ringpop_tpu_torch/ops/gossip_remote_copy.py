@@ -1,0 +1,320 @@
+"""Point-to-point gossip plane: the ring primitives of the sharded step.
+
+The port of ``ringpop_tpu/ops/gossip_remote_copy.py``.  Under a ring
+context the member axis is cut into D contiguous row blocks, one per
+shard, and the step's cross-row traffic moves between shards only as
+rightward ring hops: each shard's block goes to its right neighbour.
+Five primitives, all exact (each is a selection or a scatter with a
+commutative combiner, never a re-association):
+
+* ``ring_recv_merge(t_safe, fwd_ok, claim_rows)`` -- the receiver merge
+  (``models/swim_sim._receiver_merge``): sender blocks circulate, and at
+  each hop every shard scatter-maxes the rows addressed to its own
+  receivers;
+* ``ring_fetch_rows(plane, idx)`` -- ``plane[idx]`` with ``idx`` aligned
+  to the member axis: the plane's blocks circulate, and each shard picks
+  its rows out of the passing block;
+* ``ring_fetch_global(plane, idx)`` -- the same with a replicated ``idx``
+  and a replicated output;
+* ``ring_take_per_row`` / ``ring_update_per_row`` -- each viewer row reads
+  or writes one of its own columns: row-local, no hop.
+
+Placement: all D shards live on one card.  A primitive holds its D
+blocks as one stacked ``[D, n/D, ...]`` tensor and runs the per-shard
+body of the reference primitive batched over the shard axis, so one hop
+is one launch of the CUDA kernel ``csrc/ring_hop.cu`` (the port of the
+TPU kernel ``_hop_kernel``), which copies block i into block
+(i + 1) mod D of a fresh stack.  CPU tensors take ``hop_plain``.  The
+hop stays a copy into the neighbour's buffer, never a relabelling of
+blocks: across cards it becomes the peer write.
+
+The ring the primitives run over comes from an ambient context, not an
+argument: ``parallel/mesh.py`` opens ``ring_mesh(mesh)`` around its calls
+and the models ask ``active_ring()``, so ``models/`` imports nothing of
+``parallel/``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import Any, Iterator
+
+import torch
+
+from ringpop_tpu_torch import _build
+
+# ---------------------------------------------------------------------------
+# Ambient ring context
+# ---------------------------------------------------------------------------
+
+_RING_STACK: list[tuple[Any, str]] = []
+
+
+@contextlib.contextmanager
+def ring_mesh(mesh: Any, axis: str | None = None) -> Iterator[None]:
+    """Make ``mesh`` (a ``parallel.mesh.Mesh``) the ambient gossip ring
+    for calls in this block.  ``axis`` defaults to the mesh's single
+    axis name.  Re-entrant: the innermost context wins."""
+    if axis is None:
+        (axis,) = mesh.axis_names
+    _RING_STACK.append((mesh, axis))
+    try:
+        yield
+    finally:
+        _RING_STACK.pop()
+
+
+def active_ring() -> tuple[Any, str] | None:
+    """The innermost ``ring_mesh`` context, or None outside any."""
+    return _RING_STACK[-1] if _RING_STACK else None
+
+
+def ring_devices() -> int:
+    """Ring size of the active context (0 when no ring is active)."""
+    ring = active_ring()
+    if ring is None:
+        return 0
+    mesh, axis = ring
+    return mesh.shape[axis]
+
+
+# ---------------------------------------------------------------------------
+# Hop transport: one rightward ring shift of each shard's block
+# ---------------------------------------------------------------------------
+
+
+def ring_perm(d: int) -> list[tuple[int, int]]:
+    """The rightward ring permutation: shard i's block goes to i+1."""
+    return [(i, (i + 1) % d) for i in range(d)]
+
+
+def block_origin(me: int, hop: int, d: int) -> int:
+    """Which shard's block ``me`` holds after ``hop`` rightward shifts
+    (the host-side mirror of ``src`` in the fetch primitives)."""
+    return (me - hop) % d
+
+
+def hop_schedule(d: int) -> list[list[tuple[int, int]]]:
+    """Per-hop (sender, receiver) pairs of a full D-1-hop circulation:
+    every hop is the same rightward permutation, so each shard sends
+    once and receives once per hop."""
+    return [ring_perm(d) for _ in range(d - 1)]
+
+
+def hop_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of one hop of the stack ``[D, ...]``:
+    ``torch.roll(blocks, 1, dims=0)`` written out as one copy per block
+    into a fresh stack."""
+    d = blocks.shape[0]
+    out = torch.empty_like(blocks)
+    for i in range(d):
+        out[(i + 1) % d].copy_(blocks[i])
+    return out
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("ring_hop")
+        lib.rp_ring_hop.restype = ctypes.c_int
+        lib.rp_ring_hop.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+        ]
+        _lib = lib
+    return _lib
+
+
+def hop(blocks: torch.Tensor) -> torch.Tensor:
+    """One rightward ring shift of the stack ``[D, ...]`` (any dtype):
+    ``out[(i + 1) % D] = blocks[i]``, in a fresh tensor.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (and count
+    the launch in ``hop.launches``) or raise.
+
+    Each hop writes a new ``torch.empty`` stack, never its own input, and
+    runs on the current stream: on one card that is all the ordering
+    the TPU kernel's barrier semaphore gave.  Across cards the peer write
+    will need an event each way (the sender's data ready, the
+    receiver's buffer free)."""
+    if blocks.dim() < 1:
+        raise TypeError("hop takes a stack of shard blocks [D, ...]")
+    dev = blocks.device
+    if dev.type == "cpu":
+        return hop_plain(blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"hop runs on cpu or cuda tensors, not {dev}")
+    src = blocks.contiguous()
+    out = torch.empty_like(src, memory_format=torch.contiguous_format)
+    d = src.shape[0]
+    block_bytes = (src.numel() // d) * src.element_size() if d else 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel().rp_ring_hop(src.data_ptr(), out.data_ptr(), block_bytes, d, stream)
+    _build.check(rc, "ring_hop")
+    hop.launches += 1
+    return out
+
+
+hop.launches = 0
+
+
+def _hop(blocks: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """One rightward ring shift of every stack in ``blocks``."""
+    return tuple(hop(b) for b in blocks)
+
+
+# ---------------------------------------------------------------------------
+# Ring primitives
+# ---------------------------------------------------------------------------
+
+
+def _require_ring(n: int) -> tuple[int, int]:
+    """(D, n/D) of the active ring; raises outside a ring context or
+    when the member axis does not divide."""
+    ring = active_ring()
+    if ring is None:
+        raise RuntimeError("ring primitive called outside a ring_mesh() context")
+    mesh, axis = ring
+    d = mesh.shape[axis]
+    if n % d != 0:
+        raise ValueError(f"member axis {n} not divisible by ring size {d}")
+    return d, n // d
+
+
+def _cut(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The D row blocks of ``x`` as one stack ``[D, n/D, ...]``."""
+    return x.reshape(d, x.shape[0] // d, *x.shape[1:])
+
+
+def _shard_ids(d: int, ndim: int, device: torch.device) -> torch.Tensor:
+    """int64[D, 1, ...] shard index, broadcastable against an
+    ``ndim``-dimensional stack."""
+    return torch.arange(d, dtype=torch.int64, device=device).view(d, *([1] * (ndim - 1)))
+
+
+def _bcast(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Right-pad ``mask`` with singleton dims up to ``ndim``."""
+    return mask.reshape(*mask.shape, *([1] * (ndim - mask.dim())))
+
+
+def ring_recv_merge(
+    t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(in_key int32[N, N], inbound int32[N]): the receiver merge as a
+    D-1-hop ring exchange, equal to the unsharded merge bit for bit.
+
+    ``t_safe[s]`` is sender s's receiver, ``fwd_ok[s]`` delivery,
+    ``claim_rows[s]`` its claim row (>= 0).  At each hop a shard folds
+    the passing rows addressed to its own receivers with a scatter-max
+    and counts them; other shards' receivers and undelivered senders go
+    to a spare slot ``n_loc`` that is cut off.  Max and add commute
+    over the hop order, so the fold is exact.  (The caller,
+    ``swim_sim._receiver_merge``, carries the ``swim.recv_merge`` label.)"""
+    n = t_safe.shape[0]
+    d, n_loc = _require_ring(n)
+    dev = claim_rows.device
+    off = _shard_ids(d, 2, dev) * n_loc  # [D, 1] first receiver of each shard
+    acc = torch.zeros((d, n_loc + 1, n), dtype=torch.int32, device=dev)
+    inb = torch.zeros((d, n_loc + 1), dtype=torch.int32, device=dev)
+    blk = (
+        _cut(t_safe.to(torch.int32), d),
+        _cut(fwd_ok.to(torch.bool), d),
+        _cut(claim_rows.to(torch.int32), d),
+    )
+    for h in range(d):
+        bdest, bok, brows = blk
+        tgt = bdest.to(torch.int64) - off
+        tgt = torch.where(bok & (tgt >= 0) & (tgt < n_loc), tgt, n_loc)
+        acc.scatter_reduce_(
+            1, tgt[:, :, None].expand(d, n_loc, n),
+            torch.where(bok[:, :, None], brows, 0), reduce="amax", include_self=True,
+        )
+        inb.scatter_add_(1, tgt, torch.ones_like(bdest))
+        if h < d - 1:
+            blk = _hop(blk)
+    inbound = inb[:, :n_loc]
+    in_key = torch.where((inbound > 0)[:, :, None], acc[:, :n_loc], 0)
+    return in_key.reshape(n, n), inbound.reshape(n)
+
+
+def _fetch_blocks(cur: torch.Tensor, il: torch.Tensor, n_loc: int) -> torch.Tensor:
+    """The shard bodies of the fetch primitives, batched over the shard
+    axis: ``cur`` is the stacked plane ``[D, n_loc, ...]``, ``il`` each
+    shard's global row ids ``[D, ...]``.  At hop h shard ``me`` holds the
+    block of ``(me - h) mod D`` and resolves the ids in its range; the
+    clip keeps the other lanes in bounds, and the ``where`` drops them."""
+    d = cur.shape[0]
+    dev = cur.device
+    me = _shard_ids(d, il.dim(), dev)
+    out = torch.zeros((*il.shape, *cur.shape[2:]), dtype=cur.dtype, device=dev)
+    for h in range(d):
+        src = (me - h) % d
+        sel = torch.div(il, n_loc, rounding_mode="floor") == src
+        loc = torch.clamp(il - src * n_loc, 0, n_loc - 1)
+        got = cur[me, loc]
+        out = torch.where(_bcast(sel, got.dim()), got, out)
+        if h < d - 1:
+            (cur,) = _hop((cur,))
+    return out
+
+
+def ring_fetch_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``plane[idx]`` with ``idx`` aligned to the member axis
+    (``idx.shape[0] == plane.shape[0]``, global row ids, any trailing
+    index shape); output shape ``idx.shape + plane.shape[1:]``.  The
+    plane's blocks circulate the ring; a pure gather, so exact."""
+    with torch.profiler.record_function("gossip.ring_fetch"):
+        n = plane.shape[0]
+        d, n_loc = _require_ring(n)
+        if idx.shape[0] != n:
+            raise ValueError(f"idx must be aligned to the member axis ({n}), got {list(idx.shape)}")
+        out = _fetch_blocks(_cut(plane, d), _cut(idx.to(torch.int64), d), n_loc)
+        return out.reshape(*idx.shape, *plane.shape[1:])
+
+
+def ring_take_per_row(plane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """``plane[arange(N), col]``: each viewer row reads one of its own
+    columns (the diagonal when ``col = arange(N)``).  Row-local: no hop."""
+    with torch.profiler.record_function("gossip.per_row"):
+        n = plane.shape[0]
+        d, n_loc = _require_ring(n)
+        dev = plane.device
+        r = torch.arange(n_loc, dtype=torch.int64, device=dev)[None, :]
+        cl = _cut(torch.clamp(col.to(torch.int64), 0, n - 1), d)
+        return _cut(plane, d)[_shard_ids(d, 2, dev), r, cl].reshape(n)
+
+
+def ring_update_per_row(
+    plane: torch.Tensor, col: torch.Tensor, values: torch.Tensor, op: str = "set"
+) -> torch.Tensor:
+    """A copy of ``plane`` with ``plane[i, col[i]]`` set to ``values[i]``
+    (``op="set"``) or raised to it (``op="max"``).  Row-local like
+    ``ring_take_per_row``."""
+    if op not in ("set", "max"):
+        raise ValueError(f"op={op!r}: set|max")
+    with torch.profiler.record_function("gossip.per_row"):
+        n = plane.shape[0]
+        d, n_loc = _require_ring(n)
+        dev = plane.device
+        shard = _shard_ids(d, 2, dev).expand(d, n_loc)
+        r = torch.arange(n_loc, dtype=torch.int64, device=dev)[None, :].expand(d, n_loc)
+        cl = _cut(torch.clamp(col.to(torch.int64), 0, n - 1), d)
+        blk = _cut(plane, d)
+        vl = _cut(values.to(plane.dtype), d)
+        if op == "max":
+            vl = torch.maximum(blk[shard, r, cl], vl)
+        return blk.index_put((shard, r, cl), vl).reshape(plane.shape)
+
+
+def ring_fetch_global(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``plane[idx]`` with ``idx`` (any shape of global row ids)
+    replicated, and so the output: every shard watches all D blocks pass
+    and resolves the full index set alike; shard 0's copy is returned."""
+    with torch.profiler.record_function("gossip.ring_fetch"):
+        n = plane.shape[0]
+        d, n_loc = _require_ring(n)
+        il = idx.to(torch.int64)[None].expand(d, *idx.shape)
+        return _fetch_blocks(_cut(plane, d), il, n_loc)[0]

@@ -1,0 +1,359 @@
+"""Row sharding of the SWIM simulation over a 1-D ring of shards.
+
+The port of ``ringpop_tpu/parallel/mesh.py``.  The layout is the
+reference's "viewer-row" sharding over the mesh axis ``nodes``: every
+[N, *] view or table is cut along axis 0 into D contiguous blocks, so a
+shard owns the complete views of a block of virtual nodes; per-node
+vectors, the PRNG key and the tick counter are replicated.
+
+In the reference, ``shard_map`` and XLA's partitioner make a sharded
+step out of the unsharded step code, and cross-shard traffic appears
+only in the ring primitives of ``ops/gossip_remote_copy.py``.  The port
+has no partitioner, so it works at the same seams: the sharded entry
+points run the unsharded step (``swim_step_impl``, ``delta_step_impl``)
+inside an ambient ring context (``ring_mesh``), and exactly where the
+reference's ``_receiver_merge``, ``_gather_rows``, ``_row_at``, ``_diag``
+and ``_row_update`` take their ring branch, the port calls its ring
+primitive, which moves blocks between shards only through the hop.
+
+Placement: the D shards live on one card (or, in the tests, on the
+CPU), asked for explicitly with ``make_mesh(devices=[dev] * D)``.  Two
+things wait for a machine with several cards, and ``make_mesh`` raises
+``NotImplementedError`` when given distinct devices: the hop as a peer
+write across cards, and each shard's rows staying resident on their own
+card between steps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Callable, Iterator
+
+import torch
+
+from ringpop_tpu_torch.models.swim_delta import DeltaState, delta_run_impl, delta_step_impl
+from ringpop_tpu_torch.models.swim_sim import (
+    ClusterState,
+    NetState,
+    swim_run_impl,
+    swim_step_impl,
+)
+from ringpop_tpu_torch.ops import gossip_remote_copy as _grc
+
+AXIS = "nodes"
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh of D shards along the member axis (the reference's
+    one-axis ``jax.sharding.Mesh``); ``devices[i]`` holds shard i."""
+
+    devices: tuple[torch.device, ...]
+    axis_names: tuple[str, ...] = (AXIS,)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {AXIS: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The one device every shard lives on."""
+        return self.devices[0]
+
+
+def _canonical(device: Any) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+    return dev
+
+
+def make_mesh(n_devices: int | None = None, devices: Any = None) -> Mesh:
+    """A 1-D mesh over ``n_devices`` (default: all) of ``devices``
+    (default: the visible cards).  D shards on one card are asked for
+    explicitly: ``devices=[torch.device("cuda")] * D``.  Raises when
+    fewer devices are given than asked for, and ``NotImplementedError``
+    for two distinct devices (the cross-card ring is not ported)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible; pass devices=[torch.device('cpu')] * D "
+                "to shard on the host"
+            )
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [_canonical(d) for d in devices]
+    if n_devices is not None:
+        if n_devices > len(devices):
+            raise ValueError(f"requested {n_devices} devices, only {len(devices)} available")
+        devices = devices[:n_devices]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    if len(set(devices)) > 1:
+        raise NotImplementedError(
+            f"a ring over distinct devices {sorted(set(map(str, devices)))} needs the "
+            "cross-card peer hop and row-resident shards (ROADMAP.md queue 2 item 6, "
+            "'Cross-card ring hop and resident shards'); put the "
+            "D shards on one device: devices=[device] * D"
+        )
+    return Mesh(tuple(devices))
+
+
+# ---------------------------------------------------------------------------
+# Field -> layout maps.  Placement walks each state NamedTuple's
+# ``_fields`` through these maps, so a field added to the models without
+# a layout decision here raises at placement (and the tests pin the maps
+# complete) instead of silently replicating.  The kinds are the
+# reference's.
+# ---------------------------------------------------------------------------
+
+_ROW = "row"  # viewer-row sharded [N, *] plane
+_ROW1 = "row1"  # per-viewer [N] vector that stays on its shard
+_REP = "rep"  # replicated (O(N)/O(K) vectors, scalars)
+_ADJ = "adj"  # group-id int32[N] replicated / bool[N, N] row-sharded
+_PEND = "pend"  # [D, N(receiver), N] claim buffer, split on axis 1
+_PEND_D = "pend_d"  # [D, S, N(receiver), W], split on axis 2
+_PEND_D1 = "pend_d1"  # [D, S, N(receiver)], split on axis 2
+
+CLUSTER_FIELD_SPECS: dict[str, str] = {
+    "view_key": _ROW,
+    "pb": _ROW,
+    "suspect_left": _ROW,
+    "tick": _REP,
+    "damp": _ROW,
+    "damped": _ROW,
+    "pending": _PEND,
+}
+
+NET_FIELD_SPECS: dict[str, str] = {
+    "up": _REP,
+    "responsive": _REP,
+    "adj": _ADJ,
+    "link_src": _REP,
+    "link_dst": _REP,
+    "link_p": _REP,
+    "link_d": _REP,
+    "link_j": _REP,
+    "period": _REP,
+}
+
+DELTA_FIELD_SPECS: dict[str, str] = {
+    "base_key": _REP,
+    "bp_mask": _REP,
+    "bp_rank": _REP,
+    "bp_list": _REP,
+    "d_subj": _ROW,
+    "d_key": _ROW,
+    "d_pb": _ROW,
+    "d_sl": _ROW,
+    "tick": _REP,
+    "overflow_drops": _REP,
+    "side": _REP,
+    "merge_to": _REP,
+    "digest": _ROW1,
+    "d_bpmask": _ROW,
+    "d_bprank": _ROW,
+    "pend_subj": _PEND_D,
+    "pend_key": _PEND_D,
+    "pend_recv": _PEND_D1,
+}
+
+# the member axis each kind splits (None: replicated)
+_SPLIT_AXIS: dict[str, int | None] = {
+    _ROW: 0,
+    _ROW1: 0,
+    _REP: None,
+    _PEND: 1,
+    _PEND_D: 2,
+    _PEND_D1: 2,
+}
+
+
+def _field_split(specs: dict[str, str], field: str, value: Any) -> int | None:
+    """The axis one state field is split along (None: replicated)."""
+    if field not in specs:
+        raise KeyError(
+            f"no sharding layout declared for state field {field!r} — "
+            "add it to the FIELD_SPECS map in parallel/mesh.py"
+        )
+    kind = specs[field]
+    if kind == _ADJ:
+        # group-id vector: O(N), replicate; bool mask: row-shard
+        return None if value is None or value.dim() == 1 else 0
+    return _SPLIT_AXIS[kind]
+
+
+def _place(mesh: Mesh, specs: dict[str, str], value: Any) -> Any:
+    """``value`` (a state NamedTuple) on the mesh's device, every field
+    checked against its layout: a split axis must divide into D."""
+    d = mesh.size
+    fields = {}
+    for f in type(value)._fields:
+        v = getattr(value, f)
+        axis = _field_split(specs, f, v)
+        if v is None:
+            fields[f] = None
+            continue
+        if axis is not None and v.shape[axis] % d != 0:
+            raise ValueError(
+                f"{f}: axis {axis} of length {v.shape[axis]} must be divisible by mesh size {d}"
+            )
+        fields[f] = v.to(mesh.device)
+    return type(value)(**fields)
+
+
+def _check_divisible(n: int, mesh: Mesh) -> None:
+    if n % mesh.size != 0:
+        raise ValueError(f"n={n} must be divisible by mesh size {mesh.size}")
+
+
+def shard_cluster(state: ClusterState, net: NetState, mesh: Mesh) -> tuple[ClusterState, NetState]:
+    """Place an (unsharded) dense simulation onto the mesh."""
+    _check_divisible(state.n, mesh)
+    return _place(mesh, CLUSTER_FIELD_SPECS, state), _place(mesh, NET_FIELD_SPECS, net)
+
+
+def shard_delta(state: DeltaState, mesh: Mesh) -> DeltaState:
+    """Place an (unsharded) delta state onto the mesh."""
+    _check_divisible(state.n, mesh)
+    return _place(mesh, DELTA_FIELD_SPECS, state)
+
+
+# ---------------------------------------------------------------------------
+# gossip modes and guards
+# ---------------------------------------------------------------------------
+
+
+def gossip_mode(gossip: str | None = None) -> str:
+    """The sharded gossip plane: ``ring`` (the default) routes
+    cross-shard claims and row fetches as ring hops; ``gather`` is the
+    single-device lowering (plain gathers, the receiver-merge kernel)."""
+    mode = gossip or "ring"
+    if mode not in ("ring", "gather"):
+        raise ValueError(f"gossip={mode!r}: ring|gather")
+    return mode
+
+
+@contextlib.contextmanager
+def mesh_gossip(mesh: Mesh, gossip: str | None = None) -> Iterator[None]:
+    """The gossip plane for calls in this block: the ambient ring of
+    ``mesh`` in ring mode, nothing in gather mode."""
+    if gossip_mode(gossip) == "ring":
+        with _grc.ring_mesh(mesh):
+            yield
+    else:
+        yield
+
+
+def _reject_adjacency(net: NetState) -> None:
+    """The sharded delta step takes partitions as the int32[N] group-id
+    adjacency only; a dense bool[N, N] mask needs the dense backend."""
+    if net.adj is not None and net.adj.dim() != 1:
+        raise NotImplementedError(
+            "sharded delta partitions take the int32[N] group-id adjacency; "
+            "dense bool[N, N] masks need the dense backend"
+        )
+
+
+def _adj_layout(net_like: NetState | None) -> int | None:
+    """The adjacency layout a sharded step expects: None (no adj) or
+    the adj ndim (1 = group-id vector, 2 = bool mask)."""
+    if net_like is None or net_like.adj is None:
+        return None
+    return net_like.adj.dim()
+
+
+def _check_adj_layout(net: NetState, expect: int | None) -> None:
+    """Raise when the net's adjacency layout (presence and ndim)
+    disagrees with the one the step was built for (``net_like``)."""
+    have = _adj_layout(net)
+    if have == expect:
+        return
+    names = {None: "no adjacency", 1: "a group-id vector (ndim 1)",
+             2: "an adjacency mask (ndim 2)"}
+    raise ValueError(
+        f"net carries {names.get(have, f'adj ndim {have}')} but this "
+        f"sharded step was built for {names.get(expect, f'adj ndim {expect}')}"
+        " — rebuild with net_like=net"
+    )
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def sharded_step(
+    mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
+) -> Callable:
+    """``swim_step_impl`` over the mesh: (state, net, key, params) ->
+    (state, metrics).  The inputs are placed on the mesh first
+    (``shard_cluster``), as the reference's ``in_shardings`` place them.
+    ``net_like=net`` fixes the adjacency layout the step accepts;
+    ``gossip`` picks the plane (see ``gossip_mode``)."""
+    gossip_mode(gossip)
+    expect_adj = _adj_layout(net_like)
+
+    def step(state, net, key, params):
+        _check_adj_layout(net, expect_adj)
+        state, net = shard_cluster(state, net, mesh)
+        with mesh_gossip(mesh, gossip):
+            return swim_step_impl(state, net, key, params)
+
+    return step
+
+
+def sharded_run(
+    mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
+) -> Callable:
+    """``swim_run_impl`` (``ticks`` periods) over the mesh.  See
+    ``sharded_step``."""
+    gossip_mode(gossip)
+    expect_adj = _adj_layout(net_like)
+
+    def run(state, net, key, params, ticks):
+        _check_adj_layout(net, expect_adj)
+        state, net = shard_cluster(state, net, mesh)
+        with mesh_gossip(mesh, gossip):
+            return swim_run_impl(state, net, key, params, ticks)
+
+    return run
+
+
+def sharded_delta_step(
+    mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
+) -> Callable:
+    """``delta_step_impl`` over the mesh.  The cross-shard traffic is the
+    claim routing and the row fetches of the replies, full syncs and
+    ping-req stages: in ring mode their payload rows hop the ring."""
+    gossip_mode(gossip)
+    expect_adj = _adj_layout(net_like)
+
+    def step(state, net, key, params, upto=7):
+        _reject_adjacency(net)
+        _check_adj_layout(net, expect_adj)
+        state, net = shard_delta(state, mesh), _place(mesh, NET_FIELD_SPECS, net)
+        with mesh_gossip(mesh, gossip):
+            return delta_step_impl(state, net, key, params, upto)
+
+    return step
+
+
+def sharded_delta_run(
+    mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
+) -> Callable:
+    """``delta_run_impl`` (``ticks`` periods) over the mesh."""
+    gossip_mode(gossip)
+    expect_adj = _adj_layout(net_like)
+
+    def run(state, net, key, params, ticks):
+        _reject_adjacency(net)
+        _check_adj_layout(net, expect_adj)
+        state, net = shard_delta(state, mesh), _place(mesh, NET_FIELD_SPECS, net)
+        with mesh_gossip(mesh, gossip):
+            return delta_run_impl(state, net, key, params, ticks)
+
+    return run

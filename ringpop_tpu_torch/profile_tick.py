@@ -3,6 +3,7 @@
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
     python3 -m ringpop_tpu_torch.profile_tick [--backend dense|delta] [--n N] [--ticks 3]
+        [--shards D]
 
 It drives ``SimCluster(n, SwimParams(loss=0.01), seed=0)``, the BASELINE
 config 3 protocol, on the dense backend (default n = 10 000) or on the
@@ -19,14 +20,19 @@ per tick, then under the profiler, for the device-busy time per tick
 inflates its wall for a tick of thousands of small launches; that
 profiled share is printed beside it).  It also prints the host syncs
 per tick (counted by ``torch.cuda.set_sync_debug_mode``), the step's
-phase spans (``swim.*`` and ``delta.*`` labels: the device time
+phase spans (``swim.*``, ``delta.*`` and ``gossip.*`` labels: the device time
 of the kernels launched inside each, and its host time), the costliest
-kernels, and the port's own CUDA kernels.
+kernels, and the port's own CUDA kernels.  ``--shards D`` ticks the
+cluster under the gossip ring of D shards on the card, the ring path of
+``parallel.sharded_step``/``sharded_delta_step`` (their ring context
+around the same step), so the window shows the ring-hop kernel's share
+of the sharded tick.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import time
 import warnings
@@ -35,12 +41,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ringpop_tpu_torch import parallel
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.cluster import SimCluster
 
-SPANS = ("swim.", "delta.")
+SPANS = ("swim.", "delta.", "gossip.")
 PORT_KERNELS = (
     "recv_merge_kernel", "farmhash32_kernel", "row_searchsorted_kernel", "merge_insert_kernel",
+    "ring_hop_kernel",
 )
 
 
@@ -100,6 +108,8 @@ def main() -> None:
                     help="cluster size (default 10000 dense, 65536 delta)")
     ap.add_argument("--ticks", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="tick over a gossip ring of this many shards on the card (0: unsharded)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick needs a CUDA card")
@@ -108,15 +118,20 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
-    print(f"backend {args.backend}, n {n}")
+    print(f"backend {args.backend}, n {n}, shards {args.shards or 'none'}")
     c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend=args.backend)
-    for _ in range(3):
-        c.tick()
-    _window(c, args.ticks, "steady", args.top)
-    c.kill(n // 3)
-    for _ in range(2):
-        c.tick()
-    _window(c, args.ticks, "churn", args.top)
+    ring = contextlib.nullcontext()
+    if args.shards:
+        mesh = parallel.make_mesh(devices=[torch.device("cuda")] * args.shards)
+        ring = parallel.mesh.mesh_gossip(mesh)
+    with ring:
+        for _ in range(3):
+            c.tick()
+        _window(c, args.ticks, "steady", args.top)
+        c.kill(n // 3)
+        for _ in range(2):
+            c.tick()
+        _window(c, args.ticks, "churn", args.top)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 

@@ -153,17 +153,24 @@ def run_references(
 
 
 # Calls of single reference functions: each call names a module of
-# ``ringpop_tpu.models`` and a function in it, and its arguments, each
-# ``["array", key]`` (an array of the npz handed over), ``["delta_state",
-# {field: key}]`` (a ``DeltaState`` of such arrays) or ``["py", value]``.
+# ``ringpop_tpu.models`` (or ``gossip_remote_copy`` of ``ringpop_tpu.ops``)
+# and a function in it, and its arguments, each ``["array", key]`` (an
+# array of the npz handed over), ``["delta_state", {field: key}]`` (a
+# ``DeltaState`` of such arrays) or ``["py", value]``.  A call with
+# ``"ring": d`` runs jitted inside ``ring_mesh(parallel.make_mesh(d))``
+# (the ring primitives need the context).
 _CALLS = _PATCHES + r"""
+import functools
+import jax
 import jax.numpy as jnp
 from ringpop_tpu.models import swim_delta, swim_sim
+from ringpop_tpu.ops import gossip_remote_copy
 
 with open(sys.argv[1]) as f:
     calls = json.load(f)
 z = np.load(sys.argv[2])
-mods = {"swim_delta": swim_delta, "swim_sim": swim_sim}
+mods = {"swim_delta": swim_delta, "swim_sim": swim_sim,
+        "gossip_remote_copy": gossip_remote_copy}
 
 def arg(a):
     kind, v = a
@@ -188,7 +195,14 @@ def flat(x, key):
 
 for c in calls:
     fn = getattr(mods[c["module"]], c["fn"])
-    flat(fn(*[arg(a) for a in c["args"]], **c.get("kwargs", {})), c["name"])
+    args = [arg(a) for a in c["args"]]
+    if "ring" in c:
+        from ringpop_tpu import parallel
+        with gossip_remote_copy.ring_mesh(parallel.make_mesh(c["ring"])):
+            res = jax.jit(functools.partial(fn, **c.get("kwargs", {})))(*args)
+    else:
+        res = fn(*args, **c.get("kwargs", {}))
+    flat(res, c["name"])
 np.savez_compressed(sys.argv[3], **out)
 """
 
@@ -229,6 +243,106 @@ def run_reference_calls(
         raise RuntimeError(f"reference calls failed:\n{proc.stderr[-4000:]}")
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+# Sharded runs of the reference (``ringpop_tpu.parallel``) on the child's
+# virtual CPU mesh.  A case is ``{"name", "backend": "dense"|"delta",
+# "entry": "step"|"run", "n", "d", "params", "seed", "ticks"}`` plus
+# ``"caps"`` (delta: capacity, wire_cap, claim_grid), ``"init"``,
+# ``"joins"`` (dense: every node joins through node 0 first) and
+# ``"down"`` (nodes killed before the first tick).  It records the start
+# state and net, the keys, and the state and metrics after every step
+# (``{name}/{t}/...``, ``{name}/m{t}/...``) or after the run
+# (``{name}/run/...``, ``{name}/mrun/...``).  The layout maps of
+# ``parallel.mesh`` come back as JSON under ``maps/{NAME}``.
+_SHARDED = _PATCHES + r"""
+import jax
+from ringpop_tpu import parallel
+from ringpop_tpu.models import swim_delta as sd, swim_sim as sim
+from ringpop_tpu.parallel import mesh as pmesh
+
+with open(sys.argv[1]) as f:
+    cases = json.load(f)
+out = {f"maps/{m}": np.array(json.dumps(getattr(pmesh, m)))
+       for m in ("CLUSTER_FIELD_SPECS", "NET_FIELD_SPECS", "DELTA_FIELD_SPECS")}
+
+def record(key, values):
+    for f, v in values.items():
+        if v is not None:
+            out[f"{key}/{f}"] = np.array(v)
+
+for case in cases:
+    name, n, d = case["name"], case["n"], case["d"]
+    mesh = parallel.make_mesh(d)
+    net = sim.make_net(n)
+    for i in case.get("down", []):
+        net = net._replace(up=net.up.at[i].set(False))
+    out[f"{name}/up"] = np.array(net.up)
+    out[f"{name}/responsive"] = np.array(net.responsive)
+    swim = sim.SwimParams(**case.get("params", {}))
+    if case["backend"] == "delta":
+        params = sd.DeltaParams(swim=swim, wire_cap=case["caps"]["wire_cap"],
+                                claim_grid=case["caps"]["claim_grid"])
+        state = sd.init_delta(n, capacity=case["caps"]["capacity"])
+        record(f"{name}/init", state._asdict())
+        state = parallel.shard_delta(state, mesh)
+        build = parallel.sharded_delta_step if case["entry"] == "step" else parallel.sharded_delta_run
+        fn = build(mesh, gossip=case.get("gossip"))
+    else:
+        params = swim
+        state = sim.init_state(n, mode=case.get("init", "converged"))
+        if case.get("joins"):
+            for j in range(1, n):
+                state = sim.admin_join(state, j, 0)
+        record(f"{name}/init", state._asdict())
+        state, net = parallel.shard_cluster(state, net, mesh)
+        build = parallel.sharded_step if case["entry"] == "step" else parallel.sharded_run
+        fn = build(mesh, gossip=case.get("gossip"))
+    key = jax.random.PRNGKey(case["seed"])
+    if case["entry"] == "step":
+        keys = jax.random.split(key, case["ticks"])
+        out[f"{name}/keys"] = np.array(keys)
+        for t, k in enumerate(keys):
+            state, m = fn(state, net, k, params)
+            record(f"{name}/{t}", state._asdict())
+            record(f"{name}/m{t}", m)
+    else:
+        out[f"{name}/key"] = np.array(key)
+        state, m = fn(state, net, key, params, case["ticks"])
+        record(f"{name}/run", state._asdict())
+        record(f"{name}/mrun", m)
+np.savez_compressed(sys.argv[2], **out)
+"""
+
+
+def run_sharded_references(cases: list[dict], tmp_dir: str) -> dict[str, np.ndarray]:
+    """Run each sharded case through the reference in its own child
+    process, all at once; returns every case's records in one mapping."""
+    procs = []
+    for case in cases:
+        spec = os.path.join(tmp_dir, f"sharded-{case['name']}.json")
+        out = os.path.join(tmp_dir, f"sharded-{case['name']}.npz")
+        with open(spec, "w") as f:
+            json.dump([case], f)
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+        procs.append((case["name"], out, subprocess.Popen(
+            [sys.executable, "-c", _SHARDED, spec, out],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    results: dict[str, np.ndarray] = {}
+    try:
+        for name, out, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"sharded reference {name!r} failed:\n{err[-4000:]}")
+            with np.load(out) as z:
+                results.update({k: z[k] for k in z.files})
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
 
 
 def port_cluster(case: dict):
@@ -337,6 +451,9 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.ops.bitpack",
     "ringpop_tpu_torch.ops.searchsorted",
     "ringpop_tpu_torch.ops.delta_merge",
+    "ringpop_tpu_torch.ops.gossip_remote_copy",
+    "ringpop_tpu_torch.parallel",
+    "ringpop_tpu_torch.parallel.mesh",
     "ringpop_tpu_torch.models.swim_sim",
     "ringpop_tpu_torch.models.swim_delta",
     "ringpop_tpu_torch.models.checksum",
