@@ -9,9 +9,15 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
 2. build every kernel from ``ringpop_tpu_torch/csrc`` (one nvcc each, in
    parallel) and print the build time and the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card
-   (exact equality) at the main paths' shapes, and time kernel, plain
-   version and, where one exists, a single PyTorch call for the same
-   function (CUDA events, median of 10 runs after a warm-up);
+   (exact equality) at the main paths' shapes and at the edge shapes of
+   its design (row-searchsorted: C in {1, 3, 33, 64, 256, 20000} by K in
+   {5, 16, 31, 33, 64, 65, 256}; FarmHash: odd row strides and lengths at
+   the arm, block and tile edges), and time kernel, plain version and,
+   where one exists, a single PyTorch call for the same function (CUDA
+   events around one call on an idle card, after an L2 flush; median of
+   10 calls after a warm-up; the plain FarmHash, which loops over a row's
+   20-byte blocks in Python, is timed by its one run); time FarmHash at
+   the delta path's checksum chunk too;
 4. step a 256-node dense cluster with a kill on the card and on the CPU
    for 10 ticks: every state field and metric must be equal on every
    tick; the same for a 256-node delta cluster at production-style caps
@@ -29,7 +35,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    ``converged()`` (exact agreement of all live views), then the device
    checksums of a stated sample of rows; the launch counters of the
    row-searchsorted, merge-insert and FarmHash kernels must have risen
-   during this phase;
+   during this phase; the row-searchsorted launches by (C, K) are
+   printed;
 7. the dense ring path: BASELINE config 3 sharded over D = 4 shards on
    the card (``parallel.sharded_step``, every cross-shard transfer a
    launch of the ring-hop kernel): the sharded step and the unsharded
@@ -46,7 +53,10 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    to convergence in as many ticks as phase 6 took, and the sample
    checksums; the hop, row-searchsorted and merge-insert kernels must
    have been launched by the sharded step alone;
-9. print the ``kernels`` JSON line, then the result line.
+9. time the row-searchsorted kernel against ``torch.searchsorted`` at
+   the delta main path's three most-launched shapes (and any tied with
+   the third);
+10. print the ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ SENTINEL = (1 << 31) - 1
 SUSPECT = 2
 SL_START = 26
 RUNS = 10
+L2_FLUSH_BYTES = 128 << 20  # read before each timed call: 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core 32-bit rate (fp32 table row)
 CHAIN_OPS_PER_BLOCK = 7  # FarmHash32 long arm: dependent ops per 20-byte block
@@ -85,11 +96,19 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, runs: int = RUNS) -> float:
-    """Median device time of ``fn`` over ``runs`` runs after one warm-up."""
+    """Median time of one call of ``fn`` between two CUDA events over
+    ``runs`` calls, after a warm-up.  The card is idle when the first
+    event is recorded, so a time counts the host work before the launch
+    (the Python wrapper) as well as the device time.  Before each call
+    the L2 cache is flushed by reading a buffer larger than it (a read
+    leaves no dirty lines to write back), so that no call finds its
+    inputs there from the call before."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        flush.sum()
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -176,16 +195,69 @@ def check_recv_merge(torch, dev) -> dict:
     }
 
 
-def synthetic_rows(torch, dev, rows: int):
-    """Checksum-format view rows at n = N_MAIN: a mix of every status
-    and spread incarnations, as a cluster in churn holds them."""
+def synthetic_rows(torch, dev, rows: int, n: int = N_MAIN, absent: bool = True):
+    """Checksum-format view rows of an n-node cluster: a mix of every
+    status and spread incarnations, as a cluster in churn holds them
+    (with ``absent=False``, every member present, as in a converged
+    view)."""
     import numpy as np
 
     rng = np.random.default_rng(2)
-    status = rng.choice([0, 1, 1, 1, 2, 3, 4], size=(rows, N_MAIN))
-    inc = rng.integers(0, 1 << 26, (rows, N_MAIN))
+    status = rng.choice([0, 1, 1, 1, 2, 3, 4] if absent else [1, 1, 1, 2, 3, 4], size=(rows, n))
+    inc = rng.integers(0, 1 << 26, (rows, n))
     keys = np.where(status > 0, inc * 8 + status, 0).astype(np.int32)
     return torch.as_tensor(keys, device=dev)
+
+
+def chain_estimate_ms(max_len: int) -> float:
+    """The >24-byte arm is a chain of dependent 20-byte blocks per row: its
+    critical path is about CHAIN_OPS_PER_BLOCK dependent integer ops of
+    ~CHAIN_CYCLES_PER_OP cycles each, at the card's top SM clock."""
+    return (max_len - 1) // 20 * CHAIN_OPS_PER_BLOCK * CHAIN_CYCLES_PER_OP / (
+        max_sm_clock_mhz() * 1e3)
+
+
+def farmhash_edge_cases(torch, dev) -> str:
+    """The kernel against its plain version where the tiled design is
+    likely to break: odd row strides (rows cut from [R, W + 1] buffers, so
+    row starts take every byte phase), lengths at the arm, block and tile
+    edges, 0, and the full width."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops.farmhash import (
+        TILE_BLOCKS, farmhash32, farmhash32_batch, farmhash32_plain)
+
+    tile = 20 * TILE_BLOCKS
+    edges = [0, 1, 4, 5, 12, 13, 24, 25, 44, 45, 64, 65, tile - 1, tile, tile + 1,
+             tile + 20, tile + 21, 2 * tile + 1, 4096]
+    done = []
+    rng = np.random.default_rng(7)
+    for width in (4_097, 340_001):
+        lens_np = np.array([x for x in edges if x <= width]
+                           + [width - 1, width] + list(rng.integers(0, width + 1, 12)), np.int32)
+        rows = lens_np.size
+        longest = [int(i) for i in np.argsort(lens_np)[-2:]]
+        # rows cut from a [R, W + 1] buffer (row stride W + 1) and a
+        # contiguous batch (row stride W, odd): row starts take every phase
+        wide = torch.as_tensor(rng.integers(0, 256, (rows, width + 1), dtype=np.uint8), device=dev)
+        cut = wide[:, :width]
+        odd = torch.as_tensor(rng.integers(0, 256, (rows, width), dtype=np.uint8), device=dev)
+        lens = torch.as_tensor(lens_np, device=dev)
+        for b in (cut, odd):
+            got = farmhash32_batch(b, lens)
+            if not torch.equal(got, farmhash32_plain(b, lens)):
+                raise AssertionError(f"farmhash32 kernel != plain at width {width}, row stride "
+                                     f"{b.stride(0)}")
+            if not torch.equal(got, farmhash32_batch(b.contiguous(), lens)):
+                raise AssertionError(f"farmhash32 differs between a strided and a contiguous "
+                                     f"batch at width {width}")
+            host = [farmhash32(b[i, : lens_np[i]].cpu().numpy().tobytes()) for i in longest]
+            if host != got[longest].tolist():
+                raise AssertionError(f"farmhash32 kernel != host oracle at width {width}")
+            done.append(f"{rows} rows of width {width} at row stride {b.stride(0)}")
+        del wide, cut, odd
+    return (f"{', '.join(done)} (lengths {sorted(set(x for x in edges))}, the tile is {tile} "
+            f"bytes)")
 
 
 def check_farmhash(torch, dev) -> dict:
@@ -194,7 +266,7 @@ def check_farmhash(torch, dev) -> dict:
     from ringpop_tpu_torch.models.cluster import DEFAULT_BASE_INC
     from ringpop_tpu_torch.models.checksum import default_addresses
     from ringpop_tpu_torch.ops import checksum_device as ckdev
-    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch, farmhash32_plain
+    from ringpop_tpu_torch.ops.farmhash import farmhash32, farmhash32_batch, farmhash32_plain
 
     # every length arm (0-4, 5-12, 13-24, > 24) on random bytes
     rng = np.random.default_rng(3)
@@ -203,32 +275,53 @@ def check_farmhash(torch, dev) -> dict:
     lens = torch.as_tensor(lens_np, device=dev)
     if not torch.equal(farmhash32_batch(bufs, lens), farmhash32_plain(bufs, lens)):
         raise AssertionError("farmhash32 kernel != plain on the length-arm batch")
+    edges = farmhash_edge_cases(torch, dev)
 
     # checksum strings at the main path's chunk shape
     book = ckdev.DeviceBook(default_addresses(N_MAIN), DEFAULT_BASE_INC, device=dev)
     chunk = (64 * 1024 * 1024) // (book.n * book.entry_width)
     sbufs, slens = ckdev.row_strings(book, synthetic_rows(torch, dev, chunk))
     got = farmhash32_batch(sbufs, slens)
+    # the plain version loops over the longest row's blocks in Python: it
+    # is run once, and that run is its time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = farmhash32_plain(sbufs, slens)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = int((got - want).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"farmhash32 kernel != plain on checksum rows (max abs err {err})")
 
     ms = time_ms(torch, lambda: farmhash32_batch(sbufs, slens))
-    plain_ms = time_ms(torch, lambda: farmhash32_plain(sbufs, slens))
     total = int(slens.to(torch.int64).sum())
     moved = total + 4 * chunk + 4 * chunk
     ops = (total // 20) * 40  # ~40 integer ops per 20-byte block
     bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
-    # the >24-byte arm is a chain of dependent 20-byte blocks per row: its
-    # critical path is about CHAIN_OPS_PER_BLOCK dependent integer ops of
-    # ~CHAIN_CYCLES_PER_OP cycles each, at the card's top SM clock
-    chain = (int(slens.max()) - 1) // 20
-    chain_ms = chain * CHAIN_OPS_PER_BLOCK * CHAIN_CYCLES_PER_OP / (max_sm_clock_mhz() * 1e3)
-    log(f"farmhash32: exact on {lens_np.size} arm rows and {chunk} checksum rows "
-        f"(max len {int(slens.max())}, chain {chain} blocks); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes and operations), "
-        f"dependency-chain estimate {chain_ms:.4f} ms")
+    chain_ms = chain_estimate_ms(int(slens.max()))
+    log(f"farmhash32: exact on {lens_np.size} arm rows, on {edges}, and on {chunk} checksum "
+        f"rows (max len {int(slens.max())}, row stride {sbufs.stride(0)}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (one timed run), bound {bound_ms:.4f} ms (bytes and "
+        f"operations), dependency-chain estimate {chain_ms:.4f} ms (the least time that "
+        f"applies)")
+    del sbufs, slens, got, want
+
+    # the delta path's checksum chunk: rows of a converged n = 65,536 view
+    dbook = ckdev.DeviceBook(default_addresses(N_DELTA), DEFAULT_BASE_INC, device=dev)
+    dchunk = (64 * 1024 * 1024) // (dbook.n * dbook.entry_width)
+    dbufs, dlens = ckdev.row_strings(dbook, synthetic_rows(torch, dev, dchunk, N_DELTA, False))
+    dgot = farmhash32_batch(dbufs, dlens)
+    host = dbufs[:2].cpu().numpy()
+    if [farmhash32(host[i, : int(dlens[i])].tobytes()) for i in range(2)] != dgot[:2].tolist():
+        raise AssertionError("farmhash32 kernel != host oracle on the delta path's rows")
+    dms = time_ms(torch, lambda: farmhash32_batch(dbufs, dlens))
+    dtotal = int(dlens.to(torch.int64).sum())
+    dbound = max((dtotal + 8 * dchunk) / HBM_BYTES_PER_S, dtotal // 20 * 40 / INT_OPS_PER_S) * 1e3
+    log(f"farmhash32 at the delta path's chunk ({dchunk} rows of a converged n={N_DELTA} view, "
+        f"max len {int(dlens.max())}; exact against the host oracle on 2 rows): kernel "
+        f"{dms:.4f} ms, bound {dbound:.4f} ms (bytes and operations), dependency-chain "
+        f"estimate {chain_estimate_ms(int(dlens.max())):.4f} ms")
+    del dbufs, dlens
     return {
         "name": "farmhash32", "route": "cuda",
         "source": "ringpop_tpu_torch/csrc/farmhash32.cu",
@@ -257,6 +350,28 @@ def queries(torch, gen, n: int, k: int, span: int):
     return torch.where(pad, SENTINEL, q).contiguous()
 
 
+def time_searchsorted(torch, gen, n: int, c: int, k: int) -> dict:
+    """Kernel, plain version and ``torch.searchsorted`` on sorted rows
+    [n, c] and queries [n, k]; the bound reads the table and the queries
+    once and writes the positions once, a binary search doing
+    ceil(log2(C + 1)) compares per query."""
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted, row_searchsorted_plain
+
+    table = sorted_table(torch, gen, n, c, span=max(4, c // 2))
+    q = queries(torch, gen, n, k, span=max(4, c // 2))
+    moved = 4 * n * (c + 2 * k)
+    ops = n * k * math.ceil(math.log2(c + 1))
+
+    return {
+        "ms": time_ms(torch, lambda: row_searchsorted(table, q)),
+        "plain_ms": time_ms(torch, lambda: row_searchsorted_plain(table, q)),
+        "library_ms": time_ms(torch, lambda: torch.searchsorted(table, q, out_int32=True)),
+        "bound_ms": max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
+        "moved": moved,
+    }
+
+
 def check_row_searchsorted(torch, dev) -> dict:
     from ringpop_tpu_torch.ops.searchsorted import row_searchsorted, row_searchsorted_plain
 
@@ -265,6 +380,13 @@ def check_row_searchsorted(torch, dev) -> dict:
     # the main shape ([N, C] tables, claim-grid queries), a row too wide
     # for shared memory, and C queries per row (the converged check)
     shapes = [(n, c, k), (256, 20_000, 65), (n, c, c)]
+    # where the design is likely to break: rows that are not 16-byte
+    # aligned (C not a multiple of 4), K not a multiple of 4 or of 32, K
+    # at and past the widths that share a warp between rows (8 and 16),
+    # K > C, and a row count that is not a multiple of the rows per block
+    # and, below C = 20000, more rows than the card holds warps at once
+    edge_c, edge_k = (1, 3, 33, 64, 256, 20_000), (5, 16, 31, 33, 64, 65, 256)
+    shapes += [(20_003 if ec < 20_000 else 257, ec, ek) for ec in edge_c for ek in edge_k]
     err = 0
     for rows, cols, kk in shapes:
         table = sorted_table(torch, gen, rows, cols, span=max(4, cols // 2))
@@ -277,28 +399,36 @@ def check_row_searchsorted(torch, dev) -> dict:
                 raise AssertionError(
                     f"row_searchsorted kernel != plain at [{rows}, {cols}] x [{rows}, {kk}] "
                     f"side {side} (max abs err {err})")
-    table = sorted_table(torch, gen, n, c, span=c // 2)
-    q = queries(torch, gen, n, k, span=c // 2)
-    ms = time_ms(torch, lambda: row_searchsorted(table, q))
-    plain_ms = time_ms(torch, lambda: row_searchsorted_plain(table, q))
-    library_ms = time_ms(torch, lambda: torch.searchsorted(table, q, out_int32=True))
-    # read the table and the queries once, write the positions once; a
-    # binary search does ceil(log2(C + 1)) compares per query
-    moved = 4 * n * (c + 2 * k)
-    ops = n * k * math.ceil(math.log2(c + 1))
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
-    done = ", ".join(f"[{a}, {b}] x [{a}, {d}]" for a, b, d in shapes)
-    log(f"row_searchsorted: exact at {done}, both sides; at [{n}, {c}] x [{n}, {k}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.searchsorted {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(4 * N * (C + 2K) bytes = {moved} at 3.35 TB/s)")
+    r = time_searchsorted(torch, gen, n, c, k)
+    done = ", ".join(f"[{a}, {b}] x [{a}, {d}]" for a, b, d in shapes[:3])
+    log(f"row_searchsorted: exact at {done}, and at [R, C] x [R, K] for C in {edge_c}, K in "
+        f"{edge_k} (R = 20003, and 257 at C = 20000), both sides; at [{n}, {c}] x [{n}, {k}]: "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.searchsorted "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (4 * N * (C + 2K) bytes = "
+        f"{r['moved']} at 3.35 TB/s)")
     return {
         "name": "row_searchsorted", "route": "cuda",
         "source": "ringpop_tpu_torch/csrc/row_searchsorted.cu",
         "replaces": "ringpop_tpu/ops/searchsorted_pallas.py:39",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
-        "library_ms": library_ms,
+        "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     }
+
+
+def time_searchsorted_shapes(torch, shapes: dict) -> None:
+    """Kernel against ``torch.searchsorted`` at the delta main path's three
+    most-launched (C, K) shapes and any shape tied with the third
+    (``shapes``: launches by (C, K))."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    counts = sorted(shapes.values(), reverse=True)
+    top = [(ck, v) for ck, v in sorted(shapes.items(), key=lambda kv: -kv[1])
+           if v >= counts[min(2, len(counts) - 1)]]
+    for (c, k), count in top:
+        r = time_searchsorted(torch, gen, N_DELTA, c, k)
+        log(f"row_searchsorted at [{N_DELTA}, {c}] x [{N_DELTA}, {k}] ({count} launches on the "
+            f"delta main path): kernel {r['ms']:.4f} ms, torch.searchsorted "
+            f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), kernel / library {r['ms'] / r['library_ms']:.3f}")
 
 
 def merge_inputs(torch, gen, n: int, c: int, ki: int):
@@ -602,6 +732,7 @@ def delta_main_path(torch) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     row_searchsorted.launches = 0
+    row_searchsorted.shapes = {}
     merge_insert.launches = 0
     farmhash32_batch.launches = 0
 
@@ -669,6 +800,9 @@ def delta_main_path(torch) -> dict:
         f"checksums of a sample of {len(spread)} live rows (spread over the ids) plus the "
         f"killed node's row, {ck_ms:.1f} ms: the sampled live rows form one group; peak "
         f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    shapes = dict(row_searchsorted.shapes)
+    log("delta main path: row_searchsorted launches by [C, K]: " + ", ".join(
+        f"[{c_}, {k_}] {v}" for (c_, k_), v in sorted(shapes.items(), key=lambda kv: -kv[1])))
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the delta main path")
@@ -678,7 +812,7 @@ def delta_main_path(torch) -> dict:
     if host != {a: sums[a] for a in host}:
         raise AssertionError(f"delta device checksums != host on rows {host_rows}")
     log(f"delta checksums: device == host (pure Python) on live rows {host_rows}")
-    return launches, detected
+    return launches, detected, shapes
 
 
 def _same_state(torch, a, b, what: str) -> None:
@@ -865,9 +999,10 @@ def main() -> int:
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
     launches, converged_dense = main_path(torch)
-    launches_delta, converged_delta = delta_main_path(torch)
+    launches_delta, converged_delta, searchsorted_shapes = delta_main_path(torch)
     launches_ring = ring_path(torch, "dense", converged_dense)
     launches_ring_delta = ring_path(torch, "delta", converged_delta)
+    time_searchsorted_shapes(torch, searchsorted_shapes)
     # each kernel's launches on the main path it belongs to: the dense
     # path for the receiver merge and FarmHash, the delta path for the
     # delta kernels (FarmHash also ran there: see the line above), both

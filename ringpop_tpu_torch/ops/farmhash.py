@@ -300,6 +300,11 @@ def farmhash32_plain(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 # the kernel wrapper
 # ---------------------------------------------------------------------------
 
+# 20-byte blocks per shared-memory tile of the kernel (its kTileBlocks,
+# checked when the kernel is loaded): lengths at a tile's edges are where
+# the tiled walk is likely to break, and the edge cases are built from this.
+TILE_BLOCKS = 128
+
 _lib = None
 
 
@@ -311,6 +316,12 @@ def _kernel():
         lib.rp_farmhash32.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
         ]
+        lib.rp_farmhash32_tile_blocks.restype = ctypes.c_int
+        tile = lib.rp_farmhash32_tile_blocks()
+        if tile != TILE_BLOCKS:
+            raise RuntimeError(
+                f"csrc/farmhash32.cu tiles {tile} blocks, ops/farmhash.py says {TILE_BLOCKS}"
+            )
         _lib = lib
     return _lib
 
@@ -319,7 +330,9 @@ def farmhash32_batch(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Fingerprint32 per row: ``bufs`` uint8[B, L], ``lens`` int32[B]
     (each <= L) -> int64[B] holding uint32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
-    ``farmhash32_batch.launches``) or raise."""
+    ``farmhash32_batch.launches``) or raise.  The kernel reads rows at
+    any row stride, so a view cut from wider rows (as ``row_strings``
+    returns) is hashed in place, without a copy."""
     if bufs.dtype != torch.uint8 or bufs.dim() != 2:
         raise TypeError(f"bufs must be uint8[B, L], got {bufs.dtype}{list(bufs.shape)}")
     rows, width = bufs.shape
@@ -334,13 +347,14 @@ def farmhash32_batch(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"farmhash32_batch runs on cpu or cuda tensors, not {dev}")
     if rows and (int(lens.min()) < 0 or int(lens.max()) > width):
         raise ValueError(f"lens must lie in [0, {width}]")
-    bufs = bufs.contiguous()
+    if bufs.stride(1) != 1 or bufs.stride(0) < width:
+        bufs = bufs.contiguous()
     lens = lens.contiguous()
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel().rp_farmhash32(
-            bufs.data_ptr(), lens.data_ptr(), out.data_ptr(), rows, width, stream
+            bufs.data_ptr(), lens.data_ptr(), out.data_ptr(), rows, bufs.stride(0), stream
         )
     _build.check(rc, "farmhash32")
     farmhash32_batch.launches += 1

@@ -74,32 +74,47 @@ def _kernel():
     return _lib
 
 
+def _launch(t, q, out, right: bool, index: int) -> None:
+    n, c = t.shape
+    rc = _kernel().rp_row_searchsorted(
+        t.data_ptr(), q.data_ptr(), out.data_ptr(), n, c, q.shape[1], right,
+        torch._C._cuda_getCurrentRawStream(index),
+    )
+    _build.check(rc, "row_searchsorted")
+
+
 def row_searchsorted(
     table: torch.Tensor, queries: torch.Tensor, side: str = "left"
 ) -> torch.Tensor:
     """int32[N, K] insertion positions of ``queries`` in the sorted rows
     of ``table`` (int32[N, C]).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (and count the launch in
-    ``row_searchsorted.launches``) or raise."""
+    ``row_searchsorted.launches``, and by ``(C, K)`` in
+    ``row_searchsorted.shapes``) or raise."""
     _check(table, queries, side)
-    dev = table.device
-    if dev.type == "cpu":
-        return row_searchsorted_plain(table, queries, side)
-    if dev.type != "cuda":
-        raise ValueError(f"row_searchsorted runs on cpu or cuda tensors, not {dev}")
-    n, c = table.shape
-    k = queries.shape[1]
-    t = table.contiguous()
-    q = queries.contiguous()
-    out = torch.empty((n, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel().rp_row_searchsorted(
-            t.data_ptr(), q.data_ptr(), out.data_ptr(), n, c, k, int(side == "right"), stream
-        )
-    _build.check(rc, "row_searchsorted")
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return row_searchsorted_plain(table, queries, side)
+        raise ValueError(f"row_searchsorted runs on cpu or cuda tensors, not {table.device}")
+    t = table if table.is_contiguous() else table.contiguous()
+    q = queries if queries.is_contiguous() else queries.contiguous()
+    out = torch.empty_like(q)
+    # The delta step calls this ~26 times a tick, mostly at device times
+    # of tens of microseconds, so the host work before the launch counts:
+    # a raw stream handle and a device check stand in for a device guard
+    # and a Stream object, which take more host time than the launch
+    # itself, unless the tensors lie on another card than the current one.
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        _launch(t, q, out, side == "right", index)
+    else:
+        with torch.cuda.device(index):
+            _launch(t, q, out, side == "right", index)
     row_searchsorted.launches += 1
+    shape = (t.shape[1], q.shape[1])
+    row_searchsorted.shapes[shape] = row_searchsorted.shapes.get(shape, 0) + 1
     return out
 
 
 row_searchsorted.launches = 0
+row_searchsorted.shapes = {}

@@ -48,8 +48,8 @@ def _queries(rng, n: int, k: int, span: int) -> np.ndarray:
 
 @pytest.mark.parametrize("side", ["left", "right"])
 @pytest.mark.parametrize("n", [16, 64, 130])
-@pytest.mark.parametrize("c", [1, 8, 33, 256])
-@pytest.mark.parametrize("k", [5, 65])
+@pytest.mark.parametrize("c", [1, 3, 8, 33, 64, 256])
+@pytest.mark.parametrize("k", [5, 31, 33, 65, 256])
 def test_row_searchsorted_plain_matches_pallas(side, n, c, k):
     rng = np.random.default_rng(1000 * n + 10 * c + k)
     table = _sorted_rows(rng, n, c, span=max(4, c // 2))
@@ -208,16 +208,25 @@ def _need_card():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
 
 
-@pytest.mark.parametrize("c", [1, 33, 256, 20000])
+@pytest.mark.parametrize("c", [1, 3, 33, 64, 256, 20000])
 def test_row_searchsorted_kernel_on_card(c):
+    """Rows that are not 16-byte aligned (C not a multiple of 4), K not a
+    multiple of 4 or 32, K at and past the widths that share a warp
+    between rows (8, 16), K > C, a row count that is not a multiple of
+    the rows per block, and tables that start off a 16-byte boundary."""
     _need_card()
     rng = np.random.default_rng(c)
-    table = torch.as_tensor(_sorted_rows(rng, 64, c, span=max(4, c // 2)), device="cuda")
-    q = torch.as_tensor(_queries(rng, 64, 65, span=max(4, c // 2)), device="cuda")
-    for side in ("left", "right"):
-        got = row_searchsorted(table, q, side=side)
-        torch.cuda.synchronize()
-        assert torch.equal(got, row_searchsorted_plain(table, q, side=side))
+    rows = 257 if c == 20000 else 9001
+    for k in (5, 8, 9, 16, 17, 31, 33, 64, 65, 256):
+        table = torch.as_tensor(_sorted_rows(rng, rows, c, span=max(4, c // 2)), device="cuda")
+        q = torch.as_tensor(_queries(rng, rows, k, span=max(4, c // 2)), device="cuda")
+        shifted = torch.cat([table.reshape(-1)[:1], table.reshape(-1)])[1:].view(rows, c)
+        for side in ("left", "right"):
+            want = row_searchsorted_plain(table, q, side=side)
+            for t in (table, shifted):
+                got = row_searchsorted(t, q, side=side)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (c, k, side, t.data_ptr() % 16)
 
 
 @pytest.mark.parametrize("ki", [2, 65, 20000])

@@ -83,8 +83,9 @@ def _hash_batch(lengths, width, seed):
 
 @pytest.mark.parametrize(
     "lengths",
-    [list(range(0, 5)), list(range(5, 13)), list(range(13, 25)), list(range(25, 200, 7))],
-    ids=["0-4", "5-12", "13-24", "long"],
+    [list(range(0, 5)), list(range(5, 13)), list(range(13, 25)), list(range(25, 200, 7)),
+     list(range(20, 66))],
+    ids=["0-4", "5-12", "13-24", "long", "20-65"],
 )
 def test_farmhash_plain_matches_host_and_pallas(lengths):
     width = max(max(lengths), 25)
@@ -96,6 +97,22 @@ def test_farmhash_plain_matches_host_and_pallas(lengths):
     np.testing.assert_array_equal(got, pallas)
     own = np.array([tfh.farmhash32(bufs[i, :n].tobytes()) for i, n in enumerate(lens)])
     np.testing.assert_array_equal(own, host)
+
+
+@pytest.mark.parametrize("width", [47, 333, 4097])
+def test_farmhash_row_strided_batch(width):
+    """Rows cut from a [R, W + 1] buffer (odd W, so the row stride W + 1
+    is not W) hash as their contiguous copy and as the host oracle."""
+    rng = np.random.default_rng(width)
+    wide = rng.integers(0, 256, (9, width + 1), dtype=np.uint8)
+    lens = np.array([0, 4, 24, 25, 44, 45, width - 1, width, width // 2], np.int32)
+    cut = torch.as_tensor(wide)[:, :width]
+    assert cut.stride(0) == width + 1
+    got = tfh.farmhash32_batch(cut, torch.as_tensor(lens)).numpy()
+    flat = tfh.farmhash32_batch(cut.contiguous(), torch.as_tensor(lens)).numpy()
+    host = np.array([ref_farmhash32(wide[i, :n].tobytes()) for i, n in enumerate(lens)])
+    np.testing.assert_array_equal(got, flat)
+    np.testing.assert_array_equal(got, host)
 
 
 def test_farmhash_known_vector():
@@ -187,9 +204,30 @@ def test_recv_merge_kernel_on_card(n):
 
 
 def test_farmhash_kernel_on_card():
+    """Every length arm; then odd row strides (rows cut from [R, W + 1]
+    buffers and contiguous odd widths, so row starts take every byte
+    phase) at lengths on the arm, block and shared-memory tile edges (a
+    tile is ``TILE_BLOCKS`` 20-byte blocks), 0 and the full width."""
     _need_card()
     bufs, lens = _hash_batch(list(range(0, 300)), 300, seed=9)
     b, l_ = torch.as_tensor(bufs, device="cuda"), torch.as_tensor(lens, device="cuda")
     got = tfh.farmhash32_batch(b, l_)
     torch.cuda.synchronize()
     assert torch.equal(got, tfh.farmhash32_plain(b, l_))
+    rng = np.random.default_rng(10)
+    tile = 20 * tfh.TILE_BLOCKS
+    edges = [0, 1, 4, 5, 12, 13, 24, 25, 44, 45, 64, 65,
+             tile - 1, tile, tile + 1, tile + 20, tile + 21, 2 * tile + 1]
+    for width in (4097, 4 * tile + 1):
+        lens = np.array([x for x in edges if x <= width] + [width - 1, width], np.int32)
+        wide = torch.as_tensor(
+            rng.integers(0, 256, (lens.size, width + 1), dtype=np.uint8), device="cuda"
+        )
+        l_ = torch.as_tensor(lens, device="cuda")
+        for rows in (wide[:, :width], wide[:, :width].contiguous()):
+            got = tfh.farmhash32_batch(rows, l_)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tfh.farmhash32_plain(rows, l_)), (width, rows.stride(0))
+            host = rows.cpu().numpy()
+            assert got.tolist() == [ref_farmhash32(host[i, :n].tobytes())
+                                    for i, n in enumerate(lens)]
