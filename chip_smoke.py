@@ -10,14 +10,20 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    parallel) and print the build time and the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card
    (exact equality) at the main paths' shapes and at the edge shapes of
-   its design (row-searchsorted: C in {1, 3, 33, 64, 256, 20000} by K in
-   {5, 16, 31, 33, 64, 65, 256}; FarmHash: odd row strides and lengths at
-   the arm, block and tile edges), and time kernel, plain version and,
-   where one exists, a single PyTorch call for the same function (CUDA
-   events around one call on an idle card, after an L2 flush; median of
-   10 calls after a warm-up; the plain FarmHash, which loops over a row's
-   20-byte blocks in Python, is timed by its one run); time FarmHash at
-   the delta path's checksum chunk too;
+   its design (receiver merge: all-to-one, every sender silent, claims
+   off a 16-byte boundary, n in {1, 4, 5, 10001, 10003, 32768, 32769};
+   row-searchsorted: C in {1, 3, 33, 64, 256, 20000} by K in {5, 16, 31,
+   33, 64, 65, 256}; merge-insert: C in {1, 17, 31, 33, 5000}, ki from 1
+   to 20000, inputs off their alignment; FarmHash: odd row strides and
+   lengths at the arm, block and tile edges), and time kernel, plain
+   version and, where one exists, a single PyTorch call for the same
+   function (CUDA events around one call on an idle card, after an L2
+   flush; median of 10 calls after a warm-up; the plain FarmHash, which
+   loops over a row's 20-byte blocks in Python, is timed by its one run);
+   the receiver merge at its phase-3 and ping-req shapes, and it and the
+   merge-insert split into the wrapper's prefix (its call with the
+   kernel's C entry point launching nothing) and the launch alone; time
+   FarmHash at the delta path's checksum chunk too;
 4. step a 256-node dense cluster with a kill on the card and on the CPU
    for 10 ticks: every state field and metric must be equal on every
    tick; the same for a 256-node delta cluster at production-style caps
@@ -26,7 +32,9 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
 5. the dense main path at BASELINE config 3 (10k nodes, 1% loss): 5
    ticks, kill node 4242, tick until every live node holds it faulty and
    the views converge, then device checksums must form one group; both
-   of its kernels' launch counters must have risen during this phase;
+   of its kernels' launch counters must have risen during this phase,
+   and the receiver merge's launches are counted by senders delivered
+   (phase 3 or a ping-req slot);
    then the device checksums of a few rows equal the host oracle's, and
    the FarmHash kernel equals its plain version on real rows' strings;
 6. the delta main path: the BASELINE north star's 65,536-node cluster
@@ -57,10 +65,16 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    the delta main path's three most-launched shapes (and any tied with
    the third);
 10. print the ``kernels`` JSON line, then the result line.
+
+``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
+of the receiver merge and the merge-insert (phase 3's part for them) on
+the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
+and prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -135,63 +149,165 @@ def max_sm_clock_mhz() -> float:
     return float(out.splitlines()[0])
 
 
-def check_recv_merge(torch, dev) -> dict:
-    import numpy as np
+class _NoLaunch:
+    """A kernel library whose entry point ``entry`` returns 0 and launches
+    nothing, so that a wrapper call times only its prefix: its host work
+    and whatever it launches before that entry point."""
 
-    from ringpop_tpu_torch.ops.recv_merge import recv_merge, recv_merge_plain
+    def __init__(self, lib, entry: str):
+        self._lib, self._entry = lib, entry
 
-    n = N_MAIN
-    rng = np.random.default_rng(0)
-    fwd_np = rng.random(n) < 0.99
-    t_np = np.where(fwd_np, rng.integers(0, n, n), 0)
-    # phase-3-shaped claims: a few active changes per delivering sender,
-    # each a lattice key (inc * 8 + status)
-    active = rng.random((n, n)) < 0.002
-    keys = rng.integers(1, 1 << 20, (n, n)) * 8 + rng.integers(1, 5, (n, n))
-    claims_np = np.where(active & fwd_np[:, None], keys, 0).astype(np.int32)
-    t_safe = torch.as_tensor(t_np, dtype=torch.int64, device=dev)
-    fwd_ok = torch.as_tensor(fwd_np, device=dev)
-    claims = torch.as_tensor(claims_np, device=dev)
-    del active, keys, claims_np
+    def __getattr__(self, name: str):
+        return (lambda *args: 0) if name == self._entry else getattr(self._lib, name)
 
-    got = recv_merge(t_safe, fwd_ok, claims)
-    want = recv_merge_plain(t_safe, fwd_ok, claims)
+
+def host_ms(torch, fn, runs: int = RUNS) -> float:
+    """Median host time of one call of ``fn`` (the host clock around the
+    call alone, the card idle before it, no synchronisation after it)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def split_ms(torch, module, entry: str, call, launch) -> dict:
+    """The wrapper ``call`` of ``module`` (which loads its library through
+    ``module._kernel()`` into ``module._lib``) split in two: the prefix,
+    the call with ``entry`` launching nothing, timed on the card and on
+    the host alone; and ``launch(lib)`` alone, which calls ``entry`` on
+    arguments made ahead of time."""
+    lib = module._kernel()
+    module._lib = _NoLaunch(lib, entry)
+    try:
+        prefix = time_ms(torch, call)
+        host = host_ms(torch, call)
+    finally:
+        module._lib = lib
+    from ringpop_tpu_torch import _build
+
+    _build.check(launch(lib), entry)
+    return {"prefix_ms": prefix, "prefix_host_ms": host,
+            "launch_ms": time_ms(torch, lambda: launch(lib))}
+
+
+def recv_merge_inputs(torch, dev, n: int, deliver: float, seed: int, aligned: bool = True,
+                      density: float = 0.002):
+    """Sender targets, delivery flags and claim rows for n senders: each
+    delivering sender carries active changes (lattice keys inc * 8 +
+    status) in a ``density`` share of its columns, a few at the default,
+    and every other row is zero, as at phase 3 of the dense step (deliver
+    ~0.99) and in a ping-req slot (~0.01).  With ``aligned=False`` the
+    claims are a view that starts 4 bytes past a 16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fwd_ok = torch.rand(n, generator=gen, device=dev) < deliver
+    t_safe = torch.where(fwd_ok, torch.randint(0, n, (n,), generator=gen, device=dev), 0)
+    buf = torch.zeros(n * n + (0 if aligned else 1), dtype=torch.int32, device=dev)
+    claims = buf[buf.numel() - n * n:].view(n, n)
+    rows = fwd_ok.nonzero()[:, 0]
+    for lo in range(0, rows.numel(), 1024):  # in row chunks, to bound the temporaries
+        r = rows[lo:lo + 1024]
+        active = torch.rand((r.numel(), n), generator=gen, device=dev) < density
+        keys = (torch.randint(1, 1 << 20, (r.numel(), n), generator=gen, device=dev,
+                              dtype=torch.int32) * 8
+                + torch.randint(1, 5, (r.numel(), n), generator=gen, device=dev,
+                                dtype=torch.int32))
+        claims[r] = torch.where(active, keys, 0)
+    return t_safe, fwd_ok, claims
+
+
+def recv_merge_equal(torch, rm, t_safe, fwd_ok, claims, what: str) -> int:
+    """The kernel against the plain version; returns the max abs error."""
+    got = rm.recv_merge(t_safe, fwd_ok, claims)
+    want = rm.recv_merge_plain(t_safe, fwd_ok, claims)
     torch.cuda.synchronize()
     err = max(int((got[0] - want[0]).abs().max()), int((got[1] - want[1]).abs().max()))
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError(f"recv_merge kernel != plain at n={n} (max abs err {err})")
-    # every sender to one receiver: one run of length n
+        raise AssertionError(f"recv_merge kernel != plain at {what} (max abs err {err})")
+    return err
+
+
+def time_recv_merge(torch, rm, t_safe, fwd_ok, claims) -> dict:
+    """One call of the wrapper, its prefix alone, the merge launch alone
+    (on a receiver order made ahead of time by torch), the plain version
+    and ``scatter_reduce``.  The bound reads the targets, the flags and
+    each delivered claim row once and writes the output and the counts
+    once; the merge does one max per delivered element."""
+    n = t_safe.shape[0]
+    dev = claims.device
+    recv = torch.where(fwd_ok, t_safe, n)
+    order = torch.argsort(recv, stable=True)
+    starts = torch.searchsorted(recv[order], torch.arange(n + 1, dtype=torch.int64, device=dev))
+    ahead = (order.to(torch.int32), starts.to(torch.int32), claims, torch.empty_like(claims))
+    ptrs = [t.data_ptr() for t in ahead]
+    stream = torch.cuda.current_stream().cuda_stream
+    split = split_ms(
+        torch, rm, "rp_recv_merge", lambda: rm.recv_merge(t_safe, fwd_ok, claims),
+        lambda lib: lib.rp_recv_merge(*ptrs, n, stream))
+    idx = recv[:, None].expand(n, n)
+    zeros = torch.zeros((n + 1, n), dtype=torch.int32, device=dev)
+    delivered = int(fwd_ok.sum())
+    moved = 8 * n + n + 4 * delivered * n + 4 * n * n + 4 * n
+    ops = delivered * n
+    return {
+        "ms": time_ms(torch, lambda: rm.recv_merge(t_safe, fwd_ok, claims)), **split,
+        "plain_ms": time_ms(torch, lambda: rm.recv_merge_plain(t_safe, fwd_ok, claims)),
+        "library_ms": time_ms(torch, lambda: zeros.scatter_reduce(
+            0, idx, claims, reduce="amax", include_self=True)),
+        "bound_ms": max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
+        "delivered": delivered,
+    }
+
+
+def check_recv_merge(torch, dev) -> dict:
+    from ringpop_tpu_torch.ops import recv_merge as rm
+
+    n = N_MAIN
+    err = 0
+    timed = {}
+    for label, deliver, seed in (("phase 3", 0.99, 0), ("ping-req", 0.01, 1)):
+        args = recv_merge_inputs(torch, dev, n, deliver, seed)
+        err = max(err, recv_merge_equal(torch, rm, *args, f"n={n}, {label} shape"))
+        timed[label] = time_recv_merge(torch, rm, *args)
+        del args
+    # where the design is likely to break: every sender to one receiver
+    # (one run of length n), every sender silent, claims that start off a
+    # 16-byte boundary, rows that are not 16-byte aligned (n % 4 != 0),
+    # tiny n, and more receivers than one pass of the counting sort holds
     one_t = torch.full((n,), 7, dtype=torch.int64, device=dev)
     one_ok = torch.ones(n, dtype=torch.bool, device=dev)
     dense = torch.randint(0, 1 << 30, (n, n), dtype=torch.int32, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(1))
-    g1, w1 = recv_merge(one_t, one_ok, dense), recv_merge_plain(one_t, one_ok, dense)
-    if not (torch.equal(g1[0], w1[0]) and torch.equal(g1[1], w1[1])):
-        raise AssertionError("recv_merge kernel != plain for the all-to-one case")
-    del dense, g1, w1
-
-    ms = time_ms(torch, lambda: recv_merge(t_safe, fwd_ok, claims))
-    plain_ms = time_ms(torch, lambda: recv_merge_plain(t_safe, fwd_ok, claims))
-    recv = torch.where(fwd_ok, t_safe, n)
-    idx = recv[:, None].expand(n, n)
-    zeros = torch.zeros((n + 1, n), dtype=torch.int32, device=dev)
-    library_ms = time_ms(
-        torch, lambda: zeros.scatter_reduce(0, idx, claims, reduce="amax", include_self=True)
-    )
-    delivered = int(fwd_ok.sum())
-    moved = 8 * n + n + 4 * delivered * n + 4 * n * n + 4 * n
-    ops = delivered * n
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
-    log(f"recv_merge: exact at n={n} (delivered {delivered}) and all-to-one; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms")
+    err = max(err, recv_merge_equal(torch, rm, one_t, one_ok, dense, "the all-to-one case"))
+    err = max(err, recv_merge_equal(torch, rm, one_t, ~one_ok, dense, "every sender silent"))
+    del dense
+    edges = [(n, 0.99, False), (n + 1, 0.99, True), (n + 3, 0.5, False), (1, 1.0, True),
+             (4, 1.0, True), (5, 1.0, False), (32_768, 0.01, True), (32_769, 0.01, False)]
+    for m, deliver, aligned in edges:
+        args = recv_merge_inputs(torch, dev, m, deliver, 3, aligned, density=0.3)
+        err = max(err, recv_merge_equal(torch, rm, *args, f"n={m} (claims at byte "
+                                        f"{args[2].data_ptr() % 16} of 16)"))
+        del args
+    for label, r in timed.items():
+        log(f"recv_merge at n={n}, {label} shape ({r['delivered']} senders delivered): one call "
+            f"{r['ms']:.4f} ms; prefix {r['prefix_ms']:.4f} ms (the wrapper with no merge "
+            f"launch; host {r['prefix_host_ms']:.4f} ms); merge launch alone "
+            f"{r['launch_ms']:.4f} ms; plain {r['plain_ms']:.4f} "
+            f"ms, scatter_reduce {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"recv_merge: exact at n={n} (phase 3 and ping-req shapes), all-to-one, every sender "
+        f"silent, and at (n, delivered, claims 16-byte aligned) in {edges}")
+    r = timed["phase 3"]
     return {
         "name": "recv_merge", "route": "cuda",
         "source": "ringpop_tpu_torch/csrc/recv_merge.cu",
         "replaces": "ringpop_tpu/ops/recv_merge_pallas.py:70",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
-        "library_ms": library_ms,
+        "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     }
 
 
@@ -466,47 +582,92 @@ def merge_inputs(torch, gen, n: int, c: int, ki: int):
     return [t.contiguous() for t in (d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)]
 
 
+def time_merge_insert(torch, mi, args) -> dict:
+    """One call of the wrapper, its prefix alone, the kernel launch alone
+    (outputs made ahead of time) and the plain version.  The bound reads
+    the four table channels (10 bytes a slot) and the insert list (8
+    bytes an entry) once and writes the four channels once; a binary
+    search per insert over the row and per slot over the positions."""
+    n, c = args[0].shape
+    ki = args[4].shape[1]
+    lib = mi._kernel()
+    scratch = (torch.empty((n, ki), dtype=torch.int32, device=args[0].device)
+               if lib.rp_merge_insert_needs_scratch(ki) else None)
+    outs = [torch.empty_like(t) for t in args[:4]]
+    ptrs = [t.data_ptr() for t in (*args, *outs)] + [None if scratch is None else
+                                                      scratch.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        return mi.merge_insert(*args, sl_start=SL_START, suspect=SUSPECT)
+
+    split = split_ms(
+        torch, mi, "rp_merge_insert", call,
+        lambda lib: lib.rp_merge_insert(*ptrs, n, c, ki, SL_START, SUSPECT, stream))
+    moved = 10 * n * c + 8 * n * ki + 10 * n * c
+    ops = n * (ki * math.ceil(math.log2(c + 1)) + c * math.ceil(math.log2(ki + 1)))
+    return {
+        "ms": time_ms(torch, call), **split,
+        "plain_ms": time_ms(torch, lambda: mi.merge_insert_plain(
+            *args, sl_start=SL_START, suspect=SUSPECT)),
+        "bound_ms": max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
+        "moved": moved,
+    }
+
+
+def shifted(torch, t):
+    """A copy of ``t`` whose storage starts one element past ``t``'s."""
+    flat = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])
+    return flat[1:].view(t.shape)
+
+
 def check_merge_insert(torch, dev) -> dict:
-    from ringpop_tpu_torch.ops.delta_merge import merge_insert, merge_insert_plain
+    from ringpop_tpu_torch.ops import delta_merge as mi
 
     gen = torch.Generator(device=dev).manual_seed(5)
     n, c = N_DELTA, DELTA_CAPS["capacity"]
     err = 0
-    for ki in (DELTA_CAPS["claim_grid"] + 1, c + 17):
-        args = merge_inputs(torch, gen, n, c, ki)
-        got = merge_insert(*args, sl_start=SL_START, suspect=SUSPECT)
-        want = merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)
-        for g, w in zip(got, want):
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"merge_insert kernel != plain at [{n}, {c}], ki = {ki} "
-                                 f"(max abs err {err})")
-        fresh_suspects = int((got[3] == SL_START).sum())
-        pads = int((args[4] == SENTINEL).sum())
-        if fresh_suspects == 0 or pads == 0:
-            raise AssertionError("merge_insert inputs hold no suspect or no SENTINEL inserts")
+    # the main shape (ki = claim_grid + 1) and more inserts than slots;
+    # then where the design is likely to break: C = 1, ki = 1, int8 rows
+    # that are not 16-byte aligned (C % 16 in {1, 15}), rows too wide to
+    # stage, and an insert list too wide for shared memory
+    shapes = [(n, c, DELTA_CAPS["claim_grid"] + 1), (n, c, c + 17), (4099, 1, 1), (4099, 1, 9),
+              (4099, 17, 1), (4099, 17, 5), (4099, 31, 33), (4099, 33, 7), (4099, 256, 65),
+              (257, 5000, 65), (65, 64, 20_000)]
+    for rows, cols, ki in shapes:
+        args = merge_inputs(torch, gen, rows, cols, ki)
+        want = mi.merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)
+        # below the main shapes, again with every input starting one
+        # element past its aligned address
+        for inputs in [args] + ([[shifted(torch, t) for t in args]] if rows < n else []):
+            got = mi.merge_insert(*inputs, sl_start=SL_START, suspect=SUSPECT)
+            for g, w in zip(got, want):
+                err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"merge_insert kernel != plain at [{rows}, {cols}], ki = "
+                                     f"{ki}, inputs at byte {inputs[2].data_ptr() % 16} of 16 "
+                                     f"(max abs err {err})")
+        if rows == n:
+            fresh_suspects = int((got[3] == SL_START).sum())
+            pads = int((args[4] == SENTINEL).sum())
+            if fresh_suspects == 0 or pads == 0:
+                raise AssertionError("merge_insert inputs hold no suspect or no SENTINEL inserts")
     ki = DELTA_CAPS["claim_grid"] + 1
-    args = merge_inputs(torch, gen, n, c, ki)
-    ms = time_ms(torch, lambda: merge_insert(*args, sl_start=SL_START, suspect=SUSPECT))
-    plain_ms = time_ms(torch, lambda: merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT))
-    # read the four table channels (10 bytes a slot) and the insert list
-    # (8 bytes an entry) once, write the four channels once; a binary
-    # search per insert over the row and per slot over the positions
-    moved = 10 * n * c + 8 * n * ki + 10 * n * c
-    ops = n * (ki * math.ceil(math.log2(c + 1)) + c * math.ceil(math.log2(ki + 1)))
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
-    log(f"merge_insert: exact at [{n}, {c}] with ki = {DELTA_CAPS['claim_grid'] + 1} and "
-        f"{c + 17} (suspect and SENTINEL inserts, full rows); at ki = {ki}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(20 * N * C + 8 * N * ki bytes = {moved} at 3.35 TB/s); no single PyTorch call "
+    r = time_merge_insert(torch, mi, merge_inputs(torch, gen, n, c, ki))
+    log(f"merge_insert: exact at [rows, C], ki in {shapes} (suspect and SENTINEL inserts, full "
+        f"rows; below the main shapes also with every input one element off its alignment); "
+        f"at [{n}, {c}], ki = {ki}: one call {r['ms']:.4f} ms; prefix {r['prefix_ms']:.4f} ms "
+        f"(the wrapper with no launch; host {r['prefix_host_ms']:.4f} ms); launch alone "
+        f"{r['launch_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"(20 * N * C + 8 * N * ki bytes = {r['moved']} at 3.35 TB/s); no single PyTorch call "
         f"computes this merge")
     return {
         "name": "merge_insert", "route": "cuda",
         "source": "ringpop_tpu_torch/csrc/delta_merge.cu",
         "replaces": "ringpop_tpu/ops/delta_merge_pallas.py:65",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S else "operations",
-        "library_ms": None,
+        "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
     }
 
 
@@ -663,6 +824,7 @@ def main_path(torch) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     recv_merge.launches = 0
+    recv_merge.delivered = []
     farmhash32_batch.launches = 0
 
     c = SimCluster(N_MAIN, sim.SwimParams(loss=0.01), seed=0, device="cuda")
@@ -696,12 +858,21 @@ def main_path(torch) -> dict:
     if len(groups) != 1:
         raise AssertionError(f"{len(groups)} checksum groups after convergence")
     launches = {"recv_merge": recv_merge.launches, "farmhash32": farmhash32_batch.launches}
+    delivered = torch.cat(recv_merge.delivered).tolist() if recv_merge.delivered else []
+    recv_merge.delivered = None
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: n={N_MAIN} loss=0.01, node {VICTIM} faulty everywhere and views "
         f"converged {detected} ticks after the kill ({len(tick_ms)} ticks); median tick "
         f"{statistics.median(tick_ms):.3f} ms; device checksums of "
         f"{len(c.live_indices())} live nodes in one group, {ck_ms:.1f} ms; peak memory "
         f"{peak / 2**30:.2f} GiB; launches {launches}")
+    # phase 3 delivers most senders' pings, a ping-req slot the few
+    # failed pingers'
+    wide = [d for d in delivered if 2 * d >= N_MAIN]
+    few = [d for d in delivered if 2 * d < N_MAIN]
+    log(f"main path: recv_merge launches by senders delivered: {len(wide)} with at least half "
+        f"(phase 3; median {statistics.median(wide or [0])}), {len(few)} with fewer (ping-req "
+        f"slots; median {statistics.median(few or [0])}, max {max(few or [0])})")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -966,6 +1137,13 @@ def check_farmhash_real_rows(torch, c) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--split-of", metavar="ROOT",
+                    help="only check and time the receiver merge and the merge-insert "
+                         "(one call, prefix, launch alone) of the ringpop_tpu_torch package "
+                         "under ROOT, such as a parent checkout, and print no result line")
+    args = ap.parse_args()
+    root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
         import torch
     except ImportError:
@@ -974,10 +1152,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "ringpop_tpu_torch")):
-        print("chip_smoke: run from a checkout that holds ringpop_tpu_torch/", file=sys.stderr)
+    if not os.path.isdir(os.path.join(root, "ringpop_tpu_torch")):
+        print(f"chip_smoke: {root} holds no ringpop_tpu_torch/", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     from ringpop_tpu_torch import _build
 
     t_start = time.perf_counter()
@@ -992,6 +1170,12 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     dev = torch.device("cuda")
+    if args.split_of:
+        log(f"split of the package under {root}")
+        check_recv_merge(torch, dev)
+        check_merge_insert(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     rows = [check_recv_merge(torch, dev), check_farmhash(torch, dev),
             check_row_searchsorted(torch, dev), check_merge_insert(torch, dev),
             check_ring_hop(torch, dev)]

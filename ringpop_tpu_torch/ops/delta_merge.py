@@ -128,31 +128,32 @@ def merge_insert(
     plain version; CUDA tensors launch the kernel (and count the launch
     in ``merge_insert.launches``) or raise."""
     _check(d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)
-    dev = d_subj.device
-    if dev.type == "cpu":
-        return merge_insert_plain(
-            d_subj, d_key, d_pb, d_sl, ins_subj, ins_key, sl_start=sl_start, suspect=suspect
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"merge_insert runs on cpu or cuda tensors, not {dev}")
+    if not d_subj.is_cuda:
+        if d_subj.device.type == "cpu":
+            return merge_insert_plain(
+                d_subj, d_key, d_pb, d_sl, ins_subj, ins_key, sl_start=sl_start, suspect=suspect
+            )
+        raise ValueError(f"merge_insert runs on cpu or cuda tensors, not {d_subj.device}")
     n, cap = d_subj.shape
     ki = ins_subj.shape[1]
-    ins = [t.contiguous() for t in (d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)]
-    outs = [torch.empty((n, cap), dtype=t.dtype, device=dev) for t in ins[:4]]
+    ins = [t if t.is_contiguous() else t.contiguous()
+           for t in (d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)]
+    outs = [torch.empty_like(t) for t in ins[:4]]
     lib = _kernel()
-    scratch = (
-        torch.empty((n, ki), dtype=torch.int32, device=dev)
-        if lib.rp_merge_insert_needs_scratch(ki)
-        else None
+    scratch = ins[4].new_empty((n, ki)) if lib.rp_merge_insert_needs_scratch(ki) else None
+    args = (
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        None if scratch is None else scratch.data_ptr(), n, cap, ki, int(sl_start), int(suspect),
     )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rp_merge_insert(
-            *(t.data_ptr() for t in ins),
-            *(t.data_ptr() for t in outs),
-            None if scratch is None else scratch.data_ptr(),
-            n, cap, ki, int(sl_start), int(suspect), stream,
-        )
+    # the raw stream handle and a device check stand in for a device guard
+    # and a Stream object, unless the tensors lie on another card than the
+    # current one
+    index = ins[0].get_device()
+    if index == torch._C._cuda_getDevice():
+        rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(rc, "merge_insert")
     merge_insert.launches += 1
     return tuple(outs)

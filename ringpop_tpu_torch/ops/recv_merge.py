@@ -6,11 +6,11 @@ sender ``s`` contributes its claim row ``claim_rows[s]`` to receiver
 ``t_safe[s]``, and each receiver folds its inbound rows with an
 elementwise int32 max.  Rows with no inbound ping are 0.
 
-``recv_merge`` launches the CUDA kernel ``csrc/recv_merge.cu`` for CUDA
-tensors (the port of the TPU kernel ``ringpop_tpu/ops/recv_merge_pallas.py``)
-and runs ``recv_merge_plain`` for CPU tensors only.  The flat prefix
-(sort senders by receiver, run bounds by ``searchsorted``) stays in
-torch, as the TPU kernel kept it outside ``pallas_call``.
+``recv_merge`` launches the CUDA kernels of ``csrc/recv_merge.cu`` for
+CUDA tensors (the port of the TPU kernel
+``ringpop_tpu/ops/recv_merge_pallas.py``): a counting sort of the senders
+by receiver, then the merge.  It runs ``recv_merge_plain`` for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -61,10 +61,25 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("recv_merge")
+        lib.rp_recv_merge_sort.restype = ctypes.c_int
+        lib.rp_recv_merge_sort.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         lib.rp_recv_merge.restype = ctypes.c_int
         lib.rp_recv_merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
+
+
+def _launch(t_safe, fwd_ok, claims, meta, out, n: int, index: int) -> None:
+    lib = _kernel()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    order = meta.data_ptr()
+    starts = order + 4 * n
+    rc = lib.rp_recv_merge_sort(
+        t_safe.data_ptr(), fwd_ok.data_ptr(), order, starts, starts + 4 * (n + 1), n, stream
+    )
+    _build.check(rc, "recv_merge (sort)")
+    rc = lib.rp_recv_merge(order, starts, claims.data_ptr(), out.data_ptr(), n, stream)
+    _build.check(rc, "recv_merge")
 
 
 def recv_merge(
@@ -74,35 +89,37 @@ def recv_merge(
 
     ``t_safe[s]`` (int64) is sender s's receiver, ``fwd_ok[s]`` whether
     its ping was delivered, ``claim_rows[s]`` its claims (int32, >= 0).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count the launch in ``recv_merge.launches``) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (and count the call in ``recv_merge.launches``) or raise.  While
+    ``recv_merge.delivered`` is a list, each launch appends its count of
+    delivering senders to it as a one-element device tensor (no host
+    sync)."""
     n = _check(t_safe, fwd_ok, claim_rows)
-    dev = claim_rows.device
-    if dev.type == "cpu":
-        return recv_merge_plain(t_safe, fwd_ok, claim_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"recv_merge runs on cpu or cuda tensors, not {dev}")
-    claims = claim_rows.contiguous()
-    if claims.data_ptr() % 16:  # the kernel's int4 loads need 16-byte rows
-        claims = claims.clone()
-    recv =torch.where(fwd_ok, t_safe, n)
-    order = torch.argsort(recv, stable=True)
-    starts = torch.searchsorted(
-        recv[order], torch.arange(n + 1, dtype=torch.int64, device=dev)
-    )
-    inbound = (starts[1:] - starts[:-1]).to(torch.int32)
-    order32 = order.to(torch.int32)
-    starts32 = starts.to(torch.int32)
-    out = torch.empty((n, n), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel().rp_recv_merge(
-            order32.data_ptr(), starts32.data_ptr(), claims.data_ptr(),
-            out.data_ptr(), n, stream,
-        )
-    _build.check(rc, "recv_merge")
+    if not claim_rows.is_cuda:
+        if claim_rows.device.type == "cpu":
+            return recv_merge_plain(t_safe, fwd_ok, claim_rows)
+        raise ValueError(f"recv_merge runs on cpu or cuda tensors, not {claim_rows.device}")
+    t = t_safe if t_safe.is_contiguous() else t_safe.contiguous()
+    ok = fwd_ok if fwd_ok.is_contiguous() else fwd_ok.contiguous()
+    claims = claim_rows if claim_rows.is_contiguous() else claim_rows.contiguous()
+    out = torch.empty_like(claims)
+    # order [n], starts [n + 1] and inbound [n] in one int32 buffer
+    meta = claims.new_empty(3 * n + 1)
+    # the dense step calls this ~8 times a tick, so the host work before
+    # the launches counts: a raw stream handle and a device check stand in
+    # for a device guard and a Stream object, unless the tensors lie on
+    # another card than the current one
+    index = claims.get_device()
+    if index == torch._C._cuda_getDevice():
+        _launch(t, ok, claims, meta, out, n, index)
+    else:
+        with torch.cuda.device(index):
+            _launch(t, ok, claims, meta, out, n, index)
     recv_merge.launches += 1
-    return out, inbound
+    if recv_merge.delivered is not None:
+        recv_merge.delivered.append(meta[2 * n : 2 * n + 1])
+    return out, meta[2 * n + 1 :]
 
 
 recv_merge.launches = 0
+recv_merge.delivered = None

@@ -47,7 +47,8 @@ from ringpop_tpu_torch.models.cluster import SimCluster
 
 SPANS = ("swim.", "delta.", "gossip.")
 PORT_KERNELS = (
-    "recv_merge_kernel", "farmhash32_kernel", "row_searchsorted_kernel", "merge_insert_kernel",
+    "recv_merge_sort_kernel", "recv_merge_kernel", "farmhash32_kernel", "row_searchsorted_kernel",
+    "merge_insert_kernel",
     "ring_hop_kernel",
 )
 

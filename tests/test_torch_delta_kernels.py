@@ -85,10 +85,11 @@ def test_row_searchsorted_checks_inputs():
         row_searchsorted(t, torch.zeros((4, 5), dtype=torch.int32), side="middle")
 
 
-def _merge_case(rng, n: int, c: int, ki: int):
+def _merge_case(rng, n: int, c: int, ki: int, full: bool = False):
     """Sorted tables with free slots, and sorted insert lists whose live
     subjects are absent from their row and fit its free slots: alive,
-    suspect and faulty keys, SENTINEL padding, full rows."""
+    suspect and faulty keys, SENTINEL padding, full rows (every row with
+    ``full``)."""
     d_subj = np.full((n, c), SENTINEL, np.int32)
     d_key = np.zeros((n, c), np.int32)
     d_pb = np.full((n, c), -1, np.int8)
@@ -98,7 +99,7 @@ def _merge_case(rng, n: int, c: int, ki: int):
     span = 4 * (c + ki)
     for i in range(n):
         occ = int(rng.integers(0, c + 1))
-        if i % 7 == 0:
+        if full or i % 7 == 0:
             occ = c  # a full row: nothing fits
         subj = np.sort(rng.choice(span, size=occ + min(ki, c - occ), replace=False))
         pick = np.zeros(subj.size, bool)
@@ -132,6 +133,28 @@ def test_merge_insert_plain_matches_pallas(n, c, ki_of):
     # and SENTINEL inserts landing in rows with free slots
     assert (got[3].numpy() == SL_START).any()
     assert (args[4] == SENTINEL).any()
+
+
+# where the kernel's design is likely to break: one slot, one insert, int8
+# rows that start off a 16-byte boundary (C % 16 in {1, 15}), more inserts
+# than slots, and every row full
+_MERGE_EDGES = {
+    "c1_ki1": (16, 1, 1, False), "c1": (16, 1, 5, False), "ki1": (16, 40, 1, False),
+    "c17": (16, 17, 6, False), "c15": (16, 15, 9, False), "c31": (16, 31, 33, False),
+    "full": (16, 33, 8, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_MERGE_EDGES))
+def test_merge_insert_edges_match_pallas(case):
+    n, c, ki, full = _MERGE_EDGES[case]
+    args = _merge_case(np.random.default_rng(c * 100 + ki), n, c, ki, full)
+    want = merge_insert_pallas(*args, sl_start=SL_START, suspect=SUSPECT, interpret=True)
+    got = merge_insert(*[torch.as_tensor(a) for a in args], sl_start=SL_START, suspect=SUSPECT)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if full:
+        np.testing.assert_array_equal(got[0].numpy(), args[0])
 
 
 def test_merge_insert_checks_inputs():
@@ -238,3 +261,26 @@ def test_merge_insert_kernel_on_card(ki):
     torch.cuda.synchronize()
     for g, w in zip(got, merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)):
         assert torch.equal(g, w)
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose storage starts one element past ``t``'s."""
+    flat = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", list(_MERGE_EDGES) + ["wide"])
+def test_merge_insert_edges_on_card(case):
+    """The CPU edges over 4099 rows (not a multiple of the rows a block
+    takes), rows too wide to stage (C = 5000), and each case again with
+    every input starting one element past an aligned address."""
+    _need_card()
+    _, c, ki, full = _MERGE_EDGES.get(case, (0, 5000, 65, False))
+    args = [torch.as_tensor(a, device="cuda")
+            for a in _merge_case(np.random.default_rng(c + ki), 4099, c, ki, full)]
+    want = merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)
+    for inputs in (args, [_shifted(a) for a in args]):
+        got = merge_insert(*inputs, sl_start=SL_START, suspect=SUSPECT)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (case, inputs[2].data_ptr() % 16)

@@ -63,6 +63,40 @@ def test_recv_merge_all_to_one():
     assert int(got_i[3]) == n and int(got_i.sum()) == n
 
 
+def _edge_case(case: str):
+    """Where the kernels' designs are likely to break: one, four and five
+    senders (rows narrower than a 16-byte vector, or not a multiple of
+    it), every sender silent, and every sender to one receiver (one run
+    of length n).  Silent senders' claim rows are not zero, so a merge
+    that reads them shows."""
+    rng = np.random.default_rng(len(case))
+    n = {"n1": 1, "n4": 4, "n5": 5, "silent": 37, "all_to_one": 33}[case]
+    claims = rng.integers(0, 1 << 20, (n, n)).astype(np.int32)
+    t_safe = rng.integers(0, n, n).astype(np.int32)
+    fwd_ok = rng.random(n) < 0.8
+    if case == "n1":
+        fwd_ok[:] = True
+    elif case == "silent":
+        fwd_ok[:] = False
+    elif case == "all_to_one":
+        t_safe[:] = n - 1
+        fwd_ok[:] = True
+    return t_safe, fwd_ok, claims
+
+
+_EDGES = ["n1", "n4", "n5", "silent", "all_to_one"]
+
+
+@pytest.mark.parametrize("case", _EDGES)
+def test_recv_merge_edges_match_pallas(case):
+    t_safe, fwd_ok, claims = _edge_case(case)
+    want_k, want_i = recv_merge_pallas(t_safe, fwd_ok, claims, interpret=True)
+    got_k, got_i = recv_merge(*_torch_args(t_safe, fwd_ok, claims))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert int(got_i.sum()) == int(fwd_ok.sum())
+
+
 def test_recv_merge_wrapper_checks_inputs():
     t, f, c = _torch_args(*_merge_case(8, 0.5, 1))
     with pytest.raises(TypeError):
@@ -201,6 +235,38 @@ def test_recv_merge_kernel_on_card(n):
     want = recv_merge_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", _EDGES + ["unaligned", "n32768", "n32769"])
+def test_recv_merge_edges_on_card(case):
+    """The CPU edges, claim rows from a view that starts 4 bytes past a
+    16-byte boundary (the scalar path), and n at and past the receivers
+    one pass of the counting sort holds (32768)."""
+    _need_card()
+    if case.startswith("n3"):
+        n = int(case[1:])
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        fwd_ok = torch.rand(n, generator=gen, device="cuda") < 0.05
+        t_safe = torch.randint(0, n, (n,), generator=gen, device="cuda")
+        t_safe[:64] = n - 1  # one long run at the last receiver
+        fwd_ok[:64] = True
+        claims = torch.zeros((n, n), dtype=torch.int32, device="cuda")
+        rows = fwd_ok.nonzero()[:, 0]
+        claims[rows] = torch.randint(0, 1 << 20, (rows.numel(), n), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+        args = (t_safe, fwd_ok, claims)
+    elif case == "unaligned":
+        t, f, c = _torch_args(*_merge_case(1001, 0.7, 3), device="cuda")
+        flat = torch.zeros(c.numel() + 1, dtype=torch.int32, device="cuda")
+        flat[1:] = c.reshape(-1)
+        args = (t, f, flat[1:].view(c.shape))
+        assert args[2].data_ptr() % 16 == 4
+    else:
+        args = _torch_args(*_edge_case(case), device="cuda")
+    got = recv_merge(*args)
+    want = recv_merge_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
 
 
 def test_farmhash_kernel_on_card():
