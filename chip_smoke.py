@@ -28,7 +28,13 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    for 10 ticks: every state field and metric must be equal on every
    tick; the same for a 256-node delta cluster at production-style caps
    for 12 ticks; and, on the card, the delta step with ample caps must
-   densify to the dense step's state on every tick (n = 128);
+   densify to the dense step's state on every tick (n = 128); and
+   (phase a) sided mode at n = 256 (capacity 64, wire 8, grid 64, 5%
+   loss, suspicion 6) on the card and on the CPU: ``split_sides`` into
+   halves, 8 ticks with anti-entropy rebases after 4 and 8, the heal, 30
+   ticks with a rebase every 10, a cross-side join and 2 ticks, every
+   field (``side`` and ``merge_to`` included) and metric equal after
+   every op;
 5. the dense main path at BASELINE config 3 (10k nodes, 1% loss): 5
    ticks, kill node 4242, tick until every live node holds it faulty and
    the views converge, then device checksums must form one group; both
@@ -64,12 +70,42 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
 9. time the row-searchsorted kernel against ``torch.searchsorted`` at
    the delta main path's three most-launched shapes (and any tied with
    the third);
-10. print the ``kernels`` JSON line, then the result line.
+10. (phase b) BASELINE config 4, the 50/50 netsplit and heal, as
+    ``benchmarks/bench_partition_heal_delta.py`` runs it in sided mode
+    (C = n/16, wire 64, grid 512, suspicion 8, no loss, seed 4; 12
+    split ticks with anti-entropy rebases after 5, 10 and 12, the heal,
+    ticks in fives with a rebase every 10, the bridge join at 64 ticks
+    if two groups are left) at n = 8,192 to ``converged()``, then
+    ``rebase`` and ``fold_sides``: one base again, and the device
+    checksums of every live row in one group; FarmHash, row-searchsorted
+    and merge-insert must have been launched;
+11. (phase c) config 4 at full state, n = 65,536 and C = 4,096: the
+    split with its three rebases and a 20-tick heal window with rebases
+    at 10 and 20 (the depth cut is stated in its log line), printing
+    ``make_sides`` ms, each rebase's host fold and transfer ms, the tick
+    median, checksum groups over a sample of live rows at the heal and
+    at the end, the largest occupancy, overflow drops and peak memory;
+    the rolling digest must equal ``compute_digest`` at the end and the
+    row-searchsorted and merge-insert kernels must have been launched;
+12. (phase d) the sharded sided step: n = 1,024 over D = 4 shards,
+    phase a's split, rebases, heal and 8 heal ticks, in lockstep with
+    the unsharded step, every field and metric equal; the hop kernel
+    must have been launched;
+13. (phase e) the row-searchsorted and merge-insert kernels against
+    their plain versions at phase c's most-launched shapes (the
+    merge-insert's unstaged path at C = 4,096 among them), each timed as
+    one call, its prefix and its launch alone, beside its bound, its
+    plain version and, for the searchsorted, ``torch.searchsorted``;
+14. print the ``kernels`` JSON line (each kernel's launches summed over
+    the main paths it runs on, each path counted from 0), then the
+    result line.
 
 ``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
 of the receiver merge and the merge-insert (phase 3's part for them) on
 the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
-and prints no result line.
+and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
+only phase c to convergence (up to the bench's 800 heal ticks), then
+``fold_sides``, and prints no result line.
 """
 
 from __future__ import annotations
@@ -987,10 +1023,12 @@ def delta_main_path(torch) -> dict:
 
 
 def _same_state(torch, a, b, what: str) -> None:
+    """Every field of two states equal (both None, or equal tensors, on
+    any devices)."""
     for f, x in a._asdict().items():
         y = getattr(b, f)
-        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
-            raise AssertionError(f"{what}: {f} differs between the sharded and unsharded step")
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x.cpu(), y.cpu())):
+            raise AssertionError(f"{what}: {f} differs")
 
 
 def ring_path(torch, backend: str, converge_ticks: int) -> dict:
@@ -1050,7 +1088,7 @@ def ring_path(torch, backend: str, converge_ticks: int) -> dict:
         if got != want:
             raise AssertionError(f"{backend} ring tick {t}: metrics differ: sharded {got} "
                                  f"unsharded {want}")
-        _same_state(torch, c.state, twin.state, f"{backend} ring tick {t}")
+        _same_state(torch, c.state, twin.state, f"{backend} ring tick {t}, sharded vs unsharded")
 
     def victim_faulty() -> bool:
         live = torch.as_tensor(c.live_indices(), device="cuda")
@@ -1118,6 +1156,373 @@ def ring_path(torch, backend: str, converge_ticks: int) -> dict:
     return launches
 
 
+SIDED_SMALL = {"n": 256, "caps": {"capacity": 64, "wire_cap": 8, "claim_grid": 64},
+               "loss": 0.05, "suspicion_ticks": 6}
+N_SIDED_RING = 1_024  # phase d: the sharded sided lockstep
+CONFIG4_SMALL = 8_192  # phase b: BASELINE config 4 to completion
+CONFIG4_HEAL_WINDOW = 20  # phase c: heal ticks at n = 65,536 (--config4-65k: to the end)
+CONFIG4_MAX_HEAL = 800  # the bench's max_heal_ticks
+CONFIG4_SUSPICION = 8
+
+
+def sided_ops(n: int, split: int, heal: int) -> list:
+    """``split_sides`` into halves, ``split`` one-tick ops with an
+    anti-entropy rebase after every 4, the heal, ``heal`` one-tick ops
+    with a rebase after every 10."""
+    ops = [["split_sides", [list(range(n // 2)), list(range(n // 2, n))]]]
+    for t in range(split):
+        ops += [["tick"]] + ([["rebase", True]] if t % 4 == 3 else [])
+    ops.append(["heal_partition"])
+    for t in range(heal):
+        ops += [["tick"]] + ([["rebase", True]] if t % 10 == 9 else [])
+    return ops
+
+
+def check_sided_cuda_equals_cpu(torch) -> None:
+    """Phase a: sided mode on the card and on the CPU, every field (side
+    and merge_to included) and metric equal after every op: the split,
+    8 ticks with rebases, the heal, 30 ticks with rebases, then a
+    cross-side join and two more ticks."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    cfg = SIDED_SMALL
+    n = cfg["n"]
+    params = SwimParams(loss=cfg["loss"], suspicion_ticks=cfg["suspicion_ticks"])
+    gpu = SimCluster(n, params, seed=0, device="cuda", backend="delta", **cfg["caps"])
+    cpu = SimCluster(n, params, seed=0, device="cpu", backend="delta", **cfg["caps"])
+    ticks, full_syncs = 0, 0
+    for i, op in enumerate(sided_ops(n, 8, 30) + [["join"], ["tick"], ["tick"]]):
+        if op[0] == "join":
+            side = cpu.state.side.numpy()
+            seed = int(np.flatnonzero(side == 0)[0])
+            joiner = int(np.flatnonzero(side == 1)[0])
+            op = ["join", joiner, seed]
+        if op[0] == "tick":
+            mg, mc = gpu.tick(), cpu.tick()
+            if mg != mc:
+                raise AssertionError(f"sided tick {ticks}: metrics differ: cuda {mg} cpu {mc}")
+            ticks += 1
+            full_syncs += mg["full_syncs"]
+        else:
+            getattr(gpu, op[0])(*op[1:])
+            getattr(cpu, op[0])(*op[1:])
+        _same_state(torch, gpu.state, cpu.state, f"sided op {i} {op[0]}, cuda vs cpu")
+    flipped = int((gpu.state.side == 2).sum())
+    if full_syncs == 0 or flipped == 0 or int(gpu.state.side[joiner]) != 2:
+        raise AssertionError(f"the sided run flipped nobody ({full_syncs} full syncs)")
+    log(f"sided: cuda == cpu on every DeltaState field (side, merge_to, [3, {n}] bases) and "
+        f"metric after every op at n={n} ({cfg['caps']}, loss {cfg['loss']}, suspicion "
+        f"{cfg['suspicion_ticks']}): split, 8 ticks with anti-entropy rebases after 4 and 8, "
+        f"heal, 30 ticks with a rebase every 10, the cross-side join of {joiner} (side 1) "
+        f"through {seed} (side 0), 2 ticks; {full_syncs} full syncs, {flipped} viewers on the "
+        f"merge row, overflow_drops {int(gpu.state.overflow_drops)}")
+
+
+def _sample_rows(c, count: int = CHECKSUM_SAMPLE) -> list[int]:
+    """``count`` live rows spread over the ids, plus the first live row of
+    each base row in use (sided mode)."""
+    import numpy as np
+
+    live = c.live_indices()
+    rows = [int(i) for i in live[np.linspace(0, len(live) - 1, count).astype(np.int64)]]
+    if c.state.side is not None:
+        side = c.state.side.cpu().numpy()[live]
+        rows += [int(live[np.flatnonzero(side == g)[0]]) for g in np.unique(side)]
+    return sorted(set(rows))
+
+
+def _groups(c, sample: bool) -> int:
+    """Checksum groups among all live rows, or among ``_sample_rows``."""
+    if not sample:
+        return len(c.checksum_groups(backend="device"))
+    return len(set(c.checksums(indices=_sample_rows(c), backend="device").values()))
+
+
+def config4(torch, n: int, max_heal: int) -> dict:
+    """BASELINE config 4 as ``benchmarks/bench_partition_heal_delta.py``
+    runs it in sided mode (its :35-85 and :187 settings: C = max(256,
+    n/16), wire 64, grid 512, suspicion 8, loss 0, seed 4): two warm-up
+    ticks, ``split_sides`` into halves, 12 split ticks in chunks of 5 with
+    an anti-entropy rebase after each (5, 10, 12), the heal, then ticks
+    in fives with a rebase every 10 until ``converged()`` or ``max_heal``
+    ticks, bridging with ``join(n/2, 0)`` if two checksum groups are left
+    at 8 x suspicion ticks.  Above 8,192 nodes the checksum groups are
+    those of ``_sample_rows`` (a full sweep is out of reach).  Returns
+    the run's numbers; every rebase's host fold and transfer are timed
+    apart (their ``torch.profiler`` spans)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    torch.cuda.reset_peak_memory_stats()
+    sample = n > CONFIG4_SMALL
+    cap = max(256, n // 16)
+    c = SimCluster(n, SwimParams(loss=0.0, suspicion_ticks=CONFIG4_SUSPICION), seed=4,
+                   device="cuda", backend="delta", capacity=cap, wire_cap=64, claim_grid=512)
+    out = {"n": n, "capacity": cap, "tick_ms": [], "rebases": [], "occupancy": 0}
+    t_start = time.perf_counter()
+
+    def timed(fn):
+        """(fn(), its ms on the host clock, the card synchronised)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    def ticks(k: int) -> None:
+        out["m"], ms = timed(lambda: c.tick(k))
+        out["tick_ms"].append(ms / k)
+        out["occupancy"] = max(out["occupancy"], out["m"]["max_occupancy"])
+
+    def rebase() -> None:
+        occ = int((c.state.d_subj < SENTINEL).sum(dim=1).max())
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, ms = timed(lambda: c.rebase(anti_entropy=True))
+        spans = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                 if e.key.startswith("delta.rebase_")}
+        out["rebases"].append({"ms": ms, "fold_ms": spans.get("delta.rebase_fold", 0.0),
+                               "transfer_ms": spans.get("delta.rebase_transfer", 0.0),
+                               "occupancy_before": occ})
+        out["occupancy"] = max(out["occupancy"], occ)
+
+    c.tick(2)  # the bench's warm-up
+    _, out["make_sides_ms"] = timed(
+        lambda: c.split_sides([list(range(n // 2)), list(range(n // 2, n))]))
+    for k in (5, 5, 2):
+        ticks(k)
+        rebase()
+    out["groups_at_heal"] = _groups(c, sample)
+    c.heal_partition()
+    heal, bridged, converged = 0, False, False
+    while heal < max_heal:
+        ticks(5)
+        heal += 5
+        if heal % 10 == 0:
+            rebase()
+        if heal % 50 == 0:
+            log(f"  config 4 at n={n}: heal tick {heal}, {time.perf_counter() - t_start:.1f} s, "
+                f"last tick {out['m']}")
+        if c.converged():
+            converged = True
+            break
+        if not bridged and heal >= 8 * CONFIG4_SUSPICION and _groups(c, sample) == 2:
+            c.join(n // 2, 0)
+            bridged = True
+    out.update(heal_ticks=heal, bridged=bridged, converged=converged,
+               wall_s=time.perf_counter() - t_start, groups_at_end=_groups(c, sample),
+               overflow_drops=int(c.state.overflow_drops), cluster=c)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _config4_log(label: str, r: dict) -> None:
+    rebases = "; ".join(
+        f"{x['ms']:.1f} (fold {x['fold_ms']:.1f}, transfer {x['transfer_ms']:.1f}, occupancy "
+        f"{x['occupancy_before']})" for x in r["rebases"])
+    log(f"{label}: n={r['n']} C={r['capacity']} wire 64 grid 512 suspicion {CONFIG4_SUSPICION} "
+        f"loss 0 seed 4; make_sides {r['make_sides_ms']:.1f} ms; groups at heal "
+        f"{r['groups_at_heal']}; {r['heal_ticks']} heal ticks, converged {r['converged']}, "
+        f"bridged {r['bridged']}, groups at the end {r['groups_at_end']}; tick median "
+        f"{statistics.median(r['tick_ms']):.3f} ms over {len(r['tick_ms'])} chunks (max "
+        f"{max(r['tick_ms']):.3f}); rebases in ms: {rebases}; largest occupancy "
+        f"{r['occupancy']}; overflow_drops {r['overflow_drops']}; peak memory "
+        f"{r['peak_gib']:.2f} GiB; wall {r['wall_s']:.1f} s")
+
+
+def _counted():
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.gossip_remote_copy import hop
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    return {"farmhash32": farmhash32_batch, "row_searchsorted": row_searchsorted,
+            "merge_insert": merge_insert, "ring_hop": hop}
+
+
+def _reset_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes = {}
+
+
+def config4_small(torch) -> dict:
+    """Phase b: BASELINE config 4 at n = 8,192 to completion: one checksum
+    group over every live row, then ``fold_sides`` back to one base."""
+    _reset_counts()
+    r = config4(torch, CONFIG4_SMALL, CONFIG4_MAX_HEAL)
+    c = r.pop("cluster")
+    if not r["converged"]:
+        raise AssertionError(f"config 4 at n={CONFIG4_SMALL}: not converged after "
+                             f"{r['heal_ticks']} heal ticks")
+    c.rebase(anti_entropy=True)
+    c.fold_sides()
+    groups = len(c.checksum_groups(backend="device"))
+    launches = {k: fn.launches for k, fn in _counted().items()}
+    _config4_log("config 4 (phase b)", r)
+    log(f"config 4 (phase b): after rebase and fold_sides: side {c.state.side}, device checksums "
+        f"of all {len(c.live_indices())} live rows in {groups} group(s); launches {launches}")
+    if c.state.side is not None or groups != 1:
+        raise AssertionError(f"config 4 at n={CONFIG4_SMALL} did not end in one group and one base")
+    for name in ("farmhash32", "row_searchsorted", "merge_insert"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by config 4 at n={CONFIG4_SMALL}")
+    return launches
+
+
+def config4_full(torch, max_heal: int) -> tuple[dict, dict]:
+    """Phase c (and ``--config4-65k``): config 4 at n = 65,536, C = 4,096.
+    The digest invariant must hold at the end and kernels 3 and 4 must
+    have been launched; returns (launches, row_searchsorted and
+    merge_insert launches by shape)."""
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+
+    _reset_counts()
+    r = config4(torch, N_DELTA, max_heal)
+    c = r.pop("cluster")
+    counted = _counted()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    shapes = {"row_searchsorted": dict(counted["row_searchsorted"].shapes),
+              "merge_insert": dict(counted["merge_insert"].shapes)}
+    if not torch.equal(c.state.digest, sdelta.compute_digest(c.state)):
+        raise AssertionError("config 4 at n=65536: the rolling digest != compute_digest")
+    cut = "" if max_heal >= CONFIG4_MAX_HEAL else (
+        f"; depth cut to a {max_heal}-tick heal window to keep the default run short (the "
+        f"bench runs up to {CONFIG4_MAX_HEAL}; --config4-65k runs them)")
+    _config4_log(f"config 4 at full state (phase c{cut})", r)
+    log(f"config 4 at full state: digest == compute_digest at the end; checksum groups over "
+        f"{len(_sample_rows(c))} sampled live rows (64 spread over the ids, plus one on each "
+        f"base row in use): {r['groups_at_heal']} at heal, {r['groups_at_end']} at the end; launches "
+        f"{launches}; row_searchsorted by [C, K]: " + ", ".join(
+            f"[{a}, {b}] {v}" for (a, b), v in sorted(shapes["row_searchsorted"].items(),
+                                                      key=lambda kv: -kv[1]))
+        + "; merge_insert by [C, ki]: " + ", ".join(
+            f"[{a}, {b}] {v}" for (a, b), v in sorted(shapes["merge_insert"].items(),
+                                                      key=lambda kv: -kv[1])))
+    for name in ("row_searchsorted", "merge_insert"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by config 4 at n={N_DELTA}")
+    if r["converged"]:
+        c.rebase(anti_entropy=True)
+        c.fold_sides()
+        groups = _groups(c, True)
+        log(f"config 4 at full state: converged after {r['heal_ticks']} heal ticks; after "
+            f"rebase and fold_sides: side {c.state.side}, {groups} checksum group(s) in the "
+            f"sample")
+    return launches, shapes
+
+
+def sided_ring_path(torch) -> dict:
+    """Phase d: the sharded sided step (D = SHARDS shards on the card) in
+    lockstep with the unsharded one at n = 1,024: split, 8 ticks with
+    anti-entropy rebases after 4 and 8, heal, 8 ticks; every field and
+    metric equal after every op, and the hop kernel launched."""
+    from ringpop_tpu_torch import parallel, prng
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    _reset_counts()
+    cfg = SIDED_SMALL
+    n = N_SIDED_RING
+    params = SwimParams(loss=cfg["loss"], suspicion_ticks=cfg["suspicion_ticks"])
+    c = SimCluster(n, params, seed=0, device="cuda", backend="delta", **cfg["caps"])
+    twin = SimCluster(n, params, seed=0, device="cuda", backend="delta", **cfg["caps"])
+    mesh = parallel.make_mesh(devices=[torch.device("cuda")] * SHARDS)
+    ticks, tick_ms = 0, []
+    for i, op in enumerate(sided_ops(n, 8, 8)):
+        if op[0] == "tick":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step = parallel.sharded_delta_step(mesh, net_like=c.net)
+            c.key, sub = prng.split(c.key)
+            c.state, metrics = step(parallel.shard_delta(c.state, mesh), c.net, sub, c.dparams)
+            got = dict(zip(metrics.keys(), (int(v) for v in torch.stack(
+                list(metrics.values())).tolist())))
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            want = {k: v for k, v in twin.tick().items() if k != "ticks"}
+            if got != want:
+                raise AssertionError(f"sided ring tick {ticks}: metrics differ: sharded {got} "
+                                     f"unsharded {want}")
+            ticks += 1
+        else:
+            getattr(c, op[0])(*op[1:])
+            getattr(twin, op[0])(*op[1:])
+        _same_state(torch, c.state, twin.state, f"sided ring op {i} {op[0]}, sharded vs unsharded")
+    launches = {k: fn.launches for k, fn in _counted().items()}
+    flipped = int((c.state.side == 2).sum())
+    log(f"sided ring path: n={n} over {SHARDS} shards on the card ({cfg['caps']}, loss "
+        f"{cfg['loss']}), sharded == unsharded on every field and metric after every op of "
+        f"the split (8 ticks, rebases after 4 and 8), heal and 8 ticks; {flipped} viewers on "
+        f"the merge row; median sharded tick {statistics.median(tick_ms):.3f} ms; launches "
+        f"(both steps) {launches}")
+    if launches["ring_hop"] <= 0 or flipped == 0:
+        raise AssertionError("the sharded sided step launched no ring hop or flipped nobody")
+    return launches
+
+
+def merge_path(c: int, ki: int) -> str:
+    """Which path of ``csrc/delta_merge.cu`` merges rows of C slots with ki
+    inserts (its ``slice_bytes`` against the 48 KB a block gets)."""
+    def staged(b: int) -> int:
+        return (b + 30) & ~15
+
+    slice_bytes = 2 * staged(4 * c) + 2 * staged(c) + 2 * staged(4 * ki) + ((4 * ki + 15) & ~15)
+    if 8 * slice_bytes <= 48 * 1024:
+        return "rows staged in shared memory"
+    where = "shared memory" if 8 * 4 * ki <= 48 * 1024 else "a global scratch row"
+    return f"rows merged in place from global memory (unstaged), positions in {where}"
+
+
+def time_sided_kernels(torch, shapes: dict) -> None:
+    """Phase e: kernels 3 and 4 against their plain versions and timed at
+    phase c's most-launched shapes (n = 65,536): one call, the wrapper's
+    prefix and the launch alone, the plain version, the bound and, for
+    the searchsorted, ``torch.searchsorted``."""
+    from ringpop_tpu_torch.ops import delta_merge as mi
+    from ringpop_tpu_torch.ops import searchsorted as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    stream = torch.cuda.current_stream().cuda_stream
+    top = sorted(shapes["row_searchsorted"].items(), key=lambda kv: -kv[1])[:3]
+    for (c, k), count in top:
+        table = sorted_table(torch, gen, N_DELTA, c, span=max(4, c // 2))
+        q = queries(torch, gen, N_DELTA, k, span=max(4, c // 2))
+        if not torch.equal(ss.row_searchsorted(table, q), ss.row_searchsorted_plain(table, q)):
+            raise AssertionError(f"row_searchsorted kernel != plain at [{N_DELTA}, {c}] x [{k}]")
+        r = time_searchsorted(torch, gen, N_DELTA, c, k)
+        out = torch.empty_like(q)
+        split = split_ms(torch, ss, "rp_row_searchsorted", lambda: ss.row_searchsorted(table, q),
+                         lambda lib: lib.rp_row_searchsorted(
+                             table.data_ptr(), q.data_ptr(), out.data_ptr(), N_DELTA, c, k, 0,
+                             stream))
+        log(f"row_searchsorted at the sided shape [{N_DELTA}, {c}] x [{N_DELTA}, {k}] ({count} "
+            f"launches in phase c; exact against plain): one call {r['ms']:.4f} ms; prefix "
+            f"{split['prefix_ms']:.4f} ms (host {split['prefix_host_ms']:.4f}); launch alone "
+            f"{split['launch_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, torch.searchsorted "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del table, q, out
+    for (c, ki), count in sorted(shapes["merge_insert"].items(), key=lambda kv: -kv[1])[:2]:
+        args = merge_inputs(torch, gen, N_DELTA, c, ki)
+        got = mi.merge_insert(*args, sl_start=SL_START, suspect=SUSPECT)
+        want = mi.merge_insert_plain(*args, sl_start=SL_START, suspect=SUSPECT)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"merge_insert kernel != plain at [{N_DELTA}, {c}], ki = {ki}")
+        del got, want
+        r = time_merge_insert(torch, mi, args)
+        log(f"merge_insert at the sided shape [{N_DELTA}, {c}], ki = {ki} ({count} launches in "
+            f"phase c; exact against plain; {merge_path(c, ki)}): one call {r['ms']:.4f} ms; prefix "
+            f"{r['prefix_ms']:.4f} ms (host {r['prefix_host_ms']:.4f}); launch alone "
+            f"{r['launch_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}); no single PyTorch call computes this merge")
+        del args
+
+
 def check_farmhash_real_rows(torch, c) -> None:
     """The FarmHash kernel against its plain version on the checksum
     strings of real rows of the main path's cluster: a few dozen live
@@ -1142,6 +1547,9 @@ def main() -> int:
                     help="only check and time the receiver merge and the merge-insert "
                          "(one call, prefix, launch alone) of the ringpop_tpu_torch package "
                          "under ROOT, such as a parent checkout, and print no result line")
+    ap.add_argument("--config4-65k", action="store_true",
+                    help="only run BASELINE config 4 at n = 65,536 (phase c) to convergence, up "
+                         "to the bench's 800 heal ticks, then fold_sides; print no result line")
     args = ap.parse_args()
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
@@ -1170,6 +1578,10 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     dev = torch.device("cuda")
+    if args.config4_65k:
+        config4_full(torch, CONFIG4_MAX_HEAL)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -1182,18 +1594,29 @@ def main() -> int:
     check_cuda_equals_cpu(torch)
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
+    check_sided_cuda_equals_cpu(torch)
     launches, converged_dense = main_path(torch)
     launches_delta, converged_delta, searchsorted_shapes = delta_main_path(torch)
     launches_ring = ring_path(torch, "dense", converged_dense)
     launches_ring_delta = ring_path(torch, "delta", converged_delta)
     time_searchsorted_shapes(torch, searchsorted_shapes)
-    # each kernel's launches on the main path it belongs to: the dense
-    # path for the receiver merge and FarmHash, the delta path for the
-    # delta kernels (FarmHash also ran there: see the line above), both
-    # ring paths for the hop (each printed above)
-    launches["ring_hop"] = launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
+    launches_c4 = config4_small(torch)
+    launches_c4_full, sided_shapes = config4_full(torch, CONFIG4_HEAL_WINDOW)
+    launches_ring_sided = sided_ring_path(torch)
+    time_sided_kernels(torch, sided_shapes)
+    # each kernel's launches on the main paths it belongs to, each path
+    # counted from 0 (each printed above): the dense path for the receiver
+    # merge; FarmHash on the dense path and both config-4 paths; the delta
+    # kernels on the delta path and both config-4 paths; the hop on the
+    # three ring paths
+    launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
+                            + launches_ring_sided["ring_hop"])
+    for name in ("row_searchsorted", "merge_insert"):
+        launches[name] = launches_delta[name]
+    for name in ("farmhash32", "row_searchsorted", "merge_insert"):
+        launches[name] += launches_c4[name] + launches_c4_full[name]
     for row in rows:
-        row["launches"] = launches.get(row["name"], launches_delta.get(row["name"]))
+        row["launches"] = launches[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -313,19 +313,32 @@ class SimCluster:
             self.state = sdelta.compact(self.state)
 
     def rebase(self, anti_entropy: bool = False) -> None:
-        """Fold majority divergence into the base (``swim_delta.rebase``)."""
+        """Fold majority divergence into the base (``swim_delta.rebase``;
+        per side in sided mode; ``anti_entropy=True`` folds to the
+        lattice max)."""
         if self.backend == "delta":
             self.state = sdelta.rebase(self.state, anti_entropy=anti_entropy)
+
+    def split_sides(self, groups: Sequence[Sequence[int]]) -> None:
+        """Enter the delta backend's sided mode for a block netsplit
+        (``swim_delta.make_sides``) and partition the network to match:
+        each side's consensus then folds into its own base row at each
+        ``rebase``, so a 50/50 split stays at O(N * C)."""
+        if self.backend != "delta":
+            raise ValueError("split_sides is a delta-backend operation")
+        gid = groups_to_gid(groups, self.n)
+        if (gid < 0).any():
+            raise ValueError("split_sides groups must cover every node")
+        self.state = sdelta.make_sides(self.state, gid)
+        self.net = self.net._replace(adj=torch.as_tensor(gid).to(self.device))
+
+    def fold_sides(self) -> None:
+        """Leave sided mode after the remerge converges
+        (``swim_delta.fold_to_single``); rebase first to drain residue."""
+        if self.backend == "delta" and self.state.side is not None:
+            self.state = sdelta.fold_to_single(self.state)
 
     # -- not ported yet ------------------------------------------------------------
 
     def enable_delay(self, depth: int) -> None:
         raise NotImplementedError("the in-flight claim buffers (per-link delay) are not ported yet")
-
-    def split_sides(self, groups: Sequence[Sequence[int]]) -> None:
-        if self.backend != "delta":
-            raise ValueError("split_sides is a delta-backend operation")
-        raise NotImplementedError("the delta backend's sided mode is not ported yet")
-
-    def fold_sides(self) -> None:
-        raise NotImplementedError("the delta backend's sided mode is not ported yet")

@@ -26,12 +26,20 @@ uint32 quantities (the packed ``bp_mask`` words and the rolling
 ``digest``) are held in int64 with values in ``[0, 2**32)``; every sum
 and product is masked back to 32 bits.
 
-Arms outside this port raise ``NotImplementedError``: sided mode
-(``side``/``merge_to``), the delay lanes (``pend_*``, link rules),
-traced knobs, ``prov=True``, ``upto != 7``, the carried slot-base
-planes (``d_bpmask``/``d_bprank``), per-node periods and
-``phase_mod > 1``.  The maintenance and admin operations (``rebase``,
-joins, revives) are host numpy, as in the reference.
+Sided mode, the structured-netsplit form (``side is not None``), keeps
+one base row per group of viewers: ``base_key`` and the ``bp_*`` planes
+are [G, N], ``side[i]`` names viewer i's row, and a cross-side full sync
+flips the adopter to ``merge_to[own side, provider side]``, a row whose
+base is the lattice merge of both.  ``make_sides`` enters it,
+``fold_to_single`` leaves it, and ``rebase`` folds each group into its
+own row.
+
+Arms outside this port raise ``NotImplementedError``: the delay lanes
+(``pend_*``, link rules), traced knobs, ``prov=True``, ``upto != 7``,
+the carried slot-base planes (``d_bpmask``/``d_bprank``), per-node
+periods and ``phase_mod > 1``.  The maintenance and admin operations
+(``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
+host numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -88,18 +96,18 @@ class DeltaState(NamedTuple):
     """Shared base view + per-viewer bounded divergence tables (the
     reference's fields and dtypes; uint32 planes held in int64)."""
 
-    base_key: torch.Tensor  # int32[N]
-    bp_mask: torch.Tensor  # int64[ceil(N/32)] packed base-pingable bits (uint32 words)
-    bp_rank: torch.Tensor  # int32[N] exclusive prefix count of bp_mask
-    bp_list: torch.Tensor  # int32[N] base-pingable subjects ascending (n-padded)
+    base_key: torch.Tensor  # int32[N] | int32[G, N] (sided)
+    bp_mask: torch.Tensor  # int64[(G,) ceil(N/32)] packed base-pingable bits (uint32 words)
+    bp_rank: torch.Tensor  # int32[(G,) N] exclusive prefix count of bp_mask
+    bp_list: torch.Tensor  # int32[(G,) N] base-pingable subjects ascending (n-padded)
     d_subj: torch.Tensor  # int32[N, C]
     d_key: torch.Tensor  # int32[N, C]
     d_pb: torch.Tensor  # int8[N, C]
     d_sl: torch.Tensor  # int8[N, C]
     tick: torch.Tensor  # int32[]
     overflow_drops: torch.Tensor  # int32[] cumulative table-capacity drops
-    side: torch.Tensor | None = None  # sided mode (not ported)
-    merge_to: torch.Tensor | None = None  # sided mode (not ported)
+    side: torch.Tensor | None = None  # int32[N] viewer's base row (sided mode)
+    merge_to: torch.Tensor | None = None  # int32[G, G] full-sync flip table (sided mode)
     digest: torch.Tensor | None = None  # int64[N] rolling view digest (uint32 values)
     d_bpmask: torch.Tensor | None = None  # carried slot-base planes (not ported)
     d_bprank: torch.Tensor | None = None
@@ -119,31 +127,38 @@ class DeltaState(NamedTuple):
     def device(self) -> torch.device:
         return self.base_key.device
 
+    @property
+    def groups(self) -> int:
+        return 1 if self.side is None else self.base_key.shape[0]
+
+    def _row_side(self, q: torch.Tensor) -> torch.Tensor | None:
+        """Each viewer's base row, broadcast against ``q`` ([N] or [N, K])."""
+        if self.side is None:
+            return None
+        return self.side if q.dim() == 1 else self.side[:, None]
+
     def base_at(self, q: torch.Tensor) -> torch.Tensor:
         """Base view of subject ``q`` ([N] or [N, K], row-aligned)."""
-        _check_single(self)
-        return self.base_key[q.clamp(0, self.n - 1).long()]
+        return _at_rows(self.base_key, self._row_side(q), q.clamp(0, self.n - 1))
 
     def bp_mask_at(self, q: torch.Tensor) -> torch.Tensor:
-        _check_single(self)
-        return bitpack.bit_gather(self.bp_mask, q.clamp(0, self.n - 1))
+        return bitpack.bit_gather(self.bp_mask, q.clamp(0, self.n - 1), self._row_side(q))
 
     def bp_rank_at(self, q: torch.Tensor) -> torch.Tensor:
-        _check_single(self)
-        return self.bp_rank[q.clamp(0, self.n - 1).long()]
+        return _at_rows(self.bp_rank, self._row_side(q), q.clamp(0, self.n - 1))
 
     def bp_list_at(self, r: torch.Tensor) -> torch.Tensor:
         """r-th base-pingable subject per viewer row (r [N] or [N, K])."""
-        _check_single(self)
-        return self.bp_list[r.long()]
+        return _at_rows(self.bp_list, self._row_side(r), r)
 
 
-def _check_single(state: DeltaState) -> None:
-    if state.side is not None or state.merge_to is not None:
-        raise NotImplementedError(
-            "sided mode (DeltaState.side/merge_to: make_sides, fold_to_single, "
-            "merge_base_rows) is not ported yet"
-        )
+def _at_rows(plane: torch.Tensor, row: torch.Tensor | None, q: torch.Tensor) -> torch.Tensor:
+    """``plane[q]`` of a single [N] plane (``row`` None), or
+    ``plane[row, q]`` of a [G, N] plane with ``row`` broadcast against
+    the in-range indices ``q``."""
+    if row is None:
+        return plane[q.long()]
+    return torch.take(plane, row.long() * plane.shape[-1] + q.long())
 
 
 def _ids(n: int, device: torch.device) -> torch.Tensor:
@@ -184,7 +199,8 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 def _base_rank_structs(
     base_key: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pingability rank structures of a single [N] base row."""
+    """Pingability rank structures along the last axis: of a single [N]
+    base, or of the [G, N] rows of sided mode."""
     n = base_key.shape[-1]
     status = base_key & 7
     bp_mask = (status == ALIVE) | (status == SUSPECT)
@@ -294,12 +310,19 @@ def _scatter_rows(
     return out[:, :n]
 
 
+def _base_rows(state: DeltaState, idx: torch.Tensor) -> torch.Tensor:
+    """[len(idx), N] base rows of the viewers ``idx``: the one base
+    broadcast, or each viewer's own row in sided mode."""
+    if state.side is None:
+        return state.base_key[None, :].expand(idx.shape[0], state.n)
+    return state.base_key.index_select(0, _rows(state.side, idx).long())
+
+
 def densify(state: DeltaState) -> ClusterState:
     """The equivalent dense ``ClusterState`` (tests; O(N^2) memory)."""
-    _check_single(state)
     n = state.n
     dev = state.device
-    vk = _scatter_rows(state.base_key[None, :].expand(n, n), state.d_subj, state.d_key)
+    vk = _scatter_rows(_base_rows(state, _ids(n, dev)), state.d_subj, state.d_key)
     neg = torch.full((n, n), -1, dtype=torch.int8, device=dev)
     pb = _scatter_rows(neg, state.d_subj, state.d_pb)
     sl = _scatter_rows(neg, state.d_subj, state.d_sl)
@@ -383,13 +406,14 @@ class _Stats(NamedTuple):
 
 def compute_digest(state: DeltaState) -> torch.Tensor:
     """int64[N] (uint32 values) view digest from scratch: the base hash
-    total corrected by the delta slots."""
-    _check_single(state)
+    total (per base row in sided mode) corrected by the delta slots."""
     n = state.n
     ids = _ids(n, state.device)
     live = state.d_subj < SENTINEL
     subj_safe = torch.where(live, state.d_subj, 0)
-    h_base_total = _hash1(state.base_key, ids).sum() & _M32
+    h_base_total = _hash1(state.base_key, ids).sum(dim=-1) & _M32
+    if state.side is not None:
+        h_base_total = h_base_total[state.side.long()]
     h_corr = _hash_delta_sum(live, state.d_key, state.base_at(subj_safe), subj_safe)
     return (h_base_total + h_corr) & _M32
 
@@ -428,7 +452,12 @@ def _phase0_stats(state: DeltaState) -> _Stats:
     d_status = state.d_key & 7
     ping_now = live & ((d_status == ALIVE) | (d_status == SUSPECT))
     ping_base = live & state.bp_mask_at(subj_safe)
-    p_total = bitpack.popcount_bits(state.bp_mask)
+    # the base total, per base row in sided mode ([G] totals gathered by
+    # each viewer's side)
+    if state.side is None:
+        p_total = bitpack.popcount_bits(state.bp_mask)
+    else:
+        p_total = bitpack.popcount_bits(state.bp_mask, dim=1)[state.side.long()]
     corr = (ping_now.to(torch.int32) - ping_base.to(torch.int32)).sum(dim=1, dtype=torch.int32)
     own_pos, own_found = _lookup_pos(state.d_subj, ids)
     own_key = torch.where(
@@ -872,7 +901,6 @@ def _check_supported(
             "relay_full_sync is the dense-step fidelity experiment; the delta "
             "relay carries changes only"
         )
-    _check_single(state)
     if state.pend_subj is not None or state.pend_key is not None or state.pend_recv is not None:
         raise NotImplementedError("the delay lanes (DeltaState.pend_*) are not ported yet")
     for name in ("link_src", "link_dst", "link_p", "link_d", "link_j"):
@@ -1108,12 +1136,27 @@ def _ack_full_sync(
     """The ack merge when some full sync fired: the adopter takes the
     provider's ack claims plus its whole delta table (a pre-merge
     snapshot), then the provider's base at the adopter's slots the
-    provider does not override; the digest is recomputed wholesale."""
+    provider does not override; the digest is recomputed wholesale.
+    In sided mode a cross-side adopter first flips onto the merge row
+    (and absorbs it), and a flip that leaves it suspect or faulty about
+    itself is refuted at once."""
     n = st.n
     dev = st.device
     ids = _ids(n, dev)
+    # the provider's snapshot (table, and below its side and base) is
+    # taken before the flip: a provider that flips as an adopter this
+    # tick answered the ping with its pre-flip view
     fs_subj0 = _gather_rows(st.d_subj, t_safe)  # [N, C]
     fs_key0 = _gather_rows(st.d_key, t_safe)
+    prov_side = None
+    if st.side is not None:
+        prov_side = st.side[t_safe.long()]
+        flip = fs_apply & (prov_side != st.side)
+        st = _absorb_merge_row(
+            st._replace(side=torch.where(
+                flip, st.merge_to[st.side.long(), prov_side.long()], st.side)),
+            flip, ids,
+        )
     fs_valid0 = (fs_subj0 < SENTINEL) & fs_apply[:, None]
     m_subj = torch.cat(
         [torch.where(a_valid, a_subj, SENTINEL), torch.where(fs_valid0, fs_subj0, SENTINEL)],
@@ -1126,7 +1169,9 @@ def _ack_full_sync(
     live3 = st3.d_subj < SENTINEL
     subj_safe3 = torch.where(live3, st3.d_subj, 0)
     _, rfound = _lookup_pos(fs_subj0, subj_safe3)
-    base_claim = st3.base_key[subj_safe3.long()]
+    # the provider's view at its unslotted subjects is its base row
+    row = None if prov_side is None else prov_side[:, None]
+    base_claim = _at_rows(st3.base_key, row, subj_safe3)
     applies_b = (
         live3
         & fs_apply[:, None]
@@ -1142,7 +1187,38 @@ def _ack_full_sync(
         d_key=d_key, d_pb=torch.where(applies_b, _i8(0, dev), st3.d_pb), d_sl=d_sl
     )
     applied = out.applied_points + applies_b.sum(dtype=torch.int32)
+    if st4.side is not None:
+        # a flip can adopt a suspect/faulty claim about the adopter itself
+        # through the merged base: refute it now (a no-op where none)
+        own_now = view_lookup(st4, ids)
+        own_st = own_now & 7
+        need_ref = fs_apply & ((own_st == SUSPECT) | (own_st == FAULTY))
+        if bool(need_ref.any()):
+            out2 = _merge_claims(
+                st4, ids[:, None], own_now[:, None], need_ref[:, None], sl_start
+            )
+            st4, applied = out2.state, applied + out2.applied_points
     return _refresh_in_step(st4), applied
+
+
+def _absorb_merge_row(st: DeltaState, flip: torch.Tensor, ids: torch.Tensor) -> DeltaState:
+    """The flipped viewers absorb their new base: slots the merged base
+    already covers (the slot does not beat it) drop, their pb duty and
+    suspicion timers void; the permanent self slot stays, rising to the
+    base's value where that is higher.  Rows stay sorted (a stable sort,
+    dropped slots to the end)."""
+    dev = st.device
+    live = st.d_subj < SENTINEL
+    m_at = st.base_at(torch.where(live, st.d_subj, 0))
+    is_self_slot = st.d_subj == ids[:, None]
+    beats = _apply_mask(m_at, st.d_key)
+    keep = live & (~flip[:, None] | beats | is_self_slot)
+    lift_self = live & is_self_slot & flip[:, None] & ~beats & (m_at > st.d_key)
+    neg = _i8(-1, dev)
+    return _keep_slots(
+        st, keep, torch.where(lift_self, m_at, st.d_key),
+        torch.where(lift_self, neg, st.d_pb), torch.where(lift_self, neg, st.d_sl),
+    )
 
 
 def _role_counts(recv2d: torch.Tensor, mask2d: torch.Tensor, n: int) -> torch.Tensor:
@@ -1249,9 +1325,11 @@ def _exchange(
                 # its current belief equals the claim
                 _, in_sent = _lookup_pos(_gather_rows(wit_sent_subj, w_m), subj_q)
                 pos_w, found_w = _lookup_pos(_gather_rows(st3.d_subj, w_m), subj_q)
+                # the witness's base row (its view is probed), not the source's
+                row_w = None if st3.side is None else st3.side[w_m.long()][:, None]
                 cur_w = torch.where(
                     found_w, _take(_gather_rows(st3.d_key, w_m), pos_w),
-                    st3.base_key[subj_q.long()],
+                    _at_rows(st3.base_key, row_w, subj_q),
                 )
                 echo = in_sent & (key_c == cur_w)
                 segs.append(
@@ -1315,11 +1393,9 @@ def delta_run_impl(
 def materialize_rows(state: DeltaState, idx: Any) -> torch.Tensor:
     """int32[len(idx), N] view rows of the requested viewers: the base
     with each viewer's live slots written in."""
-    _check_single(state)
     idx = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx)
     idx = idx.to(device=state.device, dtype=torch.int64)
-    base = state.base_key[None, :].expand(idx.shape[0], state.n)
-    return _scatter_rows(base, _rows(state.d_subj, idx), _rows(state.d_key, idx))
+    return _scatter_rows(_base_rows(state, idx), _rows(state.d_subj, idx), _rows(state.d_key, idx))
 
 
 def _converged_impl(
@@ -1328,8 +1404,9 @@ def _converged_impl(
     """Exact view agreement among live (gossiping) viewers, O(N * C):
     viewer i's row equals the reference row iff every live slot of i
     carries the reference's value there and i holds a slot at every
-    subject where the reference row diverges from the base."""
-    _check_single(state)
+    subject where the reference row diverges from its own base (in
+    sided mode: i's slots at the subjects where the reference row
+    diverges from i's base row, counted)."""
     n, c = state.n, state.capacity
     ids = _ids(n, state.device)
     own = view_lookup(state, ids) & 7
@@ -1339,15 +1416,23 @@ def _converged_impl(
     ref_subj = state.d_subj[ref]  # [C]
     ref_key = state.d_key[ref]
     ref_live = ref_subj < SENTINEL
-    ref_row = _scatter_rows(state.base_key[None, :], ref_subj[None, :], ref_key[None, :])[0]
+    ref_base = _base_rows(state, ref[None])
+    ref_row = _scatter_rows(ref_base, ref_subj[None, :], ref_key[None, :])[0]
 
     slots_live = state.d_subj < SENTINEL
     subj_safe = torch.where(slots_live, state.d_subj, 0)
     ok_slots = torch.where(slots_live, state.d_key == ref_row[subj_safe.long()], True).all(dim=1)
-    div_ref = ref_live & (ref_key != state.base_key[ref_subj.clamp(0, n - 1).long()])
-    q = torch.where(div_ref, ref_subj, 0)[None, :].expand(n, c).contiguous()
-    _, found = _lookup_pos(state.d_subj, q)
-    ok_cover = torch.where(div_ref[None, :], found, True).all(dim=1)
+    if state.side is None:
+        div_ref = ref_live & (ref_key != ref_base[0][ref_subj.clamp(0, n - 1).long()])
+        q = torch.where(div_ref, ref_subj, 0)[None, :].expand(n, c).contiguous()
+        _, found = _lookup_pos(state.d_subj, q)
+        ok_cover = torch.where(div_ref[None, :], found, True).all(dim=1)
+    else:
+        need_cover = state.base_key != ref_row[None, :]  # bool[G, N]
+        need_count = need_cover.sum(dim=1, dtype=torch.int32)[state.side.long()]
+        have = (slots_live & _at_rows(need_cover, state.side[:, None], subj_safe)).sum(
+            dim=1, dtype=torch.int32)
+        ok_cover = have == need_count
     row_same = ok_slots & ok_cover
     return torch.where(live, row_same, True).all() | (live.sum() <= 1)
 
@@ -1360,29 +1445,42 @@ def _converged_impl(
 @_scoped("delta.compact")
 def compact(state: DeltaState) -> DeltaState:
     """Drop slots that match the base again with no active pb/suspicion
-    record; keeps rows sorted.  The digest is invariant."""
-    _check_single(state)
+    record (sided mode keeps the permanent self slots); keeps rows
+    sorted.  The digest is invariant."""
     _check_carry(state)
     live = state.d_subj < SENTINEL
     subj_safe = torch.where(live, state.d_subj, 0)
     needed = live & (
         (state.d_key != state.base_at(subj_safe)) | (state.d_pb >= 0) | (state.d_sl >= 0)
     )
-    d_subj = torch.where(needed, state.d_subj, SENTINEL)
-    order = torch.argsort(d_subj, dim=1, stable=True)
+    if state.side is not None:
+        needed = needed | (live & (state.d_subj == _ids(state.n, state.device)[:, None]))
+    return _keep_slots(state, needed, state.d_key, state.d_pb, state.d_sl)
+
+
+def _keep_slots(
+    state: DeltaState, keep: torch.Tensor, d_key: torch.Tensor, d_pb: torch.Tensor,
+    d_sl: torch.Tensor,
+) -> DeltaState:
+    """The slots where ``keep`` (with these key, pb and sl channels), the
+    rest emptied to (SENTINEL, 0, -1, -1), rows sorted again by a stable
+    sort (emptied slots to the end)."""
     neg = _i8(-1, state.device)
+    d_subj = torch.where(keep, state.d_subj, SENTINEL)
+    order = torch.argsort(d_subj, dim=1, stable=True)
     return state._replace(
         d_subj=torch.gather(d_subj, 1, order),
-        d_key=torch.gather(torch.where(needed, state.d_key, 0), 1, order),
-        d_pb=torch.gather(torch.where(needed, state.d_pb, neg), 1, order),
-        d_sl=torch.gather(torch.where(needed, state.d_sl, neg), 1, order),
+        d_key=torch.gather(torch.where(keep, d_key, 0), 1, order),
+        d_pb=torch.gather(torch.where(keep, d_pb, neg), 1, order),
+        d_sl=torch.gather(torch.where(keep, d_sl, neg), 1, order),
     )
 
 
 def _tables_np(state: DeltaState) -> tuple[np.ndarray, ...]:
-    """Host copies of (d_subj, d_key, d_pb, d_sl)."""
+    """Host copies of (d_subj, d_key, d_pb, d_sl), C-contiguous."""
     return tuple(
-        t.cpu().numpy().copy() for t in (state.d_subj, state.d_key, state.d_pb, state.d_sl)
+        t.detach().to("cpu", copy=True).numpy()
+        for t in (state.d_subj, state.d_key, state.d_pb, state.d_sl)
     )
 
 
@@ -1397,33 +1495,144 @@ def _with_tables(state: DeltaState, d_subj, d_key, d_pb, d_sl, **extra) -> Delta
     )
 
 
+def _sort_rows(state: DeltaState) -> DeltaState:
+    """Rows sorted by subject again after a host edit, empty slots reset
+    to (SENTINEL, 0, -1, -1).  Live subjects are unique in a row, so any
+    sort gives the reference's ``np.argsort`` result."""
+    return _keep_slots(state, state.d_subj < SENTINEL, state.d_key, state.d_pb, state.d_sl)
+
+
+def _with_base(state: DeltaState, base_key: torch.Tensor, **extra) -> DeltaState:
+    """``state`` on a new base (one row or G), its rank structures
+    rebuilt and the digest refreshed."""
+    bp_mask, bp_rank, bp_list = _base_rank_structs(base_key)
+    return refresh_carried(state._replace(
+        base_key=base_key, bp_mask=bp_mask, bp_rank=bp_rank, bp_list=bp_list, **extra))
+
+
 def rebase(state: DeltaState, anti_entropy: bool = False) -> DeltaState:
     """Fold majority divergence into the base (host-side, rare): per
     subject, a value most viewers converged on becomes the base, the
     convergent slots drop and the minority get compensating slots (see
-    ``_fold_group``); ``anti_entropy=True`` folds to the lattice max."""
+    ``_fold_group``); ``anti_entropy=True`` folds to the lattice max.
+    In sided mode each group of viewers folds into its own row, then
+    every merge row is lifted to the lattice merge of its source rows,
+    so a flip never lowers a view.  Spans: ``delta.rebase_transfer``
+    (the tables to the host and back) and ``delta.rebase_fold`` (the
+    host fold)."""
     state = compact(state)
     n, cap = state.n, state.capacity
-    d_subj, d_key, d_pb, d_sl = _tables_np(state)
-    base = state.base_key.cpu().numpy().copy()
-    _fold_group(d_subj, d_key, d_pb, d_sl, base, np.arange(n), cap, anti_entropy=anti_entropy)
+    with torch.profiler.record_function("delta.rebase_transfer"):
+        d_subj, d_key, d_pb, d_sl = _tables_np(state)
+        base = state.base_key.cpu().numpy().copy()
+    with torch.profiler.record_function("delta.rebase_fold"):
+        if state.side is None:
+            _fold_group(d_subj, d_key, d_pb, d_sl, base, np.arange(n), cap,
+                        anti_entropy=anti_entropy)
+        else:
+            side = state.side.cpu().numpy()
+            for g in range(base.shape[0]):
+                members = np.flatnonzero(side == g)
+                if members.size:
+                    _fold_group(d_subj, d_key, d_pb, d_sl, base[g], members, cap,
+                                anti_entropy=anti_entropy)
+            _lift_merge_rows(base, state.merge_to.cpu().numpy())
+    with torch.profiler.record_function("delta.rebase_transfer"):
+        state = _with_tables(state, d_subj, d_key, d_pb, d_sl)
+        base_t = torch.as_tensor(base, device=state.device)
+    return _with_base(_sort_rows(state), base_t)
 
-    order2 = np.argsort(d_subj, axis=1)
-    d_subj = np.take_along_axis(d_subj, order2, axis=1)
-    live = d_subj < int(SENTINEL)
-    d_key = np.where(live, np.take_along_axis(d_key, order2, axis=1), 0)
-    d_pb = np.where(live, np.take_along_axis(d_pb, order2, axis=1), -1)
-    d_sl = np.where(live, np.take_along_axis(d_sl, order2, axis=1), -1)
 
-    base_t = torch.as_tensor(base, device=state.device)
-    bp_mask, bp_rank, bp_list = _base_rank_structs(base_t)
-    state = _with_tables(
-        state,
-        d_subj.astype(np.int32), d_key.astype(np.int32),
-        d_pb.astype(np.int8), d_sl.astype(np.int8),
-        base_key=base_t, bp_mask=bp_mask, bp_rank=bp_rank, bp_list=bp_list,
-    )
-    return refresh_carried(state)
+def _lift_merge_rows(base: np.ndarray, merge_to: np.ndarray) -> None:
+    """Every merge row, in place, to the lattice merge of itself and its
+    two source rows (``merge_to[g1, g2] = m`` with m not both g1 and g2)."""
+    for g1 in range(merge_to.shape[0]):
+        for g2 in range(merge_to.shape[1]):
+            m = int(merge_to[g1, g2])
+            if m != g1 or m != g2:
+                base[m] = _lmerge_np(base[m], _lmerge_np(base[g1], base[g2]))
+
+
+def _lmerge_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pointwise lattice merge of two base rows (the host twin of
+    ``_apply_mask``): the numeric max, except that leave yields only to
+    alive, and a zero is no value."""
+    beats = (b > a) & ~(((a & 7) == LEAVE) & ((b & 7) != ALIVE)) & (b > 0)
+    return np.where(beats, b, a)
+
+
+def make_sides(state: DeltaState, gid: Any) -> DeltaState:
+    """Enter sided mode for a block netsplit: ``gid[i]`` in 0..G-1 puts
+    viewer i on a side.  Makes G + 1 base rows (each side's a copy of
+    the base, and one merge row) and the ``merge_to`` flip table (a
+    side stays on its own row, any cross pair flips to the merge row),
+    and gives every viewer a permanent self slot, so that a refutation
+    is always an in-place update that no full table can starve.  Runs
+    on the state's device; raises if a viewer that needs a self slot
+    has none free.  Use with the matching group-id ``NetState.adj``."""
+    if state.side is not None:
+        raise ValueError("already sided; fold_to_single first")
+    gid = np.asarray(gid.cpu() if torch.is_tensor(gid) else gid, dtype=np.int32)
+    g = int(gid.max()) + 1 if gid.size else 1
+    n, dev = state.n, state.device
+    merge_to = np.full((g + 1, g + 1), g, dtype=np.int32)
+    np.fill_diagonal(merge_to, np.arange(g + 1))
+    rows = state.base_key[None, :].expand(g + 1, n).contiguous()
+    ids = _ids(n, dev)
+    need = ~(state.d_subj == ids[:, None]).any(dim=1)
+    if bool(need.any()):
+        empty = state.d_subj == SENTINEL
+        free_col = torch.argmax(empty.to(torch.uint8), dim=1)
+        if not bool(torch.where(need, _take(empty, free_col[:, None])[:, 0], True).all()):
+            raise ValueError("make_sides: no free slot for a self entry")
+        r = need.nonzero()[:, 0]
+        c = free_col[r]
+        d_subj, d_key, d_pb, d_sl = (t.clone() for t in (
+            state.d_subj, state.d_key, state.d_pb, state.d_sl))
+        d_subj[r, c] = r.to(torch.int32)
+        d_key[r, c] = state.base_key[r]
+        d_pb[r, c] = -1
+        d_sl[r, c] = -1
+        state = _sort_rows(state._replace(d_subj=d_subj, d_key=d_key, d_pb=d_pb, d_sl=d_sl))
+    return _with_base(state, rows, side=torch.tensor(gid, device=dev),
+                      merge_to=torch.as_tensor(merge_to, device=dev))
+
+
+def fold_to_single(state: DeltaState) -> DeltaState:
+    """Leave sided mode (host-side, after the remerge converges): the
+    single base becomes the lattice merge of all rows, and a viewer
+    whose own row still differs from it gets compensating slots there,
+    so no view moves.  Raises ``ValueError`` when a viewer has fewer
+    free slots than it needs; ``rebase`` first to drain the residue."""
+    if state.side is None:
+        return state
+    base_rows = state.base_key.cpu().numpy()
+    side = state.side.cpu().numpy()
+    merged = base_rows[0].copy()
+    for gr in range(1, base_rows.shape[0]):
+        merged = _lmerge_np(merged, base_rows[gr])
+    diffs = [np.flatnonzero(row != merged) for row in base_rows]
+    movers = [i for i in range(state.n) if diffs[side[i]].size]
+    if movers:
+        d_subj, d_key, d_pb, d_sl = _tables_np(state)
+        for i in movers:
+            own, diff = base_rows[side[i]], diffs[side[i]]
+            row = d_subj[i]
+            need = diff[~np.isin(diff, row)]
+            free = np.flatnonzero(row == SENTINEL)
+            if need.size > free.size:
+                raise ValueError(
+                    f"viewer {i}: {need.size} compensating slots exceed free capacity "
+                    f"{free.size}; rebase before fold_to_single"
+                )
+            c = free[: need.size]
+            d_subj[i, c] = need
+            d_key[i, c] = own[need]
+            d_pb[i, c] = -1
+            d_sl[i, c] = -1
+        state = _sort_rows(_with_tables(state, d_subj, d_key, d_pb, d_sl))
+    return _with_base(state, torch.as_tensor(merged, device=state.device),
+                      side=None, merge_to=None)
 
 
 def _fold_group(
@@ -1517,29 +1726,37 @@ def _fold_group_anti_entropy(
     base_row: np.ndarray,
     members: np.ndarray,
 ) -> None:
-    """Lattice-max fold, in place (a copy of the reference's host numpy):
-    each subject folds to the group's max value (never leave-involved or
-    suspect values), superseded slots drop, and a folded suspect/faulty
-    rumor about a member is refuted in its own slot."""
-    ds = d_subj[members]
-    dk = d_key[members]
-    live = ds < int(SENTINEL)
-    rows, cols = np.nonzero(live)
-    if rows.size == 0:
+    """Lattice-max fold, in place (the reference's host numpy, over the
+    members' live slots only): each subject folds to the group's max
+    value (never leave-involved or suspect values), superseded slots
+    drop, and a folded suspect/faulty rumor about a member is refuted in
+    its own slot.  The tables must be C-contiguous."""
+    n, cap = base_row.shape[0], d_subj.shape[1]
+    flat = [t.reshape(-1) for t in (d_subj, d_key, d_pb, d_sl)]
+    if any(not np.shares_memory(f, t) for f, t in zip(flat, (d_subj, d_key, d_pb, d_sl))):
+        raise ValueError("the fold edits the tables in place: pass C-contiguous arrays")
+    fs, fk, fpb, fsl = flat
+    if members.size and members[-1] - members[0] + 1 == members.size:
+        # a block of rows (a side of a block netsplit): a view, no copy
+        lo = int(members[0])
+        pos = np.flatnonzero(d_subj[lo : lo + members.size] < SENTINEL) + lo * cap
+    else:
+        p = np.flatnonzero(d_subj[members] < SENTINEL)
+        pos = members[p // cap] * cap + p % cap
+    if pos.size == 0:
         return
-    subs = ds[rows, cols]
-    keys = dk[rows, cols]
-    order = np.lexsort((keys, subs))
-    s_s, k_s = subs[order], keys[order]
-    starts = np.ones(len(s_s), dtype=bool)
-    starts[1:] = s_s[1:] != s_s[:-1]
-    run_subj = s_s[starts]
-    ends = np.flatnonzero(np.append(starts[1:], True))
-    run_max = k_s[ends]
-    has_leave = np.add.reduceat((k_s & 7) == LEAVE, np.flatnonzero(starts)) > 0
+    subs = fs[pos]
+    keys = fk[pos]
+    # per subject: present, the max key, any leave value
+    present = np.bincount(subs, minlength=n) > 0
+    run_max_of = np.full(n, -1, dtype=keys.dtype)
+    np.maximum.at(run_max_of, subs, keys)
+    has_leave_of = np.bincount(subs[(keys & 7) == LEAVE], minlength=n) > 0
+    run_subj = np.flatnonzero(present)
+    run_max = run_max_of[run_subj]
     fold = (
         (run_max > base_row[run_subj])
-        & ~has_leave
+        & ~has_leave_of[run_subj]
         & ((base_row[run_subj] & 7) != LEAVE)
         & ((run_max & 7) != SUSPECT)
     )
@@ -1547,49 +1764,40 @@ def _fold_group_anti_entropy(
         return
     v_of = base_row.copy()
     v_of[run_subj[fold]] = run_max[fold]
-    folded = np.zeros(base_row.shape[0], dtype=bool)
+    folded = np.zeros(n, dtype=bool)
     folded[run_subj[fold]] = True
-    subs_all = np.where(live, ds, 0)
-    is_self_slot = live & (ds == members[:, None])
-    superseded = live & folded[subs_all] & (dk <= v_of[subs_all])
-    drop = superseded & ~is_self_slot
+    superseded = folded[subs] & (keys <= v_of[subs])
+    is_self_slot = subs == pos // cap
+    drop = pos[superseded & ~is_self_slot]
     lift = superseded & is_self_slot
-    ds[drop] = int(SENTINEL)
-    dkm = d_key[members]
-    dpm = d_pb[members]
-    dsm = d_sl[members]
-    dkm[drop] = 0
-    dpm[drop] = -1
-    dsm[drop] = -1
-    dkm[lift] = v_of[subs_all][lift]
-    dpm[lift] = -1
-    dsm[lift] = -1
+    fs[drop] = SENTINEL
+    fk[drop] = 0
+    fpb[drop] = -1
+    fsl[drop] = -1
+    fk[pos[lift]] = v_of[subs[lift]]
+    fpb[pos[lift]] = -1
+    fsl[pos[lift]] = -1
     base_row[folded] = v_of[folded]
 
     folded_self = folded[members] & np.isin(v_of[members] & 7, (SUSPECT, FAULTY))
-    for li in np.flatnonzero(folded_self):
-        i = int(members[li])
-        row = ds[li]
+    for i in members[folded_self]:
+        i = int(i)
+        row = d_subj[i]
         hit = np.flatnonzero(row == i)
         new_key = ((int(v_of[i]) >> 3) + 1) * 8 + ALIVE
         if hit.size:
-            if int(dkm[li, hit[0]]) > int(v_of[i]):
+            if int(d_key[i, hit[0]]) > int(v_of[i]):
                 continue  # already refuted past the rumor
             c = int(hit[0])
         else:
-            free = np.flatnonzero(row == int(SENTINEL))
+            free = np.flatnonzero(row == SENTINEL)
             if not free.size:
                 continue  # full row: the gossip path will refute later
             c = int(free[0])
-            ds[li, c] = i
-        dkm[li, c] = new_key
-        dpm[li, c] = 0
-        dsm[li, c] = -1
-
-    d_subj[members] = ds
-    d_key[members] = dkm
-    d_pb[members] = dpm
-    d_sl[members] = dsm
+            d_subj[i, c] = i
+        d_key[i, c] = new_key
+        d_pb[i, c] = 0
+        d_sl[i, c] = -1
 
 
 # ---------------------------------------------------------------------------
@@ -1607,7 +1815,6 @@ def _set_entry(
     state: DeltaState, viewer: int, subject: int, key: int, pb: int, sl: int
 ) -> DeltaState:
     """Host-side single-slot upsert (admin ops; not a hot path)."""
-    _check_single(state)
     d_subj, d_key, d_pb, d_sl = _tables_np(state)
     row = d_subj[viewer]
     hit = np.nonzero(row == subject)[0]
@@ -1629,9 +1836,10 @@ def _set_entry(
 
 
 def _base_row_np(state: DeltaState, viewer: int) -> np.ndarray:
-    """The viewer's base row as numpy."""
-    _check_single(state)
-    return state.base_key.cpu().numpy()
+    """The viewer's base row as numpy (its side's row in sided mode)."""
+    if state.side is None:
+        return state.base_key.cpu().numpy()
+    return state.base_key[int(state.side[viewer])].cpu().numpy()
 
 
 def view_of(state: DeltaState, viewer: int, subject: int) -> int:
@@ -1727,6 +1935,15 @@ def admin_join(state: DeltaState, joiner: int, seed: int) -> DeltaState:
     jvk = np.where(learned, svk, jvk)
     jpb = np.where(learned, np.int8(0), jpb)
     jvk[joiner] = ALIVE if j_key == 0 else j_key
+    if state.side is not None:
+        # a cross-side join is a full-sync adoption: the joiner flips to
+        # the merge row first, so it re-sparsifies against a base that
+        # carries both sides' consensus
+        j_g, s_g = int(state.side[joiner]), int(state.side[seed])
+        if j_g != s_g:
+            side = state.side.clone()
+            side[joiner] = state.merge_to[j_g, s_g]
+            state = state._replace(side=side)
     state = _write_row(state, joiner, jvk, jpb, jsl, elide_redundant=True)
     return refresh_carried(state)
 

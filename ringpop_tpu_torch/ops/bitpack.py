@@ -50,10 +50,12 @@ def unpack_bits(packed: torch.Tensor, length: int) -> torch.Tensor:
 def bit_gather(
     packed: torch.Tensor, idx: torch.Tensor, row: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Point lookups ``mask[idx]`` (or ``mask[row, idx]``) on a packed
-    plane, with in-range ``idx``: one word gather and a shift each."""
+    """Point lookups ``mask[idx]`` on a packed plane ([W] words), or
+    ``mask[row, idx]`` on a plane of G rows ([G, W]: the sided bases) with
+    ``row`` broadcast against ``idx``; in-range indices, one word gather
+    and a shift each."""
     idx = idx.to(torch.int64)
-    word = packed[idx >> 5] if row is None else packed[row, idx >> 5]
+    word = packed[idx >> 5] if row is None else packed[row.to(torch.int64), idx >> 5]
     return ((word >> (idx & 31)) & 1).to(torch.bool)
 
 

@@ -126,7 +126,8 @@ def merge_insert(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Merged (subj, key, pb, sl) [N, C] tables.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (and count the launch
-    in ``merge_insert.launches``) or raise."""
+    in ``merge_insert.launches``, and by ``(C, ki)`` in
+    ``merge_insert.shapes``) or raise."""
     _check(d_subj, d_key, d_pb, d_sl, ins_subj, ins_key)
     if not d_subj.is_cuda:
         if d_subj.device.type == "cpu":
@@ -156,7 +157,9 @@ def merge_insert(
             rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(rc, "merge_insert")
     merge_insert.launches += 1
+    merge_insert.shapes[(cap, ki)] = merge_insert.shapes.get((cap, ki), 0) + 1
     return tuple(outs)
 
 
 merge_insert.launches = 0
+merge_insert.shapes = {}

@@ -217,7 +217,9 @@ def shard_cluster(state: ClusterState, net: NetState, mesh: Mesh) -> tuple[Clust
 
 
 def shard_delta(state: DeltaState, mesh: Mesh) -> DeltaState:
-    """Place an (unsharded) delta state onto the mesh."""
+    """Place an (unsharded) delta state onto the mesh.  A sided state's
+    [G, N] base rows and rank planes, its ``merge_to`` flip table and
+    its ``side`` vector are replicated; its tables split by rows."""
     _check_divisible(state.n, mesh)
     return _place(mesh, DELTA_FIELD_SPECS, state)
 

@@ -3,7 +3,7 @@
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
     python3 -m ringpop_tpu_torch.profile_tick [--backend dense|delta] [--n N] [--ticks 3]
-        [--shards D]
+        [--shards D] [--sided]
 
 It drives ``SimCluster(n, SwimParams(loss=0.01), seed=0)``, the BASELINE
 config 3 protocol, on the dense backend (default n = 10 000) or on the
@@ -27,6 +27,16 @@ cluster under the gossip ring of D shards on the card, the ring path of
 ``parallel.sharded_step``/``sharded_delta_step`` (their ring context
 around the same step), so the window shows the ring-hop kernel's share
 of the sharded tick.
+
+``--backend delta --sided`` profiles BASELINE config 4 instead, with the
+settings of ``benchmarks/bench_partition_heal_delta.py`` in sided mode
+(default n = 65 536, C = n/16, wire 64, grid 512, suspicion 8, no
+loss, seed 4): a *split* window (split ticks 3 to 5 after
+``split_sides``), then the bench's anti-entropy rebases after split
+ticks 5, 10 and 12 and the heal, and a *heal storm* window (heal ticks
+3 to 5, the cross-side full syncs, flips and refutations).  Its ticks
+are single ticks, not the bench's chunks of five, so the trajectory is
+like the bench's and not the same.
 """
 
 from __future__ import annotations
@@ -102,6 +112,27 @@ def _window(c: SimCluster, ticks: int, label: str, top: int) -> None:
                   f"ms/tick x{e.count / ticks:g}  {e.key[:100]}")
 
 
+def _sided_windows(n: int, ticks: int, top: int) -> None:
+    """The split and heal-storm windows of config 4 in sided mode."""
+    c = SimCluster(n, sim.SwimParams(loss=0.0, suspicion_ticks=8), seed=4, device="cuda",
+                   backend="delta", capacity=max(256, n // 16), wire_cap=64, claim_grid=512)
+    c.tick(2)
+    c.split_sides([list(range(n // 2)), list(range(n // 2, n))])
+    for _ in range(2):
+        c.tick()
+    _window(c, ticks, "split", top)
+    done = 2 + ticks
+    for upto in (5, 10, 12):
+        while done < upto:
+            c.tick()
+            done += 1
+        c.rebase(anti_entropy=True)
+    c.heal_partition()
+    for _ in range(2):
+        c.tick()
+    _window(c, ticks, "heal storm", top)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--backend", choices=("dense", "delta"), default="dense")
@@ -111,15 +142,24 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--shards", type=int, default=0,
                     help="tick over a gossip ring of this many shards on the card (0: unsharded)")
+    ap.add_argument("--sided", action="store_true",
+                    help="BASELINE config 4 in sided mode: a split and a heal-storm window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick needs a CUDA card")
+    if args.sided and (args.backend != "delta" or args.shards):
+        raise SystemExit("--sided profiles the unsharded delta backend (--backend delta)")
     n = args.n or (65_536 if args.backend == "delta" else 10_000)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
-    print(f"backend {args.backend}, n {n}, shards {args.shards or 'none'}")
+    print(f"backend {args.backend}, n {n}, shards {args.shards or 'none'}"
+          f"{', sided (config 4)' if args.sided else ''}")
+    if args.sided:
+        _sided_windows(n, args.ticks, args.top)
+        print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return
     c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend=args.backend)
     ring = contextlib.nullcontext()
     if args.shards:

@@ -15,9 +15,9 @@ their groups are held against the reference's tick for tick at n = 64.
 This file holds the lossy cases at n = 16 and 64 (1% loss, a kill);
 ``test_torch_delta_churn.py`` the fault-injection, maintenance and
 production-cap cases, ``test_torch_delta_netsplit.py`` the partition
-and bootstrap cases; each file's reference run stays under a minute on
-the CPU.  The unported arms are checked here too: each raises
-``NotImplementedError``.
+and bootstrap cases, ``test_torch_delta_sided*.py`` sided mode; each
+file's reference run stays under a minute on the CPU.  The unported
+arms are checked here too: each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -137,18 +137,13 @@ def test_step_runs_on_small_state():
 
 
 @pytest.mark.parametrize("arm", [
-    "side", "merge_to", "pend", "link_d", "knobs", "prov", "upto", "slot_base",
-    "period", "phase_mod",
+    "pend", "link_d", "knobs", "prov", "upto", "slot_base", "period", "phase_mod",
 ])
 def test_unported_arms_raise(arm):
     tdelta, tsim, state, net, key, params = _small()
     kwargs = {}
     n = state.n
-    if arm == "side":
-        state = state._replace(side=torch.zeros(n, dtype=torch.int32))
-    elif arm == "merge_to":
-        state = state._replace(merge_to=torch.zeros((1, 1), dtype=torch.int32))
-    elif arm == "pend":
+    if arm == "pend":
         state = state._replace(pend_subj=torch.zeros((2, 2, n, 4), dtype=torch.int32))
     elif arm == "link_d":
         net = net._replace(link_d=torch.zeros(1, dtype=torch.int32))
@@ -173,11 +168,6 @@ def test_unported_arms_raise_outside_the_step():
     from ringpop_tpu_torch.models.cluster import SimCluster
 
     tdelta, _, state, _, _, _ = _small()
-    sided = state._replace(side=torch.zeros(state.n, dtype=torch.int32))
-    for fn in (tdelta.compact, tdelta.refresh_carried, tdelta.densify,
-               lambda s: tdelta.materialize_rows(s, [0])):
-        with pytest.raises(NotImplementedError):
-            fn(sided)
     carried = state._replace(d_bpmask=torch.zeros((state.n, 1), dtype=torch.int64),
                              d_bprank=torch.zeros((state.n, 4), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
@@ -185,10 +175,6 @@ def test_unported_arms_raise_outside_the_step():
     c = SimCluster(8, backend="delta", capacity=4, device="cpu")
     with pytest.raises(NotImplementedError):
         c.enable_delay(3)
-    with pytest.raises(NotImplementedError):
-        c.split_sides([[0, 1, 2, 3], [4, 5, 6, 7]])
-    with pytest.raises(NotImplementedError):
-        c.fold_sides()
     with pytest.raises(NotImplementedError):  # partial groupings need the dense mask
         c.partition([[0, 1], [2, 3]])
 

@@ -7,8 +7,13 @@ proxy).  Those patches are process-global, so they are applied only in
 a child process: ``run_reference`` runs a list of cluster cases there
 and returns each case's trajectory (per-tick state, metrics, keys, net
 and checksums; ``pre{t}`` is the state a tick op starts from) as
-numpy arrays.  ``run_port`` drives the port through
-the same ops, and ``assert_same_trajectory`` compares the two exactly.
+numpy arrays.  A field is stacked over the snapshots where its shape
+holds (``{name}/{field}``), else recorded per snapshot
+(``{name}/s{k}/{field}``, left out where it is None), as the sided
+fields are: ``base_key`` turns from [N] to [G, N] and back, and
+``side``/``merge_to`` come and go; ``snapshot`` reads either form.
+``run_port`` drives the port through the same ops, and
+``assert_same_trajectory`` compares the two exactly.
 
 A case is ``{"name", "n", "params", "seed", "init", "checksums",
 "ops"}``, plus for the delta backend ``"backend": "delta"`` and its
@@ -42,7 +47,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STATE_FIELDS = ("view_key", "pb", "suspect_left", "tick")
 DELTA_FIELDS = (
     "base_key", "bp_mask", "bp_rank", "bp_list", "d_subj", "d_key", "d_pb", "d_sl",
-    "tick", "overflow_drops", "digest",
+    "tick", "overflow_drops", "side", "merge_to", "digest",
 )
 
 
@@ -76,7 +81,7 @@ for case in cases:
                    backend=case.get("backend", "dense"), **case.get("caps", {}))
     snaps = []
     def snap():
-        snaps.append({f: np.asarray(getattr(c.state, f)) for f in fields})
+        snaps.append({f: getattr(c.state, f) for f in fields})
     snap()
     t = 0
     for op in case["ops"]:
@@ -84,7 +89,8 @@ for case in cases:
             getattr(c, op[0])(*op[1:])
             continue
         for f in fields:
-            out[f"{name}/pre{t}/{f}"] = np.asarray(getattr(c.state, f))
+            if getattr(c.state, f) is not None:
+                out[f"{name}/pre{t}/{f}"] = np.asarray(getattr(c.state, f))
         out[f"{name}/key{t}"] = np.asarray(c.key)
         out[f"{name}/up{t}"] = np.asarray(c.net.up)
         out[f"{name}/responsive{t}"] = np.asarray(c.net.responsive)
@@ -99,7 +105,13 @@ for case in cases:
             out[f"{name}/ck{t}_val"] = np.array(list(ck.values()), dtype=np.int64)
         t += 1
     for f in fields:
-        out[f"{name}/{f}"] = np.stack([s[f] for s in snaps])
+        vals = [None if s[f] is None else np.asarray(s[f]) for s in snaps]
+        if all(v is not None for v in vals) and len({v.shape for v in vals}) == 1:
+            out[f"{name}/{f}"] = np.stack(vals)
+            continue
+        for k, v in enumerate(vals):
+            if v is not None:
+                out[f"{name}/s{k}/{f}"] = v
 np.savez_compressed(sys.argv[2], **out)
 """
 
@@ -153,24 +165,26 @@ def run_references(
 
 
 # Calls of single reference functions: each call names a module of
-# ``ringpop_tpu.models`` (or ``gossip_remote_copy`` of ``ringpop_tpu.ops``)
-# and a function in it, and its arguments, each ``["array", key]`` (an
-# array of the npz handed over), ``["delta_state", {field: key}]`` (a
-# ``DeltaState`` of such arrays) or ``["py", value]``.  A call with
-# ``"ring": d`` runs jitted inside ``ring_mesh(parallel.make_mesh(d))``
-# (the ring primitives need the context).
+# ``ringpop_tpu.models`` (or ``gossip_remote_copy`` or ``bitpack`` of
+# ``ringpop_tpu.ops``) and a function in it, and its arguments, each
+# ``["array", key]`` (an array of the npz handed over),
+# ``["delta_state", {field: key}]`` (a ``DeltaState`` of such arrays) or
+# ``["py", value]``.  A call with ``"ring": d`` runs jitted inside
+# ``ring_mesh(parallel.make_mesh(d))`` (the ring primitives need the
+# context); a call with ``"raises": true`` records the name of the
+# exception it raises under ``{name}/raises``.
 _CALLS = _PATCHES + r"""
 import functools
 import jax
 import jax.numpy as jnp
 from ringpop_tpu.models import swim_delta, swim_sim
-from ringpop_tpu.ops import gossip_remote_copy
+from ringpop_tpu.ops import bitpack, gossip_remote_copy
 
 with open(sys.argv[1]) as f:
     calls = json.load(f)
 z = np.load(sys.argv[2])
 mods = {"swim_delta": swim_delta, "swim_sim": swim_sim,
-        "gossip_remote_copy": gossip_remote_copy}
+        "gossip_remote_copy": gossip_remote_copy, "bitpack": bitpack}
 
 def arg(a):
     kind, v = a
@@ -200,6 +214,14 @@ for c in calls:
         from ringpop_tpu import parallel
         with gossip_remote_copy.ring_mesh(parallel.make_mesh(c["ring"])):
             res = jax.jit(functools.partial(fn, **c.get("kwargs", {})))(*args)
+    elif c.get("raises"):
+        try:
+            fn(*args, **c.get("kwargs", {}))
+            res = np.array("")
+        except Exception as e:
+            res = np.array(type(e).__name__)
+        out[c["name"] + "/raises"] = res
+        continue
     else:
         res = fn(*args, **c.get("kwargs", {}))
     flat(res, c["name"])
@@ -249,8 +271,12 @@ def run_reference_calls(
 # virtual CPU mesh.  A case is ``{"name", "backend": "dense"|"delta",
 # "entry": "step"|"run", "n", "d", "params", "seed", "ticks"}`` plus
 # ``"caps"`` (delta: capacity, wire_cap, claim_grid), ``"init"``,
-# ``"joins"`` (dense: every node joins through node 0 first) and
-# ``"down"`` (nodes killed before the first tick).  It records the start
+# ``"joins"`` (dense: every node joins through node 0 first),
+# ``"down"`` (nodes killed before the first tick), and for the delta
+# backend ``"sides"`` (sided mode: halves split by ``make_sides`` and the
+# group-id adjacency) with ``"heal_at"`` (the step from which the
+# adjacency is all one group) and ``"rebase_at"`` (the steps before which
+# the state is rebased, ``anti_entropy=True``).  It records the start
 # state and net, the keys, and the state and metrics after every step
 # (``{name}/{t}/...``, ``{name}/m{t}/...``) or after the run
 # (``{name}/run/...``, ``{name}/mrun/...``).  The layout maps of
@@ -284,10 +310,15 @@ for case in cases:
         params = sd.DeltaParams(swim=swim, wire_cap=case["caps"]["wire_cap"],
                                 claim_grid=case["caps"]["claim_grid"])
         state = sd.init_delta(n, capacity=case["caps"]["capacity"])
+        if case.get("sides"):
+            gid = (np.arange(n) >= n // 2).astype(np.int32)
+            state = sd.make_sides(state, gid)
+            net = net._replace(adj=jax.numpy.asarray(gid))
         record(f"{name}/init", state._asdict())
+        like = dict(net_like=net, state_like=state) if case.get("sides") else {}
         state = parallel.shard_delta(state, mesh)
         build = parallel.sharded_delta_step if case["entry"] == "step" else parallel.sharded_delta_run
-        fn = build(mesh, gossip=case.get("gossip"))
+        fn = build(mesh, gossip=case.get("gossip"), **like)
     else:
         params = swim
         state = sim.init_state(n, mode=case.get("init", "converged"))
@@ -303,6 +334,10 @@ for case in cases:
         keys = jax.random.split(key, case["ticks"])
         out[f"{name}/keys"] = np.array(keys)
         for t, k in enumerate(keys):
+            if t == case.get("heal_at"):
+                net = net._replace(adj=jax.numpy.zeros(n, jax.numpy.int32))
+            if t in case.get("rebase_at", []):
+                state = parallel.shard_delta(sd.rebase(state, anti_entropy=True), mesh)
             state, m = fn(state, net, k, params)
             record(f"{name}/{t}", state._asdict())
             record(f"{name}/m{t}", m)
@@ -367,10 +402,46 @@ def run_port(case: dict, on_tick=None) -> list[dict]:
             getattr(c, op[0])(*op[1:])
             continue
         m = c.tick(op[1])
-        recs.append({"metrics": m, **{f: c.state._asdict()[f].numpy() for f in case_fields(case)}})
+        recs.append({"metrics": m, **{f: _np_or_none(getattr(c.state, f))
+                                      for f in case_fields(case)}})
         if on_tick is not None:
             on_tick(len(recs) - 1, c)
     return recs
+
+
+def split_heal(n: int, split: int, heal: int, split_every: int = 4) -> list:
+    """Sided ops: ``split_sides`` into halves, ``split`` one-tick ops with
+    an anti-entropy rebase after every ``split_every``, the heal, then
+    ``heal`` one-tick ops with a rebase after every 10."""
+    t1 = ["tick", 1]
+    ops = [["split_sides", [list(range(n // 2)), list(range(n // 2, n))]]]
+    for t in range(split):
+        ops += [t1] + ([["rebase", True]] if t % split_every == split_every - 1 else [])
+    ops.append(["heal_partition"])
+    for t in range(heal):
+        ops += [t1] + ([["rebase", True]] if t % 10 == 9 else [])
+    return ops
+
+
+def _np_or_none(x):
+    return None if x is None else x.numpy()
+
+
+def snapshot(ref: dict[str, np.ndarray], name: str, f: str, k: int) -> np.ndarray | None:
+    """Field ``f`` of case ``name`` at snapshot ``k`` (0 is the start,
+    k the state after the k-th tick op); None where the reference's
+    field was None."""
+    stacked = ref.get(f"{name}/{f}")
+    return stacked[k] if stacked is not None else ref.get(f"{name}/s{k}/{f}")
+
+
+def assert_same_field(got, want, msg: str, dtype: bool = True) -> None:
+    """Equal arrays (of one dtype, with ``dtype``), or both None."""
+    if want is None or got is None:
+        assert got is None and want is None, msg
+        return
+    assert not dtype or got.dtype == want.dtype, msg
+    np.testing.assert_array_equal(got, want, err_msg=msg)
 
 
 def assert_same_trajectory(ref: dict[str, np.ndarray], case: dict, recs: list[dict]) -> None:
@@ -378,8 +449,8 @@ def assert_same_trajectory(ref: dict[str, np.ndarray], case: dict, recs: list[di
     name = case["name"]
     for t, rec in enumerate(recs):
         for f in case_fields(case):
-            want = ref[f"{name}/{f}"][t + 1]
-            np.testing.assert_array_equal(rec[f], want, err_msg=f"{name}: {f} at tick op {t}")
+            assert_same_field(rec[f], snapshot(ref, name, f, t + 1),
+                              f"{name}: {f} at tick op {t}", dtype=False)
         want_m = {
             k.rsplit("/", 1)[1]: int(v) for k, v in ref.items()
             if k.startswith(f"{name}/m{t}/")
@@ -397,7 +468,7 @@ def step_from_reference(ref: dict, case: dict, t: int):
 
     name = case["name"]
     state = convert.delta_state_from_numpy(
-        {f: ref[f"{name}/pre{t}/{f}"] for f in DELTA_FIELDS}, device="cpu"
+        {f: ref.get(f"{name}/pre{t}/{f}") for f in DELTA_FIELDS}, device="cpu"
     )
     net = tsim.make_net(case["n"], device="cpu")._replace(
         up=torch.as_tensor(ref[f"{name}/up{t}"]),
@@ -424,9 +495,8 @@ def assert_steps_from_reference(ref: dict, case: dict) -> int:
         state, metrics = step_from_reference(ref, case, t)
         got = convert.delta_state_to_numpy(state)
         for f in DELTA_FIELDS:
-            want = ref[f"{case['name']}/{f}"][t + 1]
-            assert got[f].dtype == want.dtype, (case["name"], t, f)
-            np.testing.assert_array_equal(got[f], want, err_msg=f"{case['name']}: {f} at {t}")
+            assert_same_field(got[f], snapshot(ref, case["name"], f, t + 1),
+                              f"{case['name']}: {f} at {t}")
         want_m = {k.rsplit("/", 1)[1]: int(v) for k, v in ref.items()
                   if k.startswith(f"{case['name']}/m{t}/")}
         assert {k: int(v) for k, v in metrics.items()} == {
