@@ -43,6 +43,12 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    (phase 3 or a ping-req slot);
    then the device checksums of a few rows equal the host oracle's, and
    the FarmHash kernel equals its plain version on real rows' strings;
+   then (phase g) the converged cluster's lookup surface: ``traffic_ring()``
+   (its 1,000,000 replica names) and ``lookup_batch`` of 16,384 keys
+   through viewer 0 and one other live viewer, equal to
+   ``ring_for(viewer).lookup`` key for key; ``traffic_ring()`` and each
+   ``lookup_batch`` must launch the short-row FarmHash kernel once and
+   the warp kernel never;
 6. the delta main path: the BASELINE north star's 65,536-node cluster
    on config 3's protocol with the reference's default caps: 5 ticks,
    kill node 54321, tick until every live view holds it faulty and
@@ -50,7 +56,11 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
    checksums of a stated sample of rows; the launch counters of the
    row-searchsorted, merge-insert and FarmHash kernels must have risen
    during this phase; the row-searchsorted launches by (C, K) are
-   printed;
+   printed; then phase g on it: ``traffic_ring()`` hashes its 6,553,600
+   replica names and ``lookup_batch`` of 16,384 keys through viewer 0
+   must equal ``lookup_keys`` on a ``build_ring`` of the viewer's alive
+   and suspect servers (a host ring of 6.5 M entries would take tens of
+   seconds);
 7. the dense ring path: BASELINE config 3 sharded over D = 4 shards on
    the card (``parallel.sharded_step``, every cross-shard transfer a
    launch of the ring-hop kernel): the sharded step and the unsharded
@@ -96,9 +106,22 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     merge-insert's unstaged path at C = 4,096 among them), each timed as
     one call, its prefix and its launch alone, beside its bound, its
     plain version and, for the searchsorted, ``torch.searchsorted``;
-14. print the ``kernels`` JSON line (each kernel's launches summed over
-    the main paths it runs on, each path counted from 0), then the
-    result line.
+14. (phase f) BASELINE config 5, the hash-ring rebalance, at full size
+    through ``ringpop_tpu_torch.ring_rebalance`` (the settings of
+    ``benchmarks/bench_ring_rebalance.py``: 10,000 servers, 500 leaving
+    and 500 joining a tick for 5 ticks, 2,000 keys, ``random.Random(5)``):
+    exactly 961 key moves, ``build_ring`` == ``build_ring_on_device`` and
+    ``lookup_keys`` == the host ``HashRing`` on every key every tick, the
+    host and device times of each tick printed; ``lookup_keys`` and
+    ``lookup_masked_idx`` rates at 16,384 keys; then the short-row
+    FarmHash kernel against its plain version on every length 0-24 at an
+    odd row stride and one byte past alignment, and on the replica names
+    [1,000,000, 18] (config 5's first ring), the same padded to 25 bytes a
+    row and [6,553,600, 17] (the delta path's ring), timed beside the warp
+    kernel on the same rows;
+15. print the ``kernels`` JSON line (each kernel's launches summed over
+    the main paths it runs on, each path counted from 0; FarmHash's two
+    kernels on rows apart), then the result line.
 
 ``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
 of the receiver merge and the merge-insert (phase 3's part for them) on
@@ -921,7 +944,7 @@ def main_path(torch) -> dict:
         raise AssertionError(f"device checksums {dev_sums} != host {host}")
     log(f"checksums: device == host (pure Python) on live rows {[int(i) for i in live]}")
     check_farmhash_real_rows(torch, c)
-    return launches, detected
+    return launches, detected, c
 
 
 def delta_main_path(torch) -> dict:
@@ -1019,7 +1042,7 @@ def delta_main_path(torch) -> dict:
     if host != {a: sums[a] for a in host}:
         raise AssertionError(f"delta device checksums != host on rows {host_rows}")
     log(f"delta checksums: device == host (pure Python) on live rows {host_rows}")
-    return launches, detected, shapes
+    return launches, detected, shapes, c
 
 
 def _same_state(torch, a, b, what: str) -> None:
@@ -1349,6 +1372,7 @@ def _reset_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "shapes"):
             fn.shapes = {}
+    _counted()["farmhash32"].short_launches = 0
 
 
 def config4_small(torch) -> dict:
@@ -1541,6 +1565,245 @@ def check_farmhash_real_rows(torch, c) -> None:
         f"n={N_MAIN} cluster (lengths {int(lens.min())}..{int(lens.max())})")
 
 
+N_CONFIG5 = 10_000  # phase f: benchmarks/bench_ring_rebalance.py's defaults
+CONFIG5_MOVES = 961  # its key moves over 5 ticks (BASELINE.md:46), exact
+LOOKUP_KEYS = 16_384  # the largest rung of benchmarks/bench_lookup.py
+SHORT_ROWS = (1_000_000, 6_553_600)  # replica names of config 5 and of the delta path
+
+
+def _keys(count: int, seed: int) -> list[str]:
+    import random
+
+    rng = random.Random(seed)
+    return [f"key-{rng.randrange(10 ** 12)}" for _ in range(count)]
+
+
+def _encoded(torch, keys):
+    from ringpop_tpu_torch.ops import ring_ops
+
+    bufs, lens = ring_ops.encode_strings(keys)
+    return torch.from_numpy(bufs).cuda(), torch.from_numpy(lens).cuda()
+
+
+def short_edge_cases(torch, dev) -> str:
+    """The short-row kernel against its plain version where a thread-a-row
+    design is likely to break: every length 0-24, rows cut at an odd
+    stride, and rows starting one byte past a 16-byte boundary."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch, farmhash32_plain
+
+    rng = np.random.default_rng(25)
+    lens = torch.as_tensor(np.tile(np.arange(25, dtype=np.int32), 4001), device=dev)
+    rows = lens.numel()
+    wide = torch.as_tensor(rng.integers(0, 256, (rows, 26), dtype=np.uint8), device=dev)
+    flat = torch.as_tensor(rng.integers(0, 256, rows * 25 + 1, dtype=np.uint8), device=dev)
+    shifted = flat[1:].view(rows, 25)
+    if shifted.data_ptr() % 16 != 1:
+        raise AssertionError("the unaligned rows do not start one byte past a boundary")
+    for what, b in (("row stride 26", wide[:, :25]),
+                    ("row stride 25, one byte past alignment", shifted)):
+        short = farmhash32_batch.short_launches
+        got = farmhash32_batch(b, lens)
+        if farmhash32_batch.short_launches != short + 1:
+            raise AssertionError(f"farmhash32 short path not taken on {what}")
+        if not torch.equal(got, farmhash32_plain(b, lens)):
+            raise AssertionError(f"farmhash32 short kernel != plain on {what}")
+    return f"{rows} rows of every length 0..24 at row stride 26 and one byte past alignment"
+
+
+def check_farmhash_short(torch, dev) -> dict:
+    """The short-row FarmHash path at the ring's shapes: the replica names
+    of config 5's first ring ([1 000 000, 18], the main path's rows), the
+    same names padded to the reference's 25-byte rows, and the delta
+    path's global ring ([6 553 600, 17]); exact against the plain version
+    (and the host oracle on a few rows), timed beside the warp kernel on
+    the same rows.  Returns the kernels row of the first shape."""
+    import numpy as np
+
+    from ringpop_tpu_torch.hashring import replica_rows
+    from ringpop_tpu_torch.models.checksum import default_addresses
+    from ringpop_tpu_torch.ops import farmhash as fh
+
+    edges = short_edge_cases(torch, dev)
+    lib = fh._kernel()
+    config5_servers = [f"10.{i // 65536 % 256}.{i // 256 % 256}.{i % 256}:3000"
+                       for i in range(N_CONFIG5)]
+    row = None
+    for servers, pad_to in ((config5_servers, None), (config5_servers, 25),
+                            (default_addresses(N_DELTA), None)):
+        b_np, l_np = replica_rows(servers, 100)
+        if pad_to is not None:
+            b_np = np.pad(b_np, ((0, 0), (0, pad_to - b_np.shape[1])))
+        bufs, lens = torch.from_numpy(b_np).to(dev), torch.from_numpy(l_np).to(dev)
+        rows, width = bufs.shape
+        short = fh.farmhash32_batch.short_launches
+        got = fh.farmhash32_batch(bufs, lens)
+        if fh.farmhash32_batch.short_launches != short + 1:
+            raise AssertionError("farmhash32 short path not taken on replica names")
+        want = fh.farmhash32_plain(bufs, lens)
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"farmhash32 short kernel != plain at [{rows}, {width}]")
+        picks = [0, rows // 3, rows - 1]
+        if [fh.farmhash32(b_np[i, : l_np[i]].tobytes()) for i in picks] != got[picks].tolist():
+            raise AssertionError("farmhash32 short kernel != host oracle")
+        out64 = torch.empty(rows, dtype=torch.int64, device=dev)
+        out32 = torch.empty(rows, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = time_ms(torch, lambda: fh.farmhash32_batch(bufs, lens))
+        alone = time_ms(torch, lambda: lib.rp_farmhash32_short(
+            bufs.data_ptr(), lens.data_ptr(), out64.data_ptr(), rows, bufs.stride(0), stream))
+        warp = time_ms(torch, lambda: lib.rp_farmhash32(
+            bufs.data_ptr(), lens.data_ptr(), out32.data_ptr(), rows, bufs.stride(0), stream))
+        if not torch.equal(out32.to(torch.int64) & 0xFFFFFFFF, want):
+            raise AssertionError("farmhash32 warp kernel != plain on replica names")
+        plain_ms = time_ms(torch, lambda: fh.farmhash32_plain(bufs, lens))
+        # the function's bytes: each row and its length read once, a uint32
+        # hash written (the wrapper's int64 widening is the port's, not the
+        # function's)
+        moved = rows * (width + 4 + 4)
+        ops = rows * 40  # ~40 integer ops per row of the 13-24 byte arm
+        bound_ms = max(moved / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        log(f"farmhash32 short path at [{rows}, {width}] (replica names, lengths "
+            f"{int(lens.min())}..{int(lens.max())}; exact against plain and the host oracle): "
+            f"one call {ms:.4f} ms, launch alone {alone:.4f} ms; the warp kernel's launch alone "
+            f"on the same rows {warp:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"(bytes, {width} + 4 + 4 B a row)")
+        if row is None:
+            row = {"name": "farmhash32_short", "route": "cuda",
+                   "source": "ringpop_tpu_torch/csrc/farmhash32.cu",
+                   "replaces": "ringpop_tpu/ops/farmhash_pallas.py:77", "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / INT_OPS_PER_S
+                   else "operations", "library_ms": None}
+        del bufs, lens, got, want, out64, out32
+    log(f"farmhash32 short path: exact on {edges}")
+    return row
+
+
+def config5(torch) -> tuple[int, dict]:
+    """Phase f: BASELINE config 5 at full size (the settings of
+    ``benchmarks/bench_ring_rebalance.py``) through the port's ``ring_rebalance.run`` on
+    the card: 961 key moves, both ring builds equal and the device owners
+    equal to the host ring's every tick; then lookup rates at 16 384 keys
+    and the short FarmHash path at the ring's shapes.  Returns the short
+    kernel's launches in that run, and its kernels row."""
+    from ringpop_tpu_torch import ring_rebalance
+    from ringpop_tpu_torch.ops import ring_ops
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.traffic import engine
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = ring_rebalance.run(n=N_CONFIG5, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = farmhash32_batch.short_launches
+    warp = farmhash32_batch.launches
+    log(f"config 5 (phase f): n={N_CONFIG5}, churn {r['churn']} a tick, {r['ticks']} ticks, "
+        f"{r['n_keys']} keys: {r['moved_total']} key moves ({r['moves']} a tick; fraction "
+        f"{r['moved_fraction']}); build_ring == build_ring_on_device and lookup_keys == the "
+        f"host ring on every key every tick; first host ring {r['host_build_ms']:.1f} ms; "
+        f"{wall:.1f} s in all; short FarmHash launches {launches}, warp {warp}")
+    for t in range(r["ticks"]):
+        log(f"config 5 tick {t}: host churn {r['churn_ms'][t]:.3f} ms, host lookups "
+            f"{r['lookup_ms'][t]:.3f} ms, build_ring {r['build_ms'][t]:.3f} ms, "
+            f"build_ring_on_device {r['build_on_device_ms'][t]:.3f} ms, lookup_keys of "
+            f"{r['n_keys']} keys {r['lookup_keys_ms'][t]:.3f} ms")
+    if r["moved_total"] != CONFIG5_MOVES:
+        raise AssertionError(f"config 5 moved {r['moved_total']} keys, not {CONFIG5_MOVES}")
+    if launches <= 0 or warp != 0:
+        raise AssertionError(f"config 5: short FarmHash launches {launches}, warp {warp}")
+
+    ring = r["last_ring"]
+    kb, kl = _encoded(torch, _keys(LOOKUP_KEYS, 16))
+    khash = farmhash32_batch(kb, kl)
+    mask = torch.ones((LOOKUP_KEYS, len(r["last_servers"])), dtype=torch.bool, device="cuda")
+    want = ring_ops.lookup_idx(ring, khash)
+    owner, found = engine.lookup_masked_idx(ring.hashes, ring.owners, khash, mask, window=256)
+    if not (bool(found.all()) and torch.equal(owner, want)
+            and torch.equal(ring_ops.lookup_keys(ring, kb, kl), want)):
+        raise AssertionError("lookup_keys / lookup_masked_idx != lookup_idx at 16 384 keys")
+    keys_ms = time_ms(torch, lambda: ring_ops.lookup_keys(ring, kb, kl))
+    masked_ms = time_ms(torch, lambda: engine.lookup_masked_idx(
+        ring.hashes, ring.owners, khash, mask, window=256))
+    log(f"config 5 lookups at {LOOKUP_KEYS} keys on the last ring ({ring.size} replicas): "
+        f"lookup_keys {keys_ms:.4f} ms ({LOOKUP_KEYS / keys_ms * 1e3:.0f} keys/s, hashing "
+        f"included); lookup_masked_idx (pre-hashed, all-true [M, S] mask, window 256) "
+        f"{masked_ms:.4f} ms ({LOOKUP_KEYS / masked_ms * 1e3:.0f} keys/s)")
+    del r, ring, mask
+    return launches, check_farmhash_short(torch, torch.device("cuda"))
+
+
+def _one_short_launch(torch, label: str, what: str, fn):
+    """``fn()``, which must launch the short FarmHash kernel exactly once
+    and the warp kernel not at all; returns its result and its ms."""
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+
+    short, warp = farmhash32_batch.short_launches, farmhash32_batch.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = (farmhash32_batch.short_launches - short, farmhash32_batch.launches - warp)
+    if got != (1, 0):
+        raise AssertionError(f"{label}: {what} launched the short FarmHash kernel {got[0]} "
+                             f"times and the warp kernel {got[1]} times, not once and 0")
+    return out, ms
+
+
+def lookup_surface(torch, c, label: str) -> int:
+    """Phase g on a converged main-path cluster: ``lookup_batch`` of
+    16 384 keys through viewer 0 (and, on the dense path, one other live
+    viewer) must equal ``ring_for(viewer).lookup`` (the dense path) or
+    ``lookup_keys`` on a ``build_ring`` of the viewer's alive and suspect
+    servers (the delta path at n = 65 536, where a host ring of 6.5 M
+    tuples would take tens of seconds).  ``traffic_ring()`` and each
+    ``lookup_batch`` must launch the short FarmHash kernel once and the
+    warp kernel never.  Returns the short kernel's launches by those
+    calls alone (the checks' own hashing is not counted)."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.ops import ring_ops
+
+    keys = _keys(LOOKUP_KEYS, 17)
+    if c._traffic_ring is not None:
+        raise AssertionError(f"{label}: the traffic ring was built before phase g")
+    ring, ring_ms = _one_short_launch(torch, label, "traffic_ring()", c.traffic_ring)
+    launches = 1
+    live = c.live_indices()
+    viewers = [0] if c.backend == "delta" else [0, int(live[len(live) // 2])]
+    done = []
+    for v in viewers:
+        got, batch_ms = _one_short_launch(torch, label, f"lookup_batch (viewer {v})",
+                                          lambda: c.lookup_batch(keys, viewer=v))
+        launches += 1
+        t0 = time.perf_counter()
+        if c.backend == "delta":
+            status = c._view_rows(np.asarray([v]))[0] & 7
+            members = np.flatnonzero((status == sim.ALIVE) | (status == sim.SUSPECT))
+            servers = [c.book.addresses[i] for i in members]
+            kb, kl = _encoded(torch, keys)
+            idx = ring_ops.lookup_keys(ring_ops.build_ring(servers, device="cuda"), kb, kl)
+            want = [servers[i] for i in idx.tolist()]
+            how = f"lookup_keys on a build_ring of its {len(servers)} alive and suspect servers"
+        else:
+            host = c.ring_for(v)
+            want = [host.lookup(k) for k in keys]
+            how = f"ring_for(viewer).lookup ({host.get_server_count()} servers)"
+        check_ms = (time.perf_counter() - t0) * 1e3
+        bad = sum(1 for a, b in zip(got, want) if a != b)
+        if bad:
+            raise AssertionError(f"{label}: lookup_batch != {how} on {bad} keys (viewer {v})")
+        done.append(f"viewer {v}: lookup_batch {batch_ms:.1f} ms == {how}, {check_ms:.1f} ms")
+    log(f"lookup surface (phase g, {label}): traffic_ring() of {c.n} servers ({ring.size} "
+        f"replica names) {ring_ms:.1f} ms; {LOOKUP_KEYS} keys, {'; '.join(done)}; short FarmHash "
+        f"launches by traffic_ring() and lookup_batch {launches}, one each, warp 0")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -1595,8 +1858,12 @@ def main() -> int:
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
     check_sided_cuda_equals_cpu(torch)
-    launches, converged_dense = main_path(torch)
-    launches_delta, converged_delta, searchsorted_shapes = delta_main_path(torch)
+    launches, converged_dense, c = main_path(torch)
+    short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
+    del c
+    launches_delta, converged_delta, searchsorted_shapes, c = delta_main_path(torch)
+    short_launches += lookup_surface(torch, c, f"delta, n={N_DELTA}")
+    del c
     launches_ring = ring_path(torch, "dense", converged_dense)
     launches_ring_delta = ring_path(torch, "delta", converged_delta)
     time_searchsorted_shapes(torch, searchsorted_shapes)
@@ -1604,11 +1871,15 @@ def main() -> int:
     launches_c4_full, sided_shapes = config4_full(torch, CONFIG4_HEAL_WINDOW)
     launches_ring_sided = sided_ring_path(torch)
     time_sided_kernels(torch, sided_shapes)
+    config5_launches, short_row = config5(torch)
+    rows.append(short_row)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path for the receiver
-    # merge; FarmHash on the dense path and both config-4 paths; the delta
-    # kernels on the delta path and both config-4 paths; the hop on the
-    # three ring paths
+    # merge; FarmHash's warp kernel on the dense path and both config-4
+    # paths, its short-row kernel on both lookup surfaces and config 5;
+    # the delta kernels on the delta path and both config-4 paths; the
+    # hop on the three ring paths
+    launches["farmhash32_short"] = short_launches + config5_launches
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"])
     for name in ("row_searchsorted", "merge_insert"):

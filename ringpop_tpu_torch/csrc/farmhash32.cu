@@ -33,6 +33,17 @@
 // hashes rows of at most 24 bytes, and does the final mix. The TPU kernel
 // laid rows out as word planes with masked reductions because the TPU has no
 // cheap gathers; it walked every row in lockstep at the longest row's length.
+//
+// A second entry point, rp_farmhash32_short, serves batches whose rows are
+// all at most 24 bytes (replica names and keys of the hash ring): no chain,
+// so the bytes bound it (about 37 bytes a row with the int64 output).  The
+// warp kernel would give each such row a warp that uses one lane and
+// reserves its shared-memory tiles, so about 20 rows fit on an SM at once.
+// The short kernel runs one thread per row and reserves no shared memory:
+// consecutive threads hash consecutive rows, so a warp's byte loads fall in
+// one contiguous span of about 32 rows (800 bytes at 25-byte rows) that
+// the L1 serves after its first touch of each line.  It writes each hash
+// zero-extended to int64, the type the wrapper returns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -242,6 +253,21 @@ farmhash32_kernel(const uint8_t* __restrict__ bufs, const int* __restrict__ lens
   }
 }
 
+constexpr int kShortThreads = 256;
+
+// One thread per row of at most 24 bytes: the three short arms.
+__global__ void __launch_bounds__(kShortThreads)
+farmhash32_short_kernel(const uint8_t* __restrict__ bufs, const int* __restrict__ lens,
+                        long long* __restrict__ out, int rows, int64_t stride) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kShortThreads + threadIdx.x;
+  if (r >= rows) return;
+  const uint8_t* s = bufs + r * stride;
+  const uint32_t n = static_cast<uint32_t>(__ldg(lens + r));
+  const uint32_t h =
+      n <= 4 ? hash_0_to_4(s, n) : n <= 12 ? hash_5_to_12(s, n) : hash_13_to_24(s, n);
+  out[r] = static_cast<long long>(h);
+}
+
 }  // namespace
 
 // bufs uint8 rows, row r at bufs + r * stride (stride >= 0, any value),
@@ -254,6 +280,19 @@ extern "C" int rp_farmhash32(const void* bufs, const void* lens, void* out,
   farmhash32_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bufs), static_cast<const int*>(lens),
       static_cast<uint32_t*>(out), rows, static_cast<int64_t>(stride));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bufs, lens and stride as above, every lens[r] <= 24; out int64[rows]
+// holding each row's uint32 hash.  One thread per row, 256 to a block, no
+// shared memory.
+extern "C" int rp_farmhash32_short(const void* bufs, const void* lens, void* out,
+                                   int rows, long long stride, void* stream) {
+  if (rows <= 0) return 0;
+  const int blocks = (rows + kShortThreads - 1) / kShortThreads;
+  farmhash32_short_kernel<<<blocks, kShortThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bufs), static_cast<const int*>(lens),
+      static_cast<long long*>(out), rows, static_cast<int64_t>(stride));
   return static_cast<int>(cudaGetLastError());
 }
 

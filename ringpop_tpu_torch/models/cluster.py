@@ -3,8 +3,10 @@
 The port of ``ringpop_tpu/models/cluster.py`` (``backend="dense"`` and
 ``backend="delta"``):
 drive protocol periods, group live nodes by membership checksum (the
-convergence metric of ringpop's tick-cluster), and inject faults (kill,
-suspend, revive, partitions, packet loss) as edits of ``NetState``.
+convergence metric of ringpop's tick-cluster), inject faults (kill,
+suspend, revive, partitions, packet loss) as edits of ``NetState``, and
+resolve keys through a node's hash ring (``ring_for``, ``lookup``, and
+``lookup_batch`` over the cached global ``traffic_ring``).
 The PRNG key schedule is the reference's: ``tick(1)`` splits the
 cluster key and steps with the sub-key; ``tick(k > 1)`` hands the
 sub-key to ``swim_run_impl``, which splits it into k keys.
@@ -18,11 +20,16 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import prng, resolve_device
+from ringpop_tpu_torch.hashring import HashRing
 from ringpop_tpu_torch.models import checksum as cksum
 from ringpop_tpu_torch.models import swim_delta as sdelta
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
 from ringpop_tpu_torch.ops import checksum_device as ckdev
+from ringpop_tpu_torch.ops import ring_ops
+from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+from ringpop_tpu_torch.traffic import engine as tengine
+from ringpop_tpu_torch.traffic.workloads import DEFAULT_WINDOW
 
 DEFAULT_BASE_INC = 1_400_000_000_000  # host clock epoch (ms)
 # View-row keys materialized at once by a device checksum sweep
@@ -92,6 +99,7 @@ class SimCluster:
         self.key = prng.PRNGKey(seed)
         self.metrics_log: list[dict[str, int]] = []
         self._device_book: ckdev.DeviceBook | None = None
+        self._traffic_ring: ring_ops.DeviceRing | None = None  # lazy global ring
 
     @property
     def n(self) -> int:
@@ -216,6 +224,61 @@ class SimCluster:
         """The viewer's member list, in the reference's getStats shape."""
         row = self._view_rows(np.asarray([viewer]))[0]
         return cksum.row_members(self.book, row & 7, row >> 3, self.base_inc)
+
+    # -- lookup (the ring derived from a node's view, lib/ring.js) -------------
+
+    def ring_for(self, viewer: int) -> HashRing:
+        """The viewer's host ring: its alive and suspect members (faulty
+        and leave members are out of the ring), hashed on the cluster's
+        device."""
+        ring = HashRing(device=self.device)
+        servers = [
+            m["address"] for m in self.members(viewer) if m["status"] in ("alive", "suspect")
+        ]
+        ring.add_remove_servers(servers, [])
+        return ring
+
+    def lookup(self, key: str, viewer: int = 0) -> str | None:
+        return self.ring_for(viewer).lookup(key)
+
+    def traffic_ring(self) -> ring_ops.DeviceRing:
+        """The cluster's GLOBAL device ring: every address's replica
+        points, sorted; per-viewer rings are masks over it.  The address
+        book never changes, so it is built once and cached."""
+        if self._traffic_ring is None:
+            self._traffic_ring = ring_ops.build_ring(self.book.addresses, device=self.device)
+        return self._traffic_ring
+
+    def lookup_batch(self, keys: Sequence[str], viewer: int = 0) -> list[str | None]:
+        """Resolve a batch of keys through ``viewer``'s ring in one pass on
+        the device: the keys are hashed there and resolved by a masked
+        walk of the cached global ring, equal to ``ring_for(viewer).lookup``
+        key for key, ``None`` per key on an empty ring included.  Keys the
+        windowed walk cannot settle (rare unless the viewer's ring is
+        nearly empty) are resolved through the host ring."""
+        keys = list(keys)
+        if not keys:
+            return []
+        ring = self.traffic_ring()
+        # the viewer's bool[N] row, indexed by the walk's owners (no [M, N] mask)
+        in_ring = tengine.in_ring_from_rows(self._device_rows(np.asarray([viewer]))[0])
+        bufs, lens = ring_ops.encode_strings(keys)
+        hashes = farmhash32_batch(
+            torch.from_numpy(bufs).to(self.device), torch.from_numpy(lens).to(self.device)
+        )
+        owners, found = tengine.lookup_masked_idx(
+            ring.hashes, ring.owners, hashes, in_ring, window=min(ring.size, DEFAULT_WINDOW)
+        )
+        owners = owners.cpu().numpy()
+        found = found.cpu().numpy()
+        out: list[str | None] = [
+            self.book.addresses[int(o)] if ok else None for o, ok in zip(owners, found)
+        ]
+        if not found.all():
+            host_ring = self.ring_for(viewer)
+            for i in np.flatnonzero(~found):
+                out[i] = host_ring.lookup(keys[i])
+        return out
 
     def status_counts(self, viewer: int) -> dict[str, int]:
         vs = self._view_rows(np.asarray([viewer]))[0] & 7

@@ -7,10 +7,11 @@ Three versions, bit-identical:
 * ``farmhash32_plain``: plain PyTorch over a batch of padded rows,
   uint32 arithmetic in int64 masked to 32 bits, vectorised over rows
   and looping over the 20-byte blocks of the long arm;
-* ``farmhash32_batch``: the wrapper that launches the CUDA kernel
+* ``farmhash32_batch``: the wrapper that launches a CUDA kernel of
   ``csrc/farmhash32.cu`` (the port of the TPU kernel
-  ``ringpop_tpu/ops/farmhash_pallas.py``) for CUDA tensors and runs the
-  plain version for CPU tensors only.
+  ``ringpop_tpu/ops/farmhash_pallas.py``: a warp a row for any length,
+  or a thread a row when every row is at most 24 bytes) for CUDA
+  tensors and runs the plain version for CPU tensors only.
 
 Batched hashes return int64 tensors holding uint32 values.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ringpop_tpu_torch import _build
@@ -312,10 +314,11 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("farmhash32")
-        lib.rp_farmhash32.restype = ctypes.c_int
-        lib.rp_farmhash32.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ]
+        for entry in (lib.rp_farmhash32, lib.rp_farmhash32_short):
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 3 + [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+            ]
         lib.rp_farmhash32_tile_blocks.restype = ctypes.c_int
         tile = lib.rp_farmhash32_tile_blocks()
         if tile != TILE_BLOCKS:
@@ -326,16 +329,52 @@ def _kernel():
     return _lib
 
 
+# The longest row the short-row kernel hashes: its arms end at 24 bytes.
+SHORT_MAX_LEN = 24
+
+
+def _launch(bufs: torch.Tensor, lens: torch.Tensor, stream: int) -> torch.Tensor:
+    """The kernel launch for ``farmhash32_batch``: checks the lengths,
+    then hashes with the short-row kernel when every row is at most
+    ``SHORT_MAX_LEN`` bytes (counted in ``farmhash32_batch.short_launches``)
+    and with the warp kernel otherwise (``farmhash32_batch.launches``)."""
+    rows, width = bufs.shape
+    if rows == 0:
+        return torch.zeros(0, dtype=torch.int64, device=bufs.device)
+    lo, hi = (int(v) for v in torch.aminmax(lens))
+    if lo < 0 or hi > width:
+        raise ValueError(f"lens must lie in [0, {width}]")
+    if bufs.stride(1) != 1 or bufs.stride(0) < width:
+        bufs = bufs.contiguous()
+    lens = lens.contiguous()
+    if hi <= SHORT_MAX_LEN:
+        out = torch.empty(rows, dtype=torch.int64, device=bufs.device)
+        rc = _kernel().rp_farmhash32_short(
+            bufs.data_ptr(), lens.data_ptr(), out.data_ptr(), rows, bufs.stride(0), stream
+        )
+        _build.check(rc, "farmhash32_short")
+        farmhash32_batch.short_launches += 1
+        return out
+    out = torch.empty(rows, dtype=torch.int32, device=bufs.device)
+    rc = _kernel().rp_farmhash32(
+        bufs.data_ptr(), lens.data_ptr(), out.data_ptr(), rows, bufs.stride(0), stream
+    )
+    _build.check(rc, "farmhash32")
+    farmhash32_batch.launches += 1
+    return out.to(torch.int64) & _M32
+
+
 def farmhash32_batch(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Fingerprint32 per row: ``bufs`` uint8[B, L], ``lens`` int32[B]
     (each <= L) -> int64[B] holding uint32.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (counted in
-    ``farmhash32_batch.launches``) or raise.  The kernel reads rows at
-    any row stride, so a view cut from wider rows (as ``row_strings``
+    version; CUDA tensors launch a kernel or raise: the short-row kernel
+    when no row is longer than ``SHORT_MAX_LEN`` bytes, the warp kernel
+    otherwise (mixed batches included).  The kernels read rows at any
+    row stride, so a view cut from wider rows (as ``row_strings``
     returns) is hashed in place, without a copy."""
     if bufs.dtype != torch.uint8 or bufs.dim() != 2:
         raise TypeError(f"bufs must be uint8[B, L], got {bufs.dtype}{list(bufs.shape)}")
-    rows, width = bufs.shape
+    rows = bufs.shape[0]
     if lens.dtype != torch.int32 or lens.shape != (rows,):
         raise TypeError(f"lens must be int32[{rows}], got {lens.dtype}{list(lens.shape)}")
     if bufs.device != lens.device:
@@ -345,20 +384,20 @@ def farmhash32_batch(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         return farmhash32_plain(bufs, lens)
     if dev.type != "cuda":
         raise ValueError(f"farmhash32_batch runs on cpu or cuda tensors, not {dev}")
-    if rows and (int(lens.min()) < 0 or int(lens.max()) > width):
-        raise ValueError(f"lens must lie in [0, {width}]")
-    if bufs.stride(1) != 1 or bufs.stride(0) < width:
-        bufs = bufs.contiguous()
-    lens = lens.contiguous()
-    out = torch.empty(rows, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel().rp_farmhash32(
-            bufs.data_ptr(), lens.data_ptr(), out.data_ptr(), rows, bufs.stride(0), stream
-        )
-    _build.check(rc, "farmhash32")
-    farmhash32_batch.launches += 1
-    return out.to(torch.int64) & _M32
+        return _launch(bufs, lens, torch.cuda.current_stream(dev).cuda_stream)
 
 
 farmhash32_batch.launches = 0
+farmhash32_batch.short_launches = 0
+
+
+def pack_rows(raw: list[bytes], width: int) -> tuple[np.ndarray, np.ndarray]:
+    """Byte strings as the rows ``farmhash32_batch`` takes: uint8[R, width],
+    each string zero-padded (none may be longer than ``width``), and
+    their lengths int32[R]."""
+    lens = np.fromiter(map(len, raw), dtype=np.int32, count=len(raw))
+    if lens.size and int(lens.max()) > width:
+        raise ValueError(f"a string of {int(lens.max())} bytes does not fit rows of {width}")
+    flat = b"".join(b.ljust(width, b"\0") for b in raw)
+    return np.frombuffer(flat, dtype=np.uint8).reshape(len(raw), width).copy(), lens

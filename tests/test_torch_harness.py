@@ -21,7 +21,13 @@ caps under ``"caps"`` (``capacity``, ``wire_cap``, ``claim_grid``);
 each op is ``["tick", k]`` or a ``SimCluster`` method name with its
 arguments (``["kill", 3]``, ``["partition", [[0, 1], [2]]]``,
 ``["heal_partition"]``, ``["rebase", True]``, ...), the same on both
-sides.  ``run_references`` runs the cases once per reference lowering
+sides.  A case with ``"lookups": {"keys": [...], "viewers": [...]}``
+also records, after its ops, the global ``traffic_ring()`` tables
+(``{name}/traffic/hashes``, ``/owners``), and per viewer v the host
+ring ``ring_for(v)`` (``{name}/ring{v}/hash``, ``/server``,
+``/checksum``), ``lookup`` of every key (``{name}/lookup{v}``) and
+``lookup_batch`` of them all (``{name}/batch{v}``), None as "".
+``run_references`` runs the cases once per reference lowering
 (``DELTA_LOWERINGS``: environment variables that the reference reads
 when it is imported), one child process each, side by side.
 
@@ -104,6 +110,21 @@ for case in cases:
             out[f"{name}/ck{t}_addr"] = np.array(list(ck), dtype=object).astype(str)
             out[f"{name}/ck{t}_val"] = np.array(list(ck.values()), dtype=np.int64)
         t += 1
+    look = case.get("lookups")
+    if look:
+        keys = look["keys"]
+        ring = c.traffic_ring()
+        out[f"{name}/traffic/hashes"] = np.asarray(ring.hashes)
+        out[f"{name}/traffic/owners"] = np.asarray(ring.owners)
+        for v in look["viewers"]:
+            hr = c.ring_for(v)
+            out[f"{name}/ring{v}/hash"] = np.array([h for h, _ in hr._entries], np.int64)
+            out[f"{name}/ring{v}/server"] = np.array([s for _, s in hr._entries], dtype=str)
+            out[f"{name}/ring{v}/checksum"] = np.array(hr.checksum, np.int64)
+            out[f"{name}/lookup{v}"] = np.array(
+                [c.lookup(k, viewer=v) or "" for k in keys], dtype=str)
+            out[f"{name}/batch{v}"] = np.array(
+                [o or "" for o in c.lookup_batch(keys, viewer=v)], dtype=str)
     for f in fields:
         vals = [None if s[f] is None else np.asarray(s[f]) for s in snaps]
         if all(v is not None for v in vals) and len({v.shape for v in vals}) == 1:
@@ -166,25 +187,27 @@ def run_references(
 
 # Calls of single reference functions: each call names a module of
 # ``ringpop_tpu.models`` (or ``gossip_remote_copy`` or ``bitpack`` of
-# ``ringpop_tpu.ops``) and a function in it, and its arguments, each
-# ``["array", key]`` (an array of the npz handed over),
-# ``["delta_state", {field: key}]`` (a ``DeltaState`` of such arrays) or
-# ``["py", value]``.  A call with ``"ring": d`` runs jitted inside
-# ``ring_mesh(parallel.make_mesh(d))`` (the ring primitives need the
-# context); a call with ``"raises": true`` records the name of the
-# exception it raises under ``{name}/raises``.
+# ``ringpop_tpu.ops``, or ``engine`` of ``ringpop_tpu.traffic``) and a
+# function in it, and its arguments, each ``["array", key]`` (an array
+# of the npz handed over), ``["delta_state", {field: key}]`` (a
+# ``DeltaState`` of such arrays) or ``["py", value]``.  A call with
+# ``"ring": d`` runs jitted inside ``ring_mesh(parallel.make_mesh(d))``
+# (the ring primitives need the context); a call with ``"raises": true``
+# records the name of the exception it raises under ``{name}/raises``.
 _CALLS = _PATCHES + r"""
 import functools
 import jax
 import jax.numpy as jnp
 from ringpop_tpu.models import swim_delta, swim_sim
 from ringpop_tpu.ops import bitpack, gossip_remote_copy
+from ringpop_tpu.traffic import engine
 
 with open(sys.argv[1]) as f:
     calls = json.load(f)
 z = np.load(sys.argv[2])
 mods = {"swim_delta": swim_delta, "swim_sim": swim_sim,
-        "gossip_remote_copy": gossip_remote_copy, "bitpack": bitpack}
+        "gossip_remote_copy": gossip_remote_copy, "bitpack": bitpack,
+        "engine": engine}
 
 def arg(a):
     kind, v = a
@@ -529,6 +552,14 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.models.checksum",
     "ringpop_tpu_torch.models.cluster",
     "ringpop_tpu_torch.profile_tick",
+    "ringpop_tpu_torch.utils",
+    "ringpop_tpu_torch.utils.events",
+    "ringpop_tpu_torch.hashring",
+    "ringpop_tpu_torch.ops.ring_ops",
+    "ringpop_tpu_torch.traffic",
+    "ringpop_tpu_torch.traffic.workloads",
+    "ringpop_tpu_torch.traffic.engine",
+    "ringpop_tpu_torch.ring_rebalance",
 )
 
 

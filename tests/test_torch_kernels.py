@@ -297,3 +297,75 @@ def test_farmhash_kernel_on_card():
             host = rows.cpu().numpy()
             assert got.tolist() == [ref_farmhash32(host[i, :n].tobytes())
                                     for i, n in enumerate(lens)]
+
+
+def test_farmhash_short_path_on_card():
+    """The short-row kernel (every row at most 24 bytes) against the plain
+    version: every length 0-24, rows cut at an odd stride, rows starting
+    one byte past alignment, a replica-name batch [1000, 25]; a batch
+    that mixes in one 25-byte row takes the warp kernel."""
+    _need_card()
+    rng = np.random.default_rng(24)
+    lens = torch.as_tensor(np.tile(np.arange(25, dtype=np.int32), 40), device="cuda")
+    wide = torch.as_tensor(rng.integers(0, 256, (lens.numel(), 32), dtype=np.uint8),
+                           device="cuda")
+    flat = torch.as_tensor(rng.integers(0, 256, lens.numel() * 27 + 1, dtype=np.uint8),
+                           device="cuda")
+    shifted = flat[1:].view(lens.numel(), 27)
+    assert shifted.data_ptr() % 16 == 1
+    names = [f"127.0.0.1:{10000 + i // 100}{i % 100}".encode() for i in range(1000)]
+    nb = torch.as_tensor(np.array([list(b.ljust(25, b"\0")) for b in names], np.uint8),
+                         device="cuda")
+    nl = torch.as_tensor([len(b) for b in names], dtype=torch.int32, device="cuda")
+    for what, rows, l_ in (("contiguous", wide[:, :25].contiguous(), lens),
+                           ("odd stride", wide[:, :25], lens), ("unaligned", shifted, lens),
+                           ("names", nb, nl)):
+        short, warp = tfh.farmhash32_batch.short_launches, tfh.farmhash32_batch.launches
+        got = tfh.farmhash32_batch(rows, l_)
+        torch.cuda.synchronize()
+        assert tfh.farmhash32_batch.short_launches == short + 1, what
+        assert tfh.farmhash32_batch.launches == warp, what
+        assert torch.equal(got, tfh.farmhash32_plain(rows, l_)), what
+    mixed = lens.clone()
+    mixed[7] = 25
+    warp = tfh.farmhash32_batch.launches
+    got = tfh.farmhash32_batch(wide[:, :25], mixed)
+    torch.cuda.synchronize()
+    assert tfh.farmhash32_batch.launches == warp + 1
+    assert torch.equal(got, tfh.farmhash32_plain(wide[:, :25], mixed))
+
+
+class _StubLib:
+    """A kernel library whose entry points record their calls and launch
+    nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append(name) or 0
+
+
+@pytest.mark.parametrize("longest,entry", [(0, "rp_farmhash32_short"),
+                                           (24, "rp_farmhash32_short"),
+                                           (25, "rp_farmhash32"), (300, "rp_farmhash32")])
+def test_farmhash_wrapper_picks_the_path_by_the_longest_row(monkeypatch, longest, entry):
+    """The launch step of ``farmhash32_batch`` (run here on CPU tensors
+    with the C entry points stubbed): the short-row kernel when no row is
+    longer than 24 bytes, the warp kernel otherwise, each counted apart;
+    out-of-range lengths raise before any launch."""
+    stub = _StubLib()
+    monkeypatch.setattr(tfh, "_kernel", lambda: stub)
+    bufs = torch.zeros((6, 300), dtype=torch.uint8)
+    lens = torch.tensor([3, 0, 24, 17, 5, longest], dtype=torch.int32)
+    short, warp = tfh.farmhash32_batch.short_launches, tfh.farmhash32_batch.launches
+    out = tfh._launch(bufs, lens, 0)
+    assert stub.calls == [entry]
+    assert out.shape == (6,) and out.dtype == torch.int64
+    short_now = entry == "rp_farmhash32_short"
+    assert tfh.farmhash32_batch.short_launches == short + short_now
+    assert tfh.farmhash32_batch.launches == warp + (not short_now)
+    with pytest.raises(ValueError):
+        tfh._launch(bufs, torch.tensor([0, 0, 0, 0, 0, 301], dtype=torch.int32), 0)
+    assert tfh._launch(bufs[:0], lens[:0], 0).shape == (0,)
+    assert stub.calls == [entry]
