@@ -119,7 +119,25 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     [1,000,000, 18] (config 5's first ring), the same padded to 25 bytes a
     row and [6,553,600, 17] (the delta path's ring), timed beside the warp
     kernel on the same rows;
-15. print the ``kernels`` JSON line (each kernel's launches summed over
+15. (phase h) the fault model through the port's scenario host loop
+    (``scenarios.runner.run_host_loop``): every family and a partition
+    at n = 256 (delay 2, jitter 1) on the card and on the CPU, dense and
+    delta at phase 4's caps, every state field (the in-flight buffer
+    too), net field and metric equal after every segment; then three
+    families of ``benchmarks/bench_faults.py`` (80 ticks: one-way link
+    loss, gray periods, delay with jitter, each with a kill) and the
+    kill alone as a control, at BASELINE config 3 on the dense backend
+    (n = 10,000, 1% loss, seed 0), and the delay and gray families and
+    the control on the delta main path (n = 65,536, default caps), each
+    ticked on until the killed node is faulty in every live
+    view and the views agree, to one checksum group (all live rows
+    dense, the sample delta); each prints its ticks to convergence
+    after the fault window, its median tick inside and outside the
+    window, host syncs a tick and peak memory.  The delay runs must
+    delay and mature claims, a gray window must see fewer pings than
+    live nodes, and the receiver merge (dense) and the
+    row-searchsorted and merge-insert kernels (delta) must launch;
+16. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -128,7 +146,8 @@ of the receiver merge and the merge-insert (phase 3's part for them) on
 the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
 and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
-``fold_sides``, and prints no result line.
+``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
+--faults`` runs only phase h and prints no result line.
 """
 
 from __future__ import annotations
@@ -1804,6 +1823,262 @@ def lookup_surface(torch, c, label: str) -> int:
     return launches
 
 
+N_FAULTS_SMALL = 256  # phase h lockstep
+FAULT_TICKS = 80  # benchmarks/bench_faults.py's scenario horizon at full size
+FAULT_CAPS_SMALL = {"capacity": 32, "wire_cap": 4, "claim_grid": 8}  # phase 4's delta caps
+
+
+def mixed_spec(n: int) -> dict:
+    """Every fault family and a partition at once: ``MIXED`` of the
+    reference's fault tests scaled from 10 nodes to ``n``, with delay 2
+    and jitter 1."""
+    f = n // 10
+    return {"ticks": 30, "events": [
+        {"at": 2, "op": "link_loss", "src": list(range(2 * f)), "dst": list(range(4 * f, 6 * f)),
+         "p": 0.9, "until": 20},
+        {"at": 3, "op": "gray", "nodes": list(range(2 * f, 3 * f)), "factor": 4, "until": 25},
+        {"at": 4, "op": "flap", "node": 7 * f, "until": 16, "down": 2, "up": 3},
+        {"at": 5, "op": "rolling_restart", "nodes": [8 * f, 9 * f], "down": 2, "every": 4},
+        {"at": 6, "op": "delay", "src": list(range(3 * f, 4 * f)), "dst": list(range(6 * f, 7 * f)),
+         "delay": 2, "jitter": 1, "until": 22},
+        {"at": 10, "op": "partition", "groups": [list(range(n // 2)), list(range(n // 2, n))]},
+        {"at": 18, "op": "heal"},
+    ]}
+
+
+def fam_specs(n: int, ticks: int) -> dict:
+    """Three families of ``benchmarks/bench_faults.py``'s ``_fam_specs``
+    (copied here: this script imports nothing of the JAX package)."""
+    quarter = list(range(n // 4))
+    half = list(range(n // 2, n))
+    until = int(ticks * 0.7)
+    return {
+        "link_loss": {"ticks": ticks, "events": [
+            {"at": 10, "op": "kill", "node": n - 1},
+            {"at": 12, "op": "link_loss", "src": quarter, "dst": [n - 2, n - 3], "p": 0.9,
+             "until": until}]},
+        "gray": {"ticks": ticks, "events": [
+            {"at": 8, "op": "gray", "nodes": quarter, "factor": 6, "until": until},
+            {"at": 12, "op": "kill", "node": n - 1}]},
+        "delay": {"ticks": ticks, "events": [
+            {"at": 8, "op": "delay", "src": quarter, "dst": half, "delay": 2, "jitter": 3,
+             "until": until},
+            {"at": 12, "op": "kill", "node": n - 1}]},
+        # the control: the gray and delay families' kill with no fault
+        "kill_only": {"ticks": ticks, "events": [{"at": 12, "op": "kill", "node": n - 1}]},
+    }
+
+
+def _record_segments(c, sink: list) -> None:
+    """Wrap ``c.tick`` so that each call (a segment of the host loop)
+    appends its metrics, state and net, copied to the host, to ``sink``."""
+    real = c.tick
+
+    def host(obj):
+        return {f: None if v is None else v.cpu() for f, v in obj._asdict().items()}
+
+    def tick(k=1):
+        m = real(k)
+        sink.append((m, host(c.state), host(c.net)))
+        return m
+
+    c.tick = tick
+
+
+def check_faults_cuda_equals_cpu(torch) -> dict:
+    """Phase h, lockstep: every fault family and a partition at n = 256
+    through ``run_host_loop`` on the card and on the CPU, dense and delta
+    (phase 4's caps): every state field (the in-flight buffer too), net
+    field and metric equal after every segment."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+    from ringpop_tpu_torch.scenarios.runner import run_host_loop
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    spec = ScenarioSpec.from_dict(mixed_spec(N_FAULTS_SMALL))
+    params = SwimParams(loss=0.01, suspicion_ticks=8)
+    out = {}
+    for backend, caps in (("dense", {}), ("delta", FAULT_CAPS_SMALL)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            c = SimCluster(N_FAULTS_SMALL, params, seed=0, device=device, backend=backend, **caps)
+            segs: list = []
+            _record_segments(c, segs)
+            run_host_loop(c, spec)
+            runs.append(segs)
+        want, got = runs
+        if len(want) != len(got):
+            raise AssertionError(
+                f"faults {backend}: {len(got)} segments on cuda, {len(want)} on cpu")
+        for t, ((mw, sw, nw), (mg, sg, ng)) in enumerate(zip(want, got)):
+            if mw != mg:
+                raise AssertionError(f"faults {backend} segment {t}: metrics cuda {mg} cpu {mw}")
+            for what, a, b in (("state", sg, sw), ("net", ng, nw)):
+                for f, x in a.items():
+                    y = b[f]
+                    if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                        raise AssertionError(f"faults {backend} segment {t}: {what} {f} differs")
+        def in_flight(st) -> bool:
+            if backend == "dense":
+                return bool((st["pending"] > 0).any())
+            return bool((st["pend_recv"] < N_FAULTS_SMALL).any())
+
+        pending = sum(in_flight(sg) for _, sg, _ in got)
+        out[backend] = len(got)
+        log(f"faults (phase h): {backend} cuda == cpu on every state field (the in-flight "
+            f"buffer included), net field and metric after each of {len(got)} host-loop "
+            f"segments of the mixed scenario at n={N_FAULTS_SMALL} (every family, a partition, "
+            f"delay 2 jitter 1{', caps ' + str(caps) if caps else ''}); segments ending with "
+            f"claims in flight {pending}")
+        if pending == 0:
+            raise AssertionError(f"faults {backend}: no claim was ever in flight at a boundary")
+    return out
+
+
+def _fault_window(spec: dict) -> tuple[int, int]:
+    """The fault event's window; the control's is the gray and delay
+    families' [8, 0.7 ticks), so its medians compare with theirs."""
+    for e in spec["events"]:
+        if e["op"] in ("link_loss", "gray", "delay"):
+            return e["at"], e.get("until", spec["ticks"])
+    return 8, int(spec["ticks"] * 0.7)
+
+
+def fault_run(torch, backend: str, family: str, spec_dict: dict, n: int, caps: dict) -> dict:
+    """One full-width fault scenario through ``run_host_loop`` on the card,
+    then ticks until the killed node is faulty in every live view and the
+    views agree; every step timed (host clock, synchronised), its host
+    syncs counted (sync debug mode) and its metrics kept.  Returns the
+    launches of the path's kernels and what it measured."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+    from ringpop_tpu_torch.scenarios.runner import run_host_loop
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    _reset_counts()
+    recv_merge.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    spec = ScenarioSpec.from_dict(spec_dict)
+    start, end = _fault_window(spec_dict)
+    victim = n - 1
+    kill_at = next(e["at"] for e in spec_dict["events"] if e["op"] == "kill")
+    c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend=backend, **caps)
+    mod, name = (sdelta, "delta_step_impl") if backend == "delta" else (sim, "swim_step_impl")
+    real = getattr(mod, name)
+    vcol = torch.full((n,), victim, dtype=torch.int32, device="cuda")
+    steps: list[dict] = []
+
+    def done(state, net) -> bool:
+        if backend == "delta":
+            own = sdelta.view_lookup(state, torch.arange(n, dtype=torch.int32, device="cuda")) & 7
+            col = sdelta.view_lookup(state, vcol) & 7
+            conv = sdelta._converged_impl(state, net.up, net.responsive)
+        else:
+            own = torch.diagonal(state.view_key) & 7
+            col = state.view_key[:, victim] & 7
+            conv = sim.converged_impl(state, net)
+        live = net.up & net.responsive & ((own == sim.ALIVE) | (own == sim.SUSPECT))
+        return bool(conv & torch.where(live, col == sim.FAULTY, True).all())
+
+    def timed(state, net, key, params, *args, **kwargs):
+        tick = int(state.tick)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                new, metrics = real(state, net, key, params, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        values = torch.stack(list(metrics.values())).tolist()
+        steps.append({"tick": tick, "ms": ms, "m": dict(zip(metrics, values)),
+                      "syncs": sum("synchroniz" in str(w.message) for w in caught),
+                      "live": int((net.up & net.responsive).sum()),
+                      "done": tick >= kill_at and done(new, net)})
+        return new, metrics
+
+    setattr(mod, name, timed)
+    try:
+        run_host_loop(c, spec)
+        while not steps[-1]["done"]:
+            if len(steps) >= spec.ticks + MAX_TICKS:
+                raise AssertionError(f"faults {backend} {family}: node {victim} not faulty "
+                                     f"everywhere {MAX_TICKS} ticks after the scenario")
+            c.tick()
+    finally:
+        setattr(mod, name, real)
+    first_done = next(s["tick"] + 1 for s in steps if s["done"])
+    converged_at = next(s["tick"] + 1 for s in steps if s["done"] and s["tick"] + 1 >= end)
+    if backend == "delta":
+        groups = _groups(c, sample=True)
+        ck = f"device checksums of {len(_sample_rows(c))} sampled live rows"
+    else:
+        groups = _groups(c, sample=False)
+        ck = f"device checksums of all {len(c.live_indices())} live rows"
+    if groups != 1:
+        raise AssertionError(f"faults {backend} {family}: {groups} checksum groups")
+    inside = [s["ms"] for s in steps if start <= s["tick"] < end]
+    outside = [s["ms"] for s in steps if not start <= s["tick"] < end]
+    total = {k: sum(s["m"].get(k, 0) for s in steps) for k in ("delayed_claims", "matured_applied",
+                                                               "claims_dropped")}
+    gray_min = min((s["m"]["pings_sent"] - s["live"] for s in steps if start <= s["tick"] < end),
+                   default=0)
+    launches = {"recv_merge": recv_merge.launches, "farmhash32": farmhash32_batch.launches,
+                **{k: _counted()[k].launches for k in ("row_searchsorted", "merge_insert")}}
+    peak = torch.cuda.max_memory_allocated()
+    syncs = [s["syncs"] for s in steps]
+    r = {"ticks_after_window": converged_at - end, "first_converged": first_done,
+         "inside_ms": statistics.median(inside),
+         "outside_ms": statistics.median(outside), "syncs": sum(syncs) / len(syncs),
+         "peak_gib": peak / 2**30, "launches": launches, **total, "gray_min": gray_min}
+    log(f"faults (phase h): {backend} n={n}{' ' + str(caps) if caps else ''} loss=0.01 "
+        f"'{family}' (window [{start}, {end}), kill node {victim} at tick {kill_at}): "
+        f"{len(steps)} ticks; the victim faulty in every live view and the views converged "
+        f"first at tick {first_done}, and from the window's close on at tick {converged_at}, "
+        f"{r['ticks_after_window']} ticks after it; {ck} in one group; median "
+        f"tick {r['inside_ms']:.3f} ms inside the window ({len(inside)} ticks), "
+        f"{r['outside_ms']:.3f} ms outside ({len(outside)}); host syncs {sum(syncs)} "
+        f"({r['syncs']:.2f} per tick); delayed_claims {total['delayed_claims']}, "
+        f"matured_applied {total['matured_applied']}, claims_dropped {total['claims_dropped']}; "
+        f"fewest pings minus live nodes inside the window {gray_min}; peak memory "
+        f"{r['peak_gib']:.2f} GiB; launches {launches}; {time.perf_counter() - t_run:.1f} s")
+    if family == "delay" and not (total["delayed_claims"] > 0 and total["matured_applied"] > 0):
+        raise AssertionError(f"faults {backend} delay: delayed {total['delayed_claims']}, "
+                             f"matured {total['matured_applied']}")
+    if family == "gray" and gray_min >= 0:
+        raise AssertionError(f"faults {backend} gray: no tick in the window sent fewer pings "
+                             "than there were live nodes")
+    want = ("recv_merge",) if backend == "dense" else ("row_searchsorted", "merge_insert")
+    for k in want:
+        if launches[k] <= 0:
+            raise AssertionError(f"faults {backend} {family}: kernel {k} was not launched")
+    return r
+
+
+def faults_phase(torch) -> dict:
+    """Phase h: the lockstep, then the full-width families; returns the
+    kernels' launches summed over the full-width runs."""
+    check_faults_cuda_equals_cpu(torch)
+    launches: dict[str, int] = {}
+    runs = [("dense", fam, N_MAIN, {}) for fam in ("link_loss", "gray", "delay", "kill_only")]
+    runs += [("delta", fam, N_DELTA, DELTA_CAPS) for fam in ("delay", "gray", "kill_only")]
+    for backend, fam, n, caps in runs:
+        r = fault_run(torch, backend, fam, fam_specs(n, FAULT_TICKS)[fam], n, caps)
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -1813,6 +2088,9 @@ def main() -> int:
     ap.add_argument("--config4-65k", action="store_true",
                     help="only run BASELINE config 4 at n = 65,536 (phase c) to convergence, up "
                          "to the bench's 800 heal ticks, then fold_sides; print no result line")
+    ap.add_argument("--faults", action="store_true",
+                    help="only run phase h (the fault model's lockstep and full-width "
+                         "families); print no result line")
     args = ap.parse_args()
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
@@ -1845,6 +2123,10 @@ def main() -> int:
         config4_full(torch, CONFIG4_MAX_HEAL)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.faults:
+        faults_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -1873,12 +2155,14 @@ def main() -> int:
     time_sided_kernels(torch, sided_shapes)
     config5_launches, short_row = config5(torch)
     rows.append(short_row)
+    launches_faults = faults_phase(torch)
     # each kernel's launches on the main paths it belongs to, each path
-    # counted from 0 (each printed above): the dense path for the receiver
-    # merge; FarmHash's warp kernel on the dense path and both config-4
-    # paths, its short-row kernel on both lookup surfaces and config 5;
-    # the delta kernels on the delta path and both config-4 paths; the
-    # hop on the three ring paths
+    # counted from 0 (each printed above): the dense path and phase h's
+    # dense runs for the receiver merge; FarmHash's warp kernel on the
+    # dense path, both config-4 paths and phase h, its short-row kernel on
+    # both lookup surfaces and config 5; the delta kernels on the delta
+    # path, both config-4 paths and phase h's delta runs; the hop on the
+    # three ring paths
     launches["farmhash32_short"] = short_launches + config5_launches
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"])
@@ -1886,6 +2170,8 @@ def main() -> int:
         launches[name] = launches_delta[name]
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += launches_c4[name] + launches_c4_full[name]
+    for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
+        launches[name] += launches_faults[name]
     for row in rows:
         row["launches"] = launches[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,11 @@ The JAX package's ``ClusterState``/``DeltaState``/``NetState`` and a
 ``PRNGKey``, given as numpy arrays (e.g. ``{k: np.asarray(v) for k, v
 in state._asdict().items()}``), become the port's tensors on a device, and
 back.  The state is this system's "weights": with it, both sides run
-from identical inputs.  Fields the port does not carry yet must be
-None.
+from identical inputs.  The fault model's fields cross too: the
+in-flight buffers (``pending``, ``pend_*``), the link rules
+(``link_*``), the period row and the overload state (``ov_*``).  Fields
+the port does not carry yet (the policy plane's ``po_*``, the
+provenance plane's ``pv_*``) must be None.
 """
 
 from __future__ import annotations

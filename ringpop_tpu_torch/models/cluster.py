@@ -4,7 +4,9 @@ The port of ``ringpop_tpu/models/cluster.py`` (``backend="dense"`` and
 ``backend="delta"``):
 drive protocol periods, group live nodes by membership checksum (the
 convergence metric of ringpop's tick-cluster), inject faults (kill,
-suspend, revive, partitions, packet loss) as edits of ``NetState``, and
+suspend, revive, partitions, packet loss, directed link rules, per-link
+delay, per-node periods) as edits of ``NetState`` (and of the in-flight
+claim buffer, ``enable_delay``), and
 resolve keys through a node's hash ring (``ring_for``, ``lookup``, and
 ``lookup_batch`` over the cached global ``traffic_ring``).
 The PRNG key schedule is the reference's: ``tick(1)`` splits the
@@ -368,6 +370,98 @@ class SimCluster:
         self.params = self.params._replace(loss=float(p))
         self.dparams = self.dparams._replace(swim=self.params)
 
+    # -- the fault model: directed link rules, delay, per-node periods ----------
+
+    def set_link_rules(self, src, dst, p, d=None, j=None) -> None:
+        """Install K directed link rules: a message from a node in
+        ``src[k]`` to a node in ``dst[k]`` drops with extra probability
+        ``p[k]`` (composing over rules) and, with ``d``/``j``, lands
+        ``d[k] + U{0..j[k]}`` ticks later (``enable_delay`` first).
+        ``src``/``dst`` are bool[K, N]; without ``d`` and ``j`` the rules
+        are loss-only."""
+        src = np.asarray(src, dtype=bool)
+        dst = np.asarray(dst, dtype=bool)
+        p = np.asarray(p, dtype=np.float32)
+        if src.ndim != 2 or src.shape != dst.shape or p.shape != src.shape[:1]:
+            raise ValueError(
+                "link rules need src/dst bool[K, N] and p float[K] "
+                f"(got {src.shape}, {dst.shape}, {p.shape})"
+            )
+        if src.shape[1] != self.n:
+            raise ValueError(f"link rule masks are not n={self.n} wide")
+        kw = {"link_d": None, "link_j": None}
+        if d is not None or j is not None:
+            d = np.zeros(src.shape[0], np.int32) if d is None else np.asarray(d)
+            j = np.zeros(src.shape[0], np.int32) if j is None else np.asarray(j)
+            if self.backend == "delta":
+                depth = self.state.delay_depth
+            else:
+                depth = 0 if self.state.pending is None else self.state.pending.shape[0]
+            if int(d.max(initial=0) + j.max(initial=0)) >= max(depth, 1):
+                raise ValueError(
+                    f"delay rules need enable_delay(depth > max(d + j)) "
+                    f"first (depth={depth})"
+                )
+            kw = {"link_d": self._on_device(d.astype(np.int32)),
+                  "link_j": self._on_device(j.astype(np.int32))}
+        self.net = self.net._replace(
+            link_src=self._on_device(src), link_dst=self._on_device(dst),
+            link_p=self._on_device(p), **kw,
+        )
+
+    def clear_link_rules(self) -> None:
+        self.net = self.net._replace(
+            link_src=None, link_dst=None, link_p=None, link_d=None, link_j=None
+        )
+
+    def clear_overload(self) -> None:
+        """Drop the overload feedback state (``NetState.ov_cnt``/
+        ``ov_gray``) a finished ``overload`` run left on the net."""
+        self.net = self.net._replace(ov_cnt=None, ov_gray=None)
+
+    def set_period(self, period) -> None:
+        """Per-node protocol periods (int[N], the gray-failure model):
+        node i initiates a probe every ``period[i]``-th tick but answers
+        pings and serves as a witness every tick.  ``None`` restores
+        lockstep.  A row of P is ``phase_mod = P`` on both backends."""
+        if period is None:
+            self.net = self.net._replace(period=None)
+            return
+        period = np.asarray(period, dtype=np.int32)
+        if period.shape != (self.n,):
+            raise ValueError(f"period must be int[{self.n}]")
+        if self.params.phase_mod > 1:
+            raise ValueError(
+                "per-node periods do not compose with phase_mod > 1 "
+                "(a period row of P subsumes it)"
+            )
+        self.net = self.net._replace(period=self._on_device(period))
+
+    def enable_delay(self, depth: int) -> None:
+        """Install the in-flight claim buffer, so that delay rules can
+        defer claims up to ``depth - 1`` ticks: the dense backend's
+        [D, N, N] claim matrix or the delta backend's claim lanes
+        (``swim_delta.install_pending``).  It must come before the first
+        delayed tick: its presence widens the per-tick key split."""
+        if self.backend == "delta":
+            self.state = sdelta.install_pending(self.state, depth, self.dparams.wire_cap)
+            return
+        if depth < 2:
+            raise ValueError(f"delay depth must be >= 2 (got {depth})")
+        if self.state.pending is not None:
+            if self.state.pending.shape[0] != depth:
+                raise ValueError(
+                    f"an in-flight buffer of depth "
+                    f"{self.state.pending.shape[0]} is already installed"
+                )
+            return
+        self.state = self.state._replace(
+            pending=torch.zeros((depth, self.n, self.n), dtype=torch.int32, device=self.device)
+        )
+
+    def _on_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
     # -- delta maintenance (no-ops on the dense backend) -------------------------
 
     def compact(self) -> None:
@@ -400,8 +494,3 @@ class SimCluster:
         (``swim_delta.fold_to_single``); rebase first to drain residue."""
         if self.backend == "delta" and self.state.side is not None:
             self.state = sdelta.fold_to_single(self.state)
-
-    # -- not ported yet ------------------------------------------------------------
-
-    def enable_delay(self, depth: int) -> None:
-        raise NotImplementedError("the in-flight claim buffers (per-link delay) are not ported yet")

@@ -34,10 +34,12 @@ base is the lattice merge of both.  ``make_sides`` enters it,
 ``fold_to_single`` leaves it, and ``rebase`` folds each group into its
 own row.
 
-Arms outside this port raise ``NotImplementedError``: the delay lanes
-(``pend_*``, link rules), traced knobs, ``prov=True``, ``upto != 7``,
-the carried slot-base planes (``d_bpmask``/``d_bprank``), per-node
-periods and ``phase_mod > 1``.  The maintenance and admin operations
+The fault-model arms are ported: link rules, per-node periods and
+``phase_mod > 1`` (shared with the dense step), and the in-flight claim
+lanes (``pend_*``, ``install_pending``) that carry delayed claims across
+ticks.  Arms outside this port raise ``NotImplementedError``: traced
+knobs, ``prov=True``, ``upto != 7`` and the carried slot-base planes
+(``d_bpmask``/``d_bprank``).  The maintenance and admin operations
 (``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
 host numpy, as in the reference.
 """
@@ -65,11 +67,13 @@ from ringpop_tpu_torch.models.swim_sim import (
     _distinct_ranks,
     _drop_net,
     _gather_rows,
+    _message_delay,
     _on_ring,
     _scoped,
     _stagger_send_gate,
     _sweep_divisor,
     _validate_params,
+    _wrap_i32,
 )
 from ringpop_tpu_torch.ops import bitpack
 from ringpop_tpu_torch.ops.delta_merge import merge_insert
@@ -111,13 +115,23 @@ class DeltaState(NamedTuple):
     digest: torch.Tensor | None = None  # int64[N] rolling view digest (uint32 values)
     d_bpmask: torch.Tensor | None = None  # carried slot-base planes (not ported)
     d_bprank: torch.Tensor | None = None
-    pend_subj: torch.Tensor | None = None  # delay lanes (not ported)
-    pend_key: torch.Tensor | None = None
-    pend_recv: torch.Tensor | None = None
+    # The in-flight claim lanes for per-link delay: a message delayed by d
+    # at tick t parks its [W] claim list in slot ``(t + d) % D``, lane
+    # ``2 * (d - 1) + kind`` (kind 0: the phase-3 ping payload, 1: the
+    # phase-4 ack payload), at its sender's row, with its receiver in
+    # ``pend_recv`` (n = none).  Slot ``tick % D`` matures at the start
+    # of the tick.  Presence widens the key split to six.
+    pend_subj: torch.Tensor | None = None  # int32[D, 2(D-1), N, W]
+    pend_key: torch.Tensor | None = None  # int32[D, 2(D-1), N, W]
+    pend_recv: torch.Tensor | None = None  # int32[D, 2(D-1), N]
 
     @property
     def n(self) -> int:
         return self.base_key.shape[-1]
+
+    @property
+    def delay_depth(self) -> int:
+        return 0 if self.pend_subj is None else self.pend_subj.shape[0]
 
     @property
     def capacity(self) -> int:
@@ -190,12 +204,6 @@ def _i8(v: int, device: torch.device) -> torch.Tensor:
     return torch.full((), v, dtype=torch.int8, device=device)
 
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values reduced to the int32 two's-complement range (the
-    wraparound of the reference's int32 arithmetic)."""
-    return ((x + (1 << 31)) & _M32) - (1 << 31)
-
-
 def _base_rank_structs(
     base_key: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -254,6 +262,69 @@ def init_delta(
         overflow_drops=torch.zeros((), dtype=torch.int32, device=dev),
     )
     return refresh_carried(st)
+
+
+def install_pending(state: DeltaState, depth: int, wire_cap: int) -> DeltaState:
+    """Install the in-flight claim lanes of ring depth ``depth``
+    (``faults.delay_depth``), each ``min(wire_cap, capacity)`` claims
+    wide.  It must happen before the first delayed tick: the lanes'
+    presence widens the per-tick key split."""
+    if depth < 2:
+        raise ValueError(f"delay depth must be >= 2 (got {depth})")
+    if state.pend_subj is not None:
+        if state.pend_subj.shape[0] != depth:
+            raise ValueError(
+                f"in-flight lanes of depth {state.pend_subj.shape[0]} are "
+                f"already installed (wanted {depth})"
+            )
+        return state
+    n, dev = state.n, state.device
+    w_eff = min(int(wire_cap), state.capacity)
+    lanes = 2 * (depth - 1)
+    return state._replace(
+        pend_subj=torch.full((depth, lanes, n, w_eff), SENTINEL, dtype=torch.int32, device=dev),
+        pend_key=torch.zeros((depth, lanes, n, w_eff), dtype=torch.int32, device=dev),
+        pend_recv=torch.full((depth, lanes, n), n, dtype=torch.int32, device=dev),
+    )
+
+
+def _pend_write(
+    st: DeltaState,
+    kind: int,
+    d: torch.Tensor,  # int32[N] per-sender delay (0 = in-tick, not parked)
+    dly: torch.Tensor,  # bool[N] the sender's message is delayed
+    subj_rows: torch.Tensor,  # int32[N, W] claim subjects (SENTINEL pad)
+    key_rows: torch.Tensor,  # int32[N, W]
+    valid_rows: torch.Tensor,  # bool[N, W]
+    recv: torch.Tensor,  # int32[N] receiver per sender row
+) -> DeltaState:
+    """Park one phase's delayed claim rows in their (slot, lane, sender)
+    cells, in place in the lanes the step owns (``_mature_lanes``
+    copied them).  Within one maturity window each writing tick has its
+    own d for a slot, so the cells never collide.
+
+    The reference aims the rows that are not delayed at slot D and drops
+    them; here every row writes the cell it names (slot D clamped to
+    D - 1), and a row that is not delayed writes back the cell's own
+    values, read first: the rows name distinct cells (one a sender), so
+    nothing else changes."""
+    n = st.n
+    dd, lanes = st.pend_subj.shape[0], st.pend_subj.shape[1]
+    ids = _ids(n, st.device).long()
+    slot = torch.where(dly, (st.tick + d) % dd, dd - 1).long()
+    lane = torch.clamp(2 * (d - 1) + kind, 0, lanes - 1).long()
+    keep = valid_rows & dly[:, None]
+    cell = (slot, lane, ids)
+    put = dly[:, None]
+    st.pend_subj.index_put_(
+        cell, torch.where(put, torch.where(keep, subj_rows, SENTINEL), st.pend_subj[cell])
+    )
+    st.pend_key.index_put_(
+        cell, torch.where(put, torch.where(keep, key_rows, 0), st.pend_key[cell])
+    )
+    recv_v = torch.where(keep.any(dim=1), recv, n)
+    st.pend_recv.index_put_(cell, torch.where(dly, recv_v, st.pend_recv[cell]))
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +609,7 @@ def _selection(
     dev = state.device
     ids = _ids(n, dev)
     k = sw.ping_req_size
+    per = torch.clamp(net.period, min=1) if net.period is not None else None
 
     own_status = stats.own_key & 7
     gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
@@ -592,8 +664,10 @@ def _selection(
         # int32 arithmetic as in the reference: ids * mult wraps, then a
         # floored modulo
         start = _wrap_i32(ids.to(torch.int64) * mult) % n
-        _sweep_divisor(sw.phase_mod, net.period)
-        swept = ((start + state.tick.to(torch.int64)) % n).to(torch.int32)
+        # with staggered periods the sweep advances once per period
+        div = _sweep_divisor(sw.phase_mod, per)
+        tick = state.tick.to(torch.int64)
+        swept = ((start + (tick if div is None else tick // div)) % n).to(torch.int32)
         sst = view_lookup(state, swept) & 7
         ok = ((sst == ALIVE) | (sst == SUSPECT)) & (swept != ids)
         target = torch.where(ok, swept, target)
@@ -602,7 +676,7 @@ def _selection(
     elif sw.probe != "uniform":
         raise ValueError(f"unknown probe policy: {sw.probe!r}")
 
-    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, sw.phase_mod, net.period)
+    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, sw.phase_mod, per)
     t_safe = torch.where(sends, target, 0)
     return _Select(gossiping, sends, t_safe, wit, wit_valid)
 
@@ -901,18 +975,23 @@ def _check_supported(
             "relay_full_sync is the dense-step fidelity experiment; the delta "
             "relay carries changes only"
         )
-    if state.pend_subj is not None or state.pend_key is not None or state.pend_recv is not None:
-        raise NotImplementedError("the delay lanes (DeltaState.pend_*) are not ported yet")
-    for name in ("link_src", "link_dst", "link_p", "link_d", "link_j"):
-        if getattr(net, name) is not None:
-            raise NotImplementedError(f"NetState.{name} (link rules, delay) is not ported yet")
+    if net.link_d is not None and state.pend_subj is None:
+        raise ValueError(
+            "per-link delay needs the in-flight claim lanes "
+            "(DeltaState.pend_*): install them from tick 0 via "
+            "SimCluster.enable_delay / swim_delta.install_pending"
+        )
+    if net.period is not None and sw.phase_mod != 1:
+        raise ValueError(
+            "per-node periods (NetState.period) do not compose with the "
+            "static phase_mod stagger: a row of P subsumes phase_mod=P"
+        )
     if knobs is not None:
         raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
     if upto != 7:
         raise NotImplementedError("upto < 7 (truncated profiling steps) is not ported yet")
-    _sweep_divisor(sw.phase_mod, net.period)
 
 
 def delta_step_impl(
@@ -939,7 +1018,18 @@ def delta_step_impl(
     sl_start = _validate_params(n, sw)
     loss = float(sw.loss)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
+    has_delay = state.pend_subj is not None
+    if has_delay:
+        # the lanes' presence (not rule activity) widens the split: two
+        # more streams draw the per-message jitter
+        k_sel, k_loss1, k_loss2, k_loss3, k_j1, k_j2 = prng.split(key, 6)
+    else:
+        k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
+
+    # -- in-flight claims mature at the start of the tick ---------------------
+    mat_applied, mat_late = zero, zero
+    if has_delay:
+        state, mat_applied, mat_late = _mature_lanes(state, net, params, sl_start)
 
     # -- phases 0-1 -----------------------------------------------------------
     stats = _phase0_stats(state)
@@ -971,14 +1061,32 @@ def delta_step_impl(
         & ~_drop_net(k_loss1, (n,), loss, net, ids, t_safe)
         & resp[t_safe.long()]
     )
+    # the delivered set (anti-echo reference): a delayed claim counts too
     sent_valid = (send_subj < SENTINEL) & fwd_ok[:, None]
-    ping_applied, claims_dropped = zero, zero
-    if bool(sent_valid.any()):
+    delayed_claims = zero
+    if has_delay:
+        # the ping lands in-tick; the claims of a delayed link park in the
+        # lanes.  The reference parks under lax.cond(any delayed claim);
+        # with none, every row the write touches is either not delayed
+        # (written back unchanged) or delayed with no claims, which writes
+        # an empty list into a cell that is already empty (it was last
+        # written D ticks ago and cleared when it matured), so it runs
+        # every tick, without a host sync.
+        d3 = _message_delay(net, k_j1, ids, t_safe, (n,))
+        dly3 = fwd_ok & (d3 > 0)
+        sent_merge = (send_subj < SENTINEL) & (fwd_ok & ~dly3)[:, None]
+        delayed_claims = (sent_valid & dly3[:, None]).sum(dtype=torch.int32)
+        state = _pend_write(state, 0, d3, dly3, send_subj, send_key, sent_valid, t_safe)
+    else:
+        sent_merge = sent_valid
+    ping_applied, claims_dropped = zero, mat_late
+    if bool(sent_merge.any()):
         g_subj, g_key, g_valid, late = _route_claims(
-            n, send_subj, send_key, sent_valid, t_safe, params.claim_grid
+            n, send_subj, send_key, sent_merge, t_safe, params.claim_grid
         )
         out = _merge_claims(state, g_subj, g_key, g_valid, sl_start)
-        state, ping_applied, claims_dropped = out.state, out.applied_points, late
+        state, ping_applied = out.state, out.applied_points
+        claims_dropped = late + mat_late
 
     # -- phase 4: receiver replies; sender merges the ack ---------------------
     has_change2 = state.d_pb >= 0
@@ -1020,7 +1128,16 @@ def delta_step_impl(
     rep_any = a_raw.any(dim=1)
     full_sync = fwd_ok & ~rep_any & (_rows(h_post, t_safe) != h_pre)
     fs_apply = full_sync & ack
-    a_valid = a_raw & ack[:, None]
+    if has_delay:
+        # the reply claims ride the receiver->sender link and park at the
+        # sender's row; the ack, and a full sync's flip, land in-tick
+        d4 = _message_delay(net, k_j2, t_safe, ids, (n,))
+        dly4 = ack & (d4 > 0)
+        a_valid = a_raw & (ack & ~dly4)[:, None]
+        delayed_claims = delayed_claims + (a_raw & dly4[:, None]).sum(dtype=torch.int32)
+        state = _pend_write(state, 1, d4, dly4, a_subj, a_key, a_raw, ids)
+    else:
+        a_valid = a_raw & ack[:, None]
     any_fs = bool(fs_apply.any())
     ack_applied = zero
     if any_fs:
@@ -1120,7 +1237,46 @@ def delta_step_impl(
         "overflow_drops": state.overflow_drops,
         "max_occupancy": (state.d_subj < SENTINEL).sum(dim=1, dtype=torch.int32).max(),
     }
+    if has_delay:
+        metrics["delayed_claims"] = delayed_claims
+        metrics["matured_applied"] = mat_applied
     return state, metrics
+
+
+@_scoped("delta.mature")
+def _mature_lanes(
+    state: DeltaState, net: NetState, params: DeltaParams, sl_start: int
+) -> tuple[DeltaState, torch.Tensor, torch.Tensor]:
+    """Slot ``tick % D`` of the lanes lands: its 2(D - 1) lanes route to
+    their receivers together (``_route_claims_multi``) and merge through
+    ``_merge_claims``, at up and responsive receivers only; then the slot
+    is cleared in a copy of the lanes that this step owns and writes in
+    place from here on.  The merge runs under one host sync (the
+    reference's ``lax.cond``): routing ten empty lanes at n = 65 536
+    costs more than the sync.  Returns (state, applied, late claims)."""
+    n = state.n
+    zero = torch.zeros((), dtype=torch.int32, device=state.device)
+    slot0 = (state.tick % state.pend_subj.shape[0]).long().view(1)
+    m_subj = state.pend_subj.index_select(0, slot0)[0]  # [L, N, W]
+    applied, late = zero, zero
+    if bool((m_subj < SENTINEL).any()):
+        m_key = state.pend_key.index_select(0, slot0)[0]
+        m_recv = state.pend_recv.index_select(0, slot0)[0]  # [L, N]
+        can_recv = net.up & net.responsive
+        segs = []
+        for lane in range(m_subj.shape[0]):
+            recv_l = m_recv[lane]
+            recv_c = torch.clamp(recv_l, 0, n - 1)
+            ok = (recv_l < n) & can_recv[recv_c.long()]
+            valid = (m_subj[lane] < SENTINEL) & ok[:, None]
+            segs.append((m_subj[lane], m_key[lane], valid, recv_c))
+        g_subj, g_key, g_valid, late = _route_claims_multi(n, segs, params.claim_grid)
+        out = _merge_claims(state, g_subj, g_key, g_valid, sl_start)
+        state, applied = out.state, out.applied_points
+    pend = [state.pend_subj.clone(), state.pend_key.clone(), state.pend_recv.clone()]
+    for plane, empty in zip(pend, (SENTINEL, 0, n)):
+        plane.index_fill_(0, slot0, empty)
+    return state._replace(pend_subj=pend[0], pend_key=pend[1], pend_recv=pend[2]), applied, late
 
 
 @_scoped("delta.fs_absorb")

@@ -20,11 +20,17 @@ kernel of ``ops/recv_merge.py`` on the card.  Under a gossip ring
 (``parallel/mesh.py``'s sharded entry points) the cross-row seams
 ``_receiver_merge``, ``_gather_rows``, ``_row_at``, ``_diag`` and
 ``_row_update`` run as the ring primitives of
-``ops/gossip_remote_copy.py``, as the reference's do.  Arms of the reference
-that are not ported yet raise ``NotImplementedError``: ``sparse_cap``,
-traced knobs, ``prov``, the delay buffer, damping, link rules and
-per-node periods, ``relay_full_sync``, ``phase_mod > 1`` and
-n > 32768 (the block-prefix selection).
+``ops/gossip_remote_copy.py``, as the reference's do.
+
+The fault-model arms are ported: directed link rules
+(``NetState.link_*``: extra drop probability, per-link delay and
+jitter), per-node protocol periods (``NetState.period``) and the static
+``phase_mod`` stagger, and the in-flight claim buffer
+(``ClusterState.pending``) that carries delayed claims across ticks.
+Arms of the reference that are not ported yet raise
+``NotImplementedError``: ``sparse_cap``, traced knobs, ``prov``,
+damping, ``relay_full_sync`` and n > 32768 (the block-prefix
+selection).
 """
 
 from __future__ import annotations
@@ -101,7 +107,12 @@ class ClusterState(NamedTuple):
     tick: torch.Tensor  # int32[]
     damp: torch.Tensor | None = None  # float16[N, N] (not ported)
     damped: torch.Tensor | None = None  # bool[N, N] (not ported)
-    pending: torch.Tensor | None = None  # int32[D, N, N] (not ported)
+    # The in-flight claim buffer for per-link delay: slot ``tick % D``
+    # matures at the start of tick ``tick``; a claim row delayed by d
+    # folds (lattice max) into slot ``(tick + d) % D`` at its receiver.
+    # Its presence widens the per-tick key split to six; kill and revive
+    # leave it alone (messages in flight still land).
+    pending: torch.Tensor | None = None  # int32[D, N, N]
 
     @property
     def n(self) -> int:
@@ -122,20 +133,29 @@ class NetState(NamedTuple):
     """The simulated network.  ``up``: the process exists; ``responsive``:
     it is scheduled (SIGSTOP analog); ``adj``: None (fully connected), a
     bool[N, N] mask, or an int32[N] group-id vector (connected iff same
-    group).  The link-rule and period fields are not ported yet."""
+    group).
+
+    The fault model (all None unless installed): K directed link rules,
+    a message from s to r being governed by every rule k with
+    ``link_src[k, s] & link_dst[k, r]`` (extra drop probabilities
+    compose as ``1 - prod(1 - link_p[k])``; delays take the maxima of
+    ``link_d`` and of ``link_j`` over the hit rules, and act only with
+    ``ClusterState.pending`` installed); ``period``, each node's
+    protocol period (it initiates a probe once per ``period[i]`` ticks);
+    ``ov_cnt``/``ov_gray``, the overload feedback state a scenario
+    carries, which the step never reads."""
 
     up: torch.Tensor  # bool[N]
     responsive: torch.Tensor  # bool[N]
     adj: torch.Tensor | None = None
-    link_src: torch.Tensor | None = None
-    link_dst: torch.Tensor | None = None
-    link_p: torch.Tensor | None = None
-    link_d: torch.Tensor | None = None
-    link_j: torch.Tensor | None = None
-    period: torch.Tensor | None = None
-
-
-_UNPORTED_NET = ("link_src", "link_dst", "link_p", "link_d", "link_j", "period")
+    link_src: torch.Tensor | None = None  # bool[K, N]
+    link_dst: torch.Tensor | None = None  # bool[K, N]
+    link_p: torch.Tensor | None = None  # float32[K]
+    link_d: torch.Tensor | None = None  # int32[K]
+    link_j: torch.Tensor | None = None  # int32[K]
+    period: torch.Tensor | None = None  # int32[N] (int16 in a scenario's carry)
+    ov_cnt: torch.Tensor | None = None  # int32[N]
+    ov_gray: torch.Tensor | None = None  # bool[N]
 
 
 def make_net(
@@ -302,24 +322,74 @@ def _drop(key: torch.Tensor, shape: tuple, loss: float, device: torch.device) ->
     return u < torch.full((), loss, dtype=torch.float32, device=device)
 
 
+def _link_hit_p(net: NetState, rows, cols) -> torch.Tensor:
+    """float32 extra drop probability of the link rules at gathered
+    (sender, receiver) index pairs: ``1 - prod_k(1 - p_k)`` over the
+    rules hit.  The product runs in rule order, one float32 multiply a
+    rule, so that every device rounds it alike."""
+    hit = net.link_src[:, rows.long()] & net.link_dst[:, cols.long()]  # [K, *shape]
+    one = torch.ones((), dtype=torch.float32, device=hit.device)
+    keep = torch.ones(hit.shape[1:], dtype=torch.float32, device=hit.device)
+    for k in range(hit.shape[0]):
+        keep = keep * torch.where(hit[k], one - net.link_p[k], one)
+    return one - keep
+
+
 def _drop_net(
     key: torch.Tensor, shape: tuple, loss: float, net: NetState, rows, cols
 ) -> torch.Tensor:
-    """``_drop`` composed with the per-link rules; with no rules
-    installed (the only form ported) it is ``_drop``, the same draw."""
-    if net.link_src is not None:
-        raise NotImplementedError("NetState link rules are not ported yet")
-    return _drop(key, shape, loss, rows.device)
+    """``_drop`` composed with the link rules: one uniform draw per
+    message against ``loss + (1 - loss) * p_link``.  With no rules it is
+    ``_drop``, the same draw; with rules it always draws."""
+    dev = rows.device
+    if net.link_src is None:
+        return _drop(key, shape, loss, dev)
+    lp = _link_hit_p(net, rows, cols)
+    base = torch.full((), loss, dtype=torch.float32, device=dev)
+    # separate float32 ops, no fused multiply-add: the threshold rounds
+    # as the reference's does
+    thr = base + (1.0 - base) * lp
+    return prng.uniform(key, shape, device=dev) < thr
 
 
-def _sweep_divisor(phase_mod: int, per: torch.Tensor | None) -> None:
-    """Per-node sweep-advance divisor for staggered protocol periods; the
-    lockstep form (``phase_mod == 1``, no period tensor) has none, and is
-    the only form ported."""
+def _link_delay_bounds(net: NetState, rows, cols) -> tuple[torch.Tensor, torch.Tensor]:
+    """(base, jitter bound) int32 per message: the maxima over the rules
+    hitting the pair (a rule out of its window has d = j = 0)."""
+    shape = torch.broadcast_shapes(rows.shape, cols.shape)
+    if net.link_d is None:
+        z = torch.zeros(shape, dtype=torch.int32, device=rows.device)
+        return z, z
+    hit = net.link_src[:, rows.long()] & net.link_dst[:, cols.long()]
+    lift = (-1,) + (1,) * (hit.dim() - 1)
+    base = torch.where(hit, net.link_d.view(lift), 0).amax(dim=0)
+    bound = torch.where(hit, net.link_j.view(lift), 0).amax(dim=0)
+    return base.to(torch.int32), bound.to(torch.int32)
+
+
+def _message_delay(net: NetState, key: torch.Tensor, rows, cols, shape: tuple) -> torch.Tensor:
+    """int32 latency per message: the rule base plus a uniform draw in
+    {0..jitter}; one draw per message whatever the rules' activity."""
+    base, bound = _link_delay_bounds(net, rows, cols)
+    u = prng.uniform(key, shape, device=rows.device)
+    extra = torch.minimum((u * (bound + 1).to(torch.float32)).to(torch.int32), bound)
+    return base + extra
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to the int32 two's-complement range (the
+    wraparound of the reference's int32 arithmetic)."""
+    return ((x + (1 << 31)) & _M32) - (1 << 31)
+
+
+def _sweep_divisor(phase_mod: int, per: torch.Tensor | None) -> torch.Tensor | int | None:
+    """Per-node sweep-advance divisor for staggered protocol periods:
+    the period row where one is installed, else ``phase_mod`` when it
+    is above 1, else None (the lockstep form).  Both backends share it,
+    so a row of P reproduces ``phase_mod = P`` on each."""
     if per is not None:
-        raise NotImplementedError("NetState.period (per-node periods) is not ported yet")
-    if not isinstance(phase_mod, int) or phase_mod > 1:
-        raise NotImplementedError("phase_mod > 1 (staggered periods) is not ported yet")
+        return per
+    if phase_mod > 1:
+        return int(phase_mod)
     return None
 
 
@@ -327,10 +397,15 @@ def _stagger_send_gate(
     sends: torch.Tensor, tick: torch.Tensor, n: int, phase_mod: int,
     per: torch.Tensor | None,
 ) -> torch.Tensor:
-    """Probe-initiation gate for staggered periods: in the lockstep form
-    every node initiates every tick, so ``sends`` passes unchanged."""
-    _sweep_divisor(phase_mod, per)
-    return sends
+    """Probe-initiation gate for staggered periods: node i initiates only
+    on ticks with ``tick mod div == (i * 0x9E37) mod div``, the product
+    wrapping in int32 as the reference's does (from i = 53 022 on)."""
+    div = _sweep_divisor(phase_mod, per)
+    if div is None:
+        return sends
+    ids = torch.arange(n, dtype=torch.int64, device=sends.device)
+    phase = _wrap_i32(ids * 0x9E37) % div  # floored, as in the reference
+    return sends & (tick % div == phase)
 
 
 def _adj(net: NetState, rows, cols) -> torch.Tensor | bool:
@@ -498,17 +573,10 @@ def _check_supported(
         raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
-    if state.pending is not None:
-        raise NotImplementedError("the delay buffer (ClusterState.pending) is not ported yet")
     if state.damp is not None or state.damped is not None:
         raise NotImplementedError("damping tensors are not ported yet")
-    for name in _UNPORTED_NET:
-        if getattr(net, name) is not None:
-            raise NotImplementedError(f"NetState.{name} is not ported yet")
     if params.relay_full_sync:
         raise NotImplementedError("relay_full_sync=True is not ported yet")
-    if params.phase_mod > 1:
-        raise NotImplementedError("phase_mod > 1 (staggered periods) is not ported yet")
     if state.n - 1 > _SPARSE_SMALL_N:
         raise NotImplementedError(
             f"n={state.n}: the block-prefix selection for n > "
@@ -533,6 +601,13 @@ def _phase01_select(
     h_pre = _view_hash(state.view_key)
     own_status = _diag(status)
     gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
+    if net.period is not None and params.phase_mod > 1:
+        raise ValueError(
+            "per-node periods (NetState.period, the gray-failure model) "
+            "do not compose with the static phase_mod stagger: a row of "
+            "P in the period tensor subsumes phase_mod=P exactly"
+        )
+    per = torch.clamp(net.period, min=1) if net.period is not None else None
     target, has_target, wit, wit_valid = _choose_targets_and_witnesses(
         pingable, params.ping_req_size, k_sel
     )
@@ -542,12 +617,14 @@ def _phase01_select(
         while math.gcd(mult, n) != 1:
             mult += 1
         start = (_ids(n, dev) * mult) % n
-        swept = (start + state.tick.to(torch.int64)) % n
+        # with staggered periods the sweep advances once per period
+        div = _sweep_divisor(params.phase_mod, per)
+        swept = (start + state.tick.to(torch.int64) // (1 if div is None else div)) % n
         ok = _row_at(pingable, swept)
         target = torch.where(ok, swept, target)
         has_target = has_target | ok
         wit_valid = wit_valid & (wit != target[:, None])
-    sends = gossiping & has_target
+    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, params.phase_mod, per)
     t_safe = torch.where(sends, target, 0)
     return _Selection(
         gossiping, sends, t_safe, wit, wit_valid, maxpb.to(torch.int8)[:, None], h_pre
@@ -802,10 +879,22 @@ def swim_step_impl(
     _check_supported(state, net, params, knobs, prov)
     n = state.n
     dev = state.view_key.device
-    k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
+    has_delay = state.pending is not None
+    if has_delay:
+        # the buffer's presence (not rule activity) widens the split: two
+        # more streams draw the per-message jitter
+        k_sel, k_loss1, k_loss2, k_loss3, k_j1, k_j2 = prng.split(key, 6)
+    else:
+        k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
     ids = _ids(n, dev)
     sl_start = _validate_params(n, params)
     loss = float(params.loss)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # -- in-flight claims mature at the start of the tick
+    mat_applied = zero
+    if has_delay:
+        state, mat_applied = _mature(state, net, sl_start)
 
     # -- phases 0-1: derived views + probe/witness selection
     sel = _phase01_select(state, net, k_sel, params)
@@ -828,9 +917,22 @@ def swim_step_impl(
         & resp[t_safe]
     )
     delivered = issued_s & fwd_ok[:, None]
-    in_key, inbound = _receiver_merge(
-        t_safe, fwd_ok, torch.where(delivered, state.view_key, 0)
-    )
+    if has_delay:
+        # the ping itself lands in-tick (inbound counts every delivered
+        # ping); the claims of a delayed link park in the buffer
+        d3 = _message_delay(net, k_j1, ids, t_safe, (n,))
+        dly3 = fwd_ok & (d3 > 0)
+        imm3 = fwd_ok & ~dly3
+        in_key, _ = _receiver_merge(
+            t_safe, imm3, torch.where(issued_s & imm3[:, None], state.view_key, 0)
+        )
+        inbound = _inbound_counts(t_safe, fwd_ok)
+        _park(state.pending, state.tick, d3, dly3, t_safe,
+              torch.where(issued_s & dly3[:, None], state.view_key, 0))
+    else:
+        in_key, inbound = _receiver_merge(
+            t_safe, fwd_ok, torch.where(delivered, state.view_key, 0)
+        )
     got_ping = inbound > 0
     merged = _merge_incoming(state, in_key, got_ping, sl_start)
     state = merged.state
@@ -860,7 +962,16 @@ def swim_step_impl(
     )
     in2_key = torch.where(send_row & ack[:, None], reply_key, 0)
     del reply_key, rep_row, send_row
-    merged2 = _merge_incoming(state, in2_key, ack, sl_start)
+    if has_delay:
+        # the reply claims ride the receiver->sender link; the ack itself
+        # lands in-tick
+        d4 = _message_delay(net, k_j2, t_safe, ids, (n,))
+        dly4 = ack & (d4 > 0)
+        imm4 = ack & ~dly4
+        merged2 = _merge_incoming(state, torch.where(imm4[:, None], in2_key, 0), imm4, sl_start)
+        _park(state.pending, state.tick, d4, dly4, ids, torch.where(dly4[:, None], in2_key, 0))
+    else:
+        merged2 = _merge_incoming(state, in2_key, ack, sl_start)
     state = merged2.state
     ack_applied = merged2.applied.sum(dtype=torch.int32)
     del in2_key, merged, merged2
@@ -873,7 +984,6 @@ def swim_step_impl(
     state, expired = _phase6_expiry(state, gossiping)
 
     state = state._replace(tick=state.tick + 1)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     metrics = {
         "pings_sent": sends.sum(dtype=torch.int32),
         "acks": ack.sum(dtype=torch.int32),
@@ -887,7 +997,47 @@ def swim_step_impl(
         "damped_pairs": zero,
         "relay_full_syncs": zero,
     }
+    if has_delay:
+        metrics["delayed_claims"] = dly3.sum(dtype=torch.int32) + dly4.sum(dtype=torch.int32)
+        metrics["matured_applied"] = mat_applied
     return state, metrics
+
+
+@_scoped("swim.mature")
+def _mature(state: ClusterState, net: NetState, sl_start: int) -> tuple[ClusterState, torch.Tensor]:
+    """Slot ``tick % D`` of the in-flight buffer lands at every up and
+    responsive receiver, and is cleared (a stopped receiver's claims are
+    lost).  Returns the state, with a buffer this step owns and writes
+    in place from here on, and the applied count.
+
+    The reference merges under ``lax.cond(any(slot > 0))``; here the
+    merge runs every tick: a slot of zeros is no claim anywhere, so the
+    merge then changes nothing and applies 0, without a host sync."""
+    slot0 = (state.tick % state.pending.shape[0]).long().view(1)
+    mature = state.pending.index_select(0, slot0)[0]
+    pending = state.pending.clone()
+    pending.index_fill_(0, slot0, 0)
+    merged = _merge_incoming(state, mature, net.up & net.responsive, sl_start)
+    return merged.state._replace(pending=pending), merged.applied.sum(dtype=torch.int32)
+
+
+def _park(
+    pending: torch.Tensor,
+    tick: torch.Tensor,
+    d: torch.Tensor,  # int32[N] per-sender delay
+    dly: torch.Tensor,  # bool[N] the sender's message is delayed
+    recv: torch.Tensor,  # [N] receiver per sender row
+    rows: torch.Tensor,  # int32[N, N] claim rows, zero where not delayed
+) -> None:
+    """Fold delayed claim rows into slot ``(tick + d) % D`` at their
+    receiver by the lattice max, in place.  The reference aims the rows
+    that are not delayed at slot D and drops them; here they are aimed at
+    slot D - 1, which is harmless: those rows are all zero and every
+    buffered key is >= 0, so their max changes nothing."""
+    dd, n = pending.shape[0], pending.shape[1]
+    slot = torch.where(dly, (tick + d) % dd, dd - 1).long()
+    idx = (slot * n + recv.long())[:, None].expand(-1, n)
+    pending.view(dd * n, n).scatter_reduce_(0, idx, rows, "amax")
 
 
 def swim_run_impl(

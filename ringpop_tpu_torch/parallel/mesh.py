@@ -138,6 +138,8 @@ NET_FIELD_SPECS: dict[str, str] = {
     "link_d": _REP,
     "link_j": _REP,
     "period": _REP,
+    "ov_cnt": _REP,
+    "ov_gray": _REP,
 }
 
 DELTA_FIELD_SPECS: dict[str, str] = {

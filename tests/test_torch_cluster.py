@@ -110,8 +110,8 @@ def test_unported_backends_raise():
     from ringpop_tpu_torch.models.cluster import SimCluster
 
     delta = SimCluster(8, backend="delta", capacity=4, device="cpu")  # ported
-    with pytest.raises(NotImplementedError):
-        delta.enable_delay(3)
+    delta.enable_delay(3)  # the in-flight lanes are ported too
+    assert tuple(delta.state.pend_subj.shape) == (3, 4, 8, 4)
     with pytest.raises(NotImplementedError):
         SimCluster(8, damping=True, device="cpu")
     with pytest.raises(ValueError):

@@ -140,13 +140,21 @@ def test_step_runs_on_small_state():
     "pend", "link_d", "knobs", "prov", "upto", "slot_base", "period", "phase_mod",
 ])
 def test_unported_arms_raise(arm):
+    """The arms still to port raise NotImplementedError.  The fault-model
+    arms are ported: the in-flight lanes, a period row and ``phase_mod``
+    step; a delay rule without lanes raises the reference's ValueError."""
     tdelta, tsim, state, net, key, params = _small()
     kwargs = {}
     n = state.n
+    runs = False
     if arm == "pend":
-        state = state._replace(pend_subj=torch.zeros((2, 2, n, 4), dtype=torch.int32))
+        state = tdelta.install_pending(state, 2, params.wire_cap)
+        runs = True
     elif arm == "link_d":
         net = net._replace(link_d=torch.zeros(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match="in-flight claim lanes"):
+            tdelta.delta_step_impl(state, net, key, params)
+        return
     elif arm == "knobs":
         kwargs["knobs"] = object()
     elif arm == "prov":
@@ -157,9 +165,15 @@ def test_unported_arms_raise(arm):
         state = state._replace(d_bpmask=torch.zeros((n, 1), dtype=torch.int64),
                                d_bprank=torch.zeros((n, 4), dtype=torch.int32))
     elif arm == "period":
-        net = net._replace(period=torch.ones(n, dtype=torch.int32))
+        net = net._replace(period=torch.full((n,), 2, dtype=torch.int32))
+        runs = True
     elif arm == "phase_mod":
         params = params._replace(swim=params.swim._replace(phase_mod=2))
+        runs = True
+    if runs:
+        _, m = tdelta.delta_step_impl(state, net, key, params, **kwargs)
+        assert 0 < int(m["pings_sent"]) <= n
+        return
     with pytest.raises(NotImplementedError):
         tdelta.delta_step_impl(state, net, key, params, **kwargs)
 
@@ -173,8 +187,8 @@ def test_unported_arms_raise_outside_the_step():
     with pytest.raises(NotImplementedError):
         tdelta.refresh_carried(carried)
     c = SimCluster(8, backend="delta", capacity=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        c.enable_delay(3)
+    c.enable_delay(3)  # the in-flight lanes are ported
+    assert c.state.delay_depth == 3
     with pytest.raises(NotImplementedError):  # partial groupings need the dense mask
         c.partition([[0, 1], [2, 3]])
 

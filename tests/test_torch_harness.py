@@ -21,7 +21,14 @@ caps under ``"caps"`` (``capacity``, ``wire_cap``, ``claim_grid``);
 each op is ``["tick", k]`` or a ``SimCluster`` method name with its
 arguments (``["kill", 3]``, ``["partition", [[0, 1], [2]]]``,
 ``["heal_partition"]``, ``["rebase", True]``, ...), the same on both
-sides.  A case with ``"lookups": {"keys": [...], "viewers": [...]}``
+sides; ``["run_host_loop", spec_dict]`` runs a scenario through each
+side's ``scenarios.runner.run_host_loop``, every segment it ticks
+recorded as a tick op; ``["try", op...]`` runs an op and records the
+exception it raises as ``"Type: message"`` under ``{name}/try{i}`` (i
+the op's index; "" for none).  Before every tick the net's fault
+fields (``NET_FAULT_FIELDS``) and the loss are recorded
+(``{name}/net{t}/{field}``, ``{name}/loss{t}``).  A case with
+``"lookups": {"keys": [...], "viewers": [...]}``
 also records, after its ops, the global ``traffic_ring()`` tables
 (``{name}/traffic/hashes``, ``/owners``), and per viewer v the host
 ring ``ring_for(v)`` (``{name}/ring{v}/hash``, ``/server``,
@@ -51,14 +58,22 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STATE_FIELDS = ("view_key", "pb", "suspect_left", "tick")
+# the fields a cluster case compares: with the in-flight buffer, which is
+# None unless a case installs it
+CLUSTER_FIELDS = STATE_FIELDS + ("pending",)
 DELTA_FIELDS = (
     "base_key", "bp_mask", "bp_rank", "bp_list", "d_subj", "d_key", "d_pb", "d_sl",
     "tick", "overflow_drops", "side", "merge_to", "digest",
+    "pend_subj", "pend_key", "pend_recv",
+)
+# NetState's fault-model fields, recorded before every tick op
+NET_FAULT_FIELDS = (
+    "link_src", "link_dst", "link_p", "link_d", "link_j", "period", "ov_cnt", "ov_gray",
 )
 
 
 def case_fields(case: dict) -> tuple[str, ...]:
-    return DELTA_FIELDS if case.get("backend") == "delta" else STATE_FIELDS
+    return DELTA_FIELDS if case.get("backend") == "delta" else CLUSTER_FIELDS
 
 
 # The two runtime patches for jax 0.9, applied only in child processes.
@@ -90,26 +105,51 @@ for case in cases:
         snaps.append({f: getattr(c.state, f) for f in fields})
     snap()
     t = 0
-    for op in case["ops"]:
-        if op[0] != "tick":
-            getattr(c, op[0])(*op[1:])
-            continue
+    real_tick = c.tick
+    def tick(k=1):
+        global t
         for f in fields:
             if getattr(c.state, f) is not None:
                 out[f"{name}/pre{t}/{f}"] = np.asarray(getattr(c.state, f))
         out[f"{name}/key{t}"] = np.asarray(c.key)
+        out[f"{name}/k{t}"] = np.array(k)
+        out[f"{name}/loss{t}"] = np.array(c.params.loss)
         out[f"{name}/up{t}"] = np.asarray(c.net.up)
         out[f"{name}/responsive{t}"] = np.asarray(c.net.responsive)
         if c.net.adj is not None:
             out[f"{name}/adj{t}"] = np.asarray(c.net.adj)
-        for k, v in c.tick(op[1]).items():
-            out[f"{name}/m{t}/{k}"] = np.asarray(v)
+        for f in case["net_fields"]:
+            if getattr(c.net, f) is not None:
+                out[f"{name}/net{t}/{f}"] = np.asarray(getattr(c.net, f))
+        m = real_tick(k)
+        for key, v in m.items():
+            out[f"{name}/m{t}/{key}"] = np.asarray(v)
         snap()
         if case.get("checksums"):
             ck = c.checksums()
             out[f"{name}/ck{t}_addr"] = np.array(list(ck), dtype=object).astype(str)
             out[f"{name}/ck{t}_val"] = np.array(list(ck.values()), dtype=np.int64)
         t += 1
+        return m
+    def call(op):
+        if op[0] == "run_host_loop":
+            from ringpop_tpu.scenarios import runner
+            from ringpop_tpu.scenarios.spec import ScenarioSpec
+            runner.run_host_loop(c, ScenarioSpec.from_dict(op[1]))
+        else:
+            getattr(c, op[0])(*op[1:])
+    c.tick = tick
+    for i, op in enumerate(case["ops"]):
+        if op[0] == "tick":
+            tick(op[1])
+        elif op[0] == "try":
+            try:
+                call(op[1:])
+                out[f"{name}/try{i}"] = np.array("")
+            except Exception as e:
+                out[f"{name}/try{i}"] = np.array(f"{type(e).__name__}: {e}")
+        else:
+            call(op)
     look = case.get("lookups")
     if look:
         keys = look["keys"]
@@ -157,12 +197,15 @@ def run_references(
 ) -> dict[str, dict[str, np.ndarray]]:
     """Run ``cases`` through the JAX reference once per entry of
     ``envs`` (name -> extra environment), one child process each, all
-    at once; returns each run's trajectories under its name."""
-    spec = os.path.join(tmp_dir, "cases.json")
-    with open(spec, "w") as f:
-        json.dump([{**c, "fields": list(case_fields(c))} for c in cases], f)
+    at once; returns each run's trajectories under its name.  A case
+    with ``"lowerings": [names]`` runs only in those children."""
     procs = {}
     for name, extra in envs.items():
+        spec = os.path.join(tmp_dir, f"cases-{name}.json")
+        with open(spec, "w") as f:
+            json.dump([{**c, "fields": list(case_fields(c)),
+                        "net_fields": list(NET_FAULT_FIELDS)}
+                       for c in cases if name in c.get("lowerings", envs)], f)
         out = os.path.join(tmp_dir, f"reference-{name}.npz")
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
         procs[name] = (out, subprocess.Popen(
@@ -190,7 +233,8 @@ def run_references(
 # ``ringpop_tpu.ops``, or ``engine`` of ``ringpop_tpu.traffic``) and a
 # function in it, and its arguments, each ``["array", key]`` (an array
 # of the npz handed over), ``["delta_state", {field: key}]`` (a
-# ``DeltaState`` of such arrays) or ``["py", value]``.  A call with
+# ``DeltaState`` of such arrays), ``["net", {field: key}]`` (a
+# ``NetState``), ``["tuple", [...]]`` or ``["py", value]``.  A call with
 # ``"ring": d`` runs jitted inside ``ring_mesh(parallel.make_mesh(d))``
 # (the ring primitives need the context); a call with ``"raises": true``
 # records the name of the exception it raises under ``{name}/raises``.
@@ -215,6 +259,10 @@ def arg(a):
         return jnp.asarray(z[v])
     if kind == "delta_state":
         return swim_delta.DeltaState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
+    if kind == "net":
+        return swim_sim.NetState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
+    if kind == "tuple":
+        return tuple(v)
     return v
 
 out = {}
@@ -250,6 +298,22 @@ for c in calls:
     flat(res, c["name"])
 np.savez_compressed(sys.argv[3], **out)
 """
+
+
+def run_reference_script(code: str, tmp_dir: str) -> object:
+    """Run ``code`` in a child process after the jax 0.9 patches; it
+    writes a JSON value to the path in ``sys.argv[1]``, which is
+    returned."""
+    out = os.path.join(tmp_dir, "script-output.json")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PATCHES + code, out],
+        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"reference script failed:\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        return json.load(f)
 
 
 def flatten_outputs(x, key: str, out: dict) -> dict:
@@ -302,7 +366,11 @@ def run_reference_calls(
 # the state is rebased, ``anti_entropy=True``).  It records the start
 # state and net, the keys, and the state and metrics after every step
 # (``{name}/{t}/...``, ``{name}/m{t}/...``) or after the run
-# (``{name}/run/...``, ``{name}/mrun/...``).  The layout maps of
+# (``{name}/run/...``, ``{name}/mrun/...``).  A case with ``"faults":
+# {"rules": {"src", "dst", "p", "d", "j"}, "depth", "period"}`` installs
+# those link rules and that period row on the net (recorded under
+# ``{name}/net/...``) and the in-flight buffer of that depth in the
+# state before its start is recorded.  The layout maps of
 # ``parallel.mesh`` come back as JSON under ``maps/{NAME}``.
 _SHARDED = _PATCHES + r"""
 import jax
@@ -329,6 +397,20 @@ for case in cases:
     out[f"{name}/up"] = np.array(net.up)
     out[f"{name}/responsive"] = np.array(net.responsive)
     swim = sim.SwimParams(**case.get("params", {}))
+    faults = case.get("faults")
+    if faults:
+        jnp = jax.numpy
+        r = faults["rules"]
+        net = net._replace(
+            link_src=jnp.asarray(np.array(r["src"], bool)),
+            link_dst=jnp.asarray(np.array(r["dst"], bool)),
+            link_p=jnp.asarray(np.array(r["p"], np.float32)),
+            link_d=jnp.asarray(np.array(r["d"], np.int32)),
+            link_j=jnp.asarray(np.array(r["j"], np.int32)),
+            period=jnp.asarray(np.array(faults["period"], np.int32)),
+        )
+        record(f"{name}/net", {f: getattr(net, f) for f in
+                               ("link_src", "link_dst", "link_p", "link_d", "link_j", "period")})
     if case["backend"] == "delta":
         params = sd.DeltaParams(swim=swim, wire_cap=case["caps"]["wire_cap"],
                                 claim_grid=case["caps"]["claim_grid"])
@@ -337,8 +419,11 @@ for case in cases:
             gid = (np.arange(n) >= n // 2).astype(np.int32)
             state = sd.make_sides(state, gid)
             net = net._replace(adj=jax.numpy.asarray(gid))
+        if faults:
+            state = sd.install_pending(state, faults["depth"], case["caps"]["wire_cap"])
         record(f"{name}/init", state._asdict())
-        like = dict(net_like=net, state_like=state) if case.get("sides") else {}
+        like = (dict(net_like=net, state_like=state)
+                if case.get("sides") or faults else {})
         state = parallel.shard_delta(state, mesh)
         build = parallel.sharded_delta_step if case["entry"] == "step" else parallel.sharded_delta_run
         fn = build(mesh, gossip=case.get("gossip"), **like)
@@ -348,10 +433,14 @@ for case in cases:
         if case.get("joins"):
             for j in range(1, n):
                 state = sim.admin_join(state, j, 0)
+        if faults:
+            d = faults["depth"]
+            state = state._replace(pending=jax.numpy.zeros((d, n, n), jax.numpy.int32))
         record(f"{name}/init", state._asdict())
+        like = dict(like=state, net_like=net) if faults else {}
         state, net = parallel.shard_cluster(state, net, mesh)
         build = parallel.sharded_step if case["entry"] == "step" else parallel.sharded_run
-        fn = build(mesh, gossip=case.get("gossip"))
+        fn = build(mesh, gossip=case.get("gossip"), **like)
     key = jax.random.PRNGKey(case["seed"])
     if case["entry"] == "step":
         keys = jax.random.split(key, case["ticks"])
@@ -414,21 +503,49 @@ def port_cluster(case: dict):
     )
 
 
-def run_port(case: dict, on_tick=None) -> list[dict]:
+def run_port(case: dict, on_tick=None, tries: dict | None = None) -> list[dict]:
     """Drive the port's ``SimCluster`` on the CPU through ``case["ops"]``;
-    returns one record per tick op: state after it and its metrics.
-    ``on_tick(t, cluster)`` runs after each tick op."""
+    returns one record per tick (a tick op, or a segment of the host
+    loop of a ``["run_host_loop", spec]`` op): the state after it, its
+    metrics, and the net's fault fields it ran under.  ``on_tick(t,
+    cluster)`` runs after each tick.  A ``["try", op...]`` op runs the
+    op and records, in ``tries`` under the op's index, the exception it
+    raised as ``"Type: message"`` ("" for none), as the reference
+    child records ``{name}/try{i}``."""
+    from ringpop_tpu_torch.scenarios import runner
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
     c = port_cluster(case)
     recs = []
-    for op in case["ops"]:
-        if op[0] != "tick":
-            getattr(c, op[0])(*op[1:])
-            continue
-        m = c.tick(op[1])
-        recs.append({"metrics": m, **{f: _np_or_none(getattr(c.state, f))
-                                      for f in case_fields(case)}})
+    real_tick = c.tick
+
+    def tick(k=1):
+        net = {f: _np_or_none(getattr(c.net, f)) for f in NET_FAULT_FIELDS}
+        m = real_tick(k)
+        recs.append({"metrics": m, "net": net, **{f: _np_or_none(getattr(c.state, f))
+                                                  for f in case_fields(case)}})
         if on_tick is not None:
             on_tick(len(recs) - 1, c)
+        return m
+
+    def call(op):
+        if op[0] == "run_host_loop":
+            runner.run_host_loop(c, ScenarioSpec.from_dict(op[1]))
+        else:
+            getattr(c, op[0])(*op[1:])
+
+    c.tick = tick
+    for i, op in enumerate(case["ops"]):
+        if op[0] == "tick":
+            tick(op[1])
+        elif op[0] == "try":
+            try:
+                call(op[1:])
+                tries[i] = ""
+            except Exception as e:  # noqa: BLE001 - the type is what is compared
+                tries[i] = f"{type(e).__name__}: {e}"
+        else:
+            call(op)
     return recs
 
 
@@ -474,6 +591,10 @@ def assert_same_trajectory(ref: dict[str, np.ndarray], case: dict, recs: list[di
         for f in case_fields(case):
             assert_same_field(rec[f], snapshot(ref, name, f, t + 1),
                               f"{name}: {f} at tick op {t}", dtype=False)
+        for f in NET_FAULT_FIELDS:
+            if "net" in rec:
+                assert_same_field(rec["net"][f], ref.get(f"{name}/net{t}/{f}"),
+                                  f"{name}: net {f} at tick op {t}")
         want_m = {
             k.rsplit("/", 1)[1]: int(v) for k, v in ref.items()
             if k.startswith(f"{name}/m{t}/")
@@ -497,23 +618,32 @@ def step_from_reference(ref: dict, case: dict, t: int):
         up=torch.as_tensor(ref[f"{name}/up{t}"]),
         responsive=torch.as_tensor(ref[f"{name}/responsive{t}"]),
         adj=torch.as_tensor(ref[f"{name}/adj{t}"]) if f"{name}/adj{t}" in ref else None,
+        **{f: torch.as_tensor(ref[f"{name}/net{t}/{f}"]) for f in NET_FAULT_FIELDS
+           if f"{name}/net{t}/{f}" in ref},
     )
     _, sub = prng.split(convert.key_from_numpy(ref[f"{name}/key{t}"]))
-    params = tdelta.DeltaParams(swim=tsim.SwimParams(**case.get("params", {})),
+    swim = tsim.SwimParams(**case.get("params", {}))
+    if f"{name}/loss{t}" in ref:
+        swim = swim._replace(loss=float(ref[f"{name}/loss{t}"]))
+    params = tdelta.DeltaParams(swim=swim,
                                 **{k: v for k, v in case["caps"].items() if k != "capacity"})
     return tdelta.delta_step_impl(state, net, sub, params)
 
 
 def assert_steps_from_reference(ref: dict, case: dict) -> int:
-    """Every one-tick op of ``case``, stepped from the reference's own
-    pre-tick state: every field (with its reference dtype) and metric;
-    returns how many were checked."""
+    """Every one-tick tick of ``case`` (a tick op, or a segment of a host
+    loop), stepped from the reference's own pre-tick state, net and key:
+    every field (with its reference dtype) and metric; returns how many
+    were checked."""
     from ringpop_tpu_torch import convert
 
-    ticks = [op for op in case["ops"] if op[0] == "tick"]
+    name = case["name"]
+    ticks = 0
+    while f"{name}/key{ticks}" in ref:
+        ticks += 1
     checked = 0
-    for t, op in enumerate(ticks):
-        if op[1] != 1:
+    for t in range(ticks):
+        if int(ref[f"{name}/k{t}"]) != 1:
             continue
         state, metrics = step_from_reference(ref, case, t)
         got = convert.delta_state_to_numpy(state)
@@ -560,6 +690,11 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.traffic.workloads",
     "ringpop_tpu_torch.traffic.engine",
     "ringpop_tpu_torch.ring_rebalance",
+    "ringpop_tpu_torch.scenarios",
+    "ringpop_tpu_torch.scenarios.spec",
+    "ringpop_tpu_torch.scenarios.faults",
+    "ringpop_tpu_torch.scenarios.compile",
+    "ringpop_tpu_torch.scenarios.runner",
 )
 
 

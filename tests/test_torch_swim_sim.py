@@ -123,7 +123,13 @@ def _small():
     ids=["sparse_cap", "relay_full_sync", "phase_mod"],
 )
 def test_unported_params_raise(params):
+    """The arms still to port raise; ``phase_mod > 1`` is ported and
+    gates probe initiation to each node's phase."""
     state, net, key = _small()
+    if params.phase_mod > 1:
+        _, m = tsim.swim_step_impl(state, net, key, params)
+        assert 0 < int(m["pings_sent"]) < 8
+        return
     with pytest.raises(NotImplementedError):
         tsim.swim_step_impl(state, net, key, params)
 
@@ -132,18 +138,35 @@ def test_unported_params_raise(params):
     "field", ["link_src", "link_dst", "link_p", "link_d", "link_j", "period"]
 )
 def test_unported_net_fields_raise(field):
+    """The fault-model fields of the net are ported: a rule table with the
+    field (and the rest of its rule) or a period row steps; a period row
+    beside ``phase_mod > 1`` raises the reference's ValueError."""
     state, net, key = _small()
-    net = net._replace(**{field: torch.zeros(1, 8)})
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state, net, key, tsim.SwimParams())
+    if field == "period":
+        net = net._replace(period=torch.full((8,), 2, dtype=torch.int32))
+        _, m = tsim.swim_step_impl(state, net, key, tsim.SwimParams())
+        assert 0 < int(m["pings_sent"]) < 8
+        with pytest.raises(ValueError, match="phase_mod"):
+            tsim.swim_step_impl(state, net, key, tsim.SwimParams(phase_mod=2))
+        return
+    every = torch.ones(1, 8, dtype=torch.bool)
+    rules = {"link_src": every, "link_dst": every,
+             "link_p": torch.full((1,), 0.9999, dtype=torch.float32)}
+    if field in ("link_d", "link_j"):
+        rules.update(link_d=torch.ones(1, dtype=torch.int32),
+                     link_j=torch.ones(1, dtype=torch.int32))
+    _, m = tsim.swim_step_impl(state, net._replace(**rules), key, tsim.SwimParams())
+    assert int(m["acks"]) < int(m["pings_sent"])  # the rule drops nearly everything
 
 
 def test_unported_state_and_options_raise():
+    """Damping, traced knobs and ``prov`` still raise; the in-flight
+    buffer (``pending``) is ported and reports its metrics."""
     state, net, key = _small()
     p = tsim.SwimParams()
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state._replace(pending=torch.zeros(2, 8, 8, dtype=torch.int32)),
-                            net, key, p)
+    _, m = tsim.swim_step_impl(state._replace(pending=torch.zeros(2, 8, 8, dtype=torch.int32)),
+                               net, key, p)
+    assert int(m["delayed_claims"]) == 0 and int(m["matured_applied"]) == 0
     with pytest.raises(NotImplementedError):
         tsim.swim_step_impl(state._replace(damp=torch.zeros(8, 8, dtype=torch.float16)),
                             net, key, p)
