@@ -137,7 +137,26 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     delay and mature claims, a gray window must see fewer pings than
     live nodes, and the receiver merge (dense) and the
     row-searchsorted and merge-insert kernels (delta) must launch;
-16. print the ``kernels`` JSON line (each kernel's launches summed over
+16. (phase i) the remaining step arms: i1, each at n = 256 on the card
+    and on the CPU, every state field and metric equal after every tick
+    call (the sparse step at caps 8 and 4, both again under
+    ``_SPARSE_SMALL_N = 1``, which forces the block-prefix lowerings;
+    damping, alone and with the delay buffer; ``relay_full_sync``
+    through ``run_host_loop``; the delta backend with the carried
+    slot-base planes; ``delta_step_impl(..., upto)`` for 0..6); i2,
+    config 3 on the sparse step (cap 16) in lockstep with the dense step,
+    field-equal on every tick with no row past the cap, converging in
+    the dense path's ticks to one checksum group; i3, the block-prefix
+    selection against the int16 one at n = 32 767, then the dense
+    backend at n = 40 960 (cap 16) to convergence with its peak memory
+    and the allocations live at the peak, and kernel 3 timed at the
+    block search's shape; i4, damping at config 3 (eight suspend/resume
+    cycles quarantine node 4242 in ``ring_for`` and ``lookup_batch``,
+    250 quiet ticks reinstate it); i5, the relay's full rows at config 3
+    with the flag on (> 0) and off (0); i6, the delta north star with
+    the carried planes against the uncarried run, then the step's
+    prefixes ``upto`` = 0..7 timed;
+17. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -147,12 +166,14 @@ the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
 and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
---faults`` runs only phase h and prints no result line.
+--faults`` runs only phase h and ``--arms`` only phase i; neither prints
+a result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -546,8 +567,9 @@ def queries(torch, gen, n: int, k: int, span: int):
 
 def time_searchsorted(torch, gen, n: int, c: int, k: int) -> dict:
     """Kernel, plain version and ``torch.searchsorted`` on sorted rows
-    [n, c] and queries [n, k]; the bound reads the table and the queries
-    once and writes the positions once, a binary search doing
+    [n, c] and queries [n, k], the kernel first held exactly against the
+    plain version on them (side "left"); the bound reads the table and
+    the queries once and writes the positions once, a binary search doing
     ceil(log2(C + 1)) compares per query."""
     from ringpop_tpu_torch.ops.searchsorted import row_searchsorted, row_searchsorted_plain
 
@@ -555,8 +577,14 @@ def time_searchsorted(torch, gen, n: int, c: int, k: int) -> dict:
     q = queries(torch, gen, n, k, span=max(4, c // 2))
     moved = 4 * n * (c + 2 * k)
     ops = n * k * math.ceil(math.log2(c + 1))
+    got, want = row_searchsorted(table, q), row_searchsorted_plain(table, q)
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"row_searchsorted kernel != plain at [{n}, {c}] x [{n}, {k}] on the "
+                             f"timed inputs (max abs err {err})")
 
     return {
+        "max_abs_err": err,
         "ms": time_ms(torch, lambda: row_searchsorted(table, q)),
         "plain_ms": time_ms(torch, lambda: row_searchsorted_plain(table, q)),
         "library_ms": time_ms(torch, lambda: torch.searchsorted(table, q, out_int32=True)),
@@ -1270,7 +1298,7 @@ def _sample_rows(c, count: int = CHECKSUM_SAMPLE) -> list[int]:
 
     live = c.live_indices()
     rows = [int(i) for i in live[np.linspace(0, len(live) - 1, count).astype(np.int64)]]
-    if c.state.side is not None:
+    if getattr(c.state, "side", None) is not None:
         side = c.state.side.cpu().numpy()[live]
         rows += [int(live[np.flatnonzero(side == g)[0]]) for g in np.unique(side)]
     return sorted(set(rows))
@@ -1970,7 +1998,8 @@ def fault_run(torch, backend: str, family: str, spec_dict: dict, n: int, caps: d
     victim = n - 1
     kill_at = next(e["at"] for e in spec_dict["events"] if e["op"] == "kill")
     c = SimCluster(n, sim.SwimParams(loss=0.01), seed=0, device="cuda", backend=backend, **caps)
-    mod, name = (sdelta, "delta_step_impl") if backend == "delta" else (sim, "swim_step_impl")
+    # the dense cluster's tick hands its state over to swim_sim._swim_step_handed
+    mod, name = (sdelta, "delta_step_impl") if backend == "delta" else (sim, "_swim_step_handed")
     real = getattr(mod, name)
     vcol = torch.full((n,), victim, dtype=torch.int32, device="cuda")
     steps: list[dict] = []
@@ -1988,7 +2017,7 @@ def fault_run(torch, backend: str, family: str, spec_dict: dict, n: int, caps: d
         return bool(conv & torch.where(live, col == sim.FAULTY, True).all())
 
     def timed(state, net, key, params, *args, **kwargs):
-        tick = int(state.tick)
+        tick = int((state if backend == "delta" else state.state).tick)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
@@ -2079,6 +2108,681 @@ def faults_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase i: the remaining step arms (sparse dissemination, the block-prefix
+# lowerings past n = 32 768, flap damping, the relay's full rows, the
+# delta backend's carried slot-base planes and truncated steps)
+# ---------------------------------------------------------------------------
+
+N_ARMS_SMALL = 256
+ARMS_CAP = 16  # benchmarks/profile_sparse.py:56
+N_WIDE = 40_960  # 640 blocks of 64: the dense backend past 32 768
+N_SPLIT = 32_767  # the largest n where both selection branches are valid
+DAMP = {"damp_penalty": 1000.0, "damp_suppress": 2000.0, "damp_reuse": 400.0,
+        "damp_decay_per_tick": 0.98}  # tests/test_sim_core.py:185
+DAMP_CYCLES = 8
+QUIET_TICKS = 250
+ARMS_CAPS_SMALL = {"capacity": 32, "wire_cap": 4, "claim_grid": 8}  # phase 4's delta caps
+
+
+def relay_spec(n: int) -> dict:
+    """``tests/test_faults.py``'s relay case (n = 12) scaled to n: the
+    last node killed at 2, 30% loss from 4, a one-way 95% link loss from
+    the first quarter to three nodes at 0.8 n from 8 to 40, no loss
+    from 40; 60 ticks."""
+    dst = int(0.8 * n)
+    return {"ticks": 60, "events": [
+        {"at": 2, "op": "kill", "node": VICTIM if n == N_MAIN else n - 1},
+        {"at": 4, "op": "loss", "p": 0.3},
+        {"at": 8, "op": "link_loss", "src": list(range(n // 4)), "dst": [dst, dst + 1, dst + 2],
+         "p": 0.95, "until": 40},
+        {"at": 40, "op": "loss", "p": 0.0},
+    ]}
+
+
+@contextlib.contextmanager
+def _carry_env():
+    """``RINGPOP_CARRY_SLOTBASE=1`` while delta states are built in the
+    block (the reference's build-time switch of the carried planes)."""
+    old = os.environ.get("RINGPOP_CARRY_SLOTBASE")
+    os.environ["RINGPOP_CARRY_SLOTBASE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RINGPOP_CARRY_SLOTBASE", None)
+        else:
+            os.environ["RINGPOP_CARRY_SLOTBASE"] = old
+
+
+@contextlib.contextmanager
+def _small_n(value):
+    """``swim_sim._SPARSE_SMALL_N`` set to ``value`` (None: unchanged) in
+    the block: 1 forces every block-prefix lowering at any n."""
+    from ringpop_tpu_torch.models import swim_sim as sim
+
+    old = sim._SPARSE_SMALL_N
+    if value is not None:
+        sim._SPARSE_SMALL_N = value
+    try:
+        yield
+    finally:
+        sim._SPARSE_SMALL_N = old
+
+
+def _arms_lockstep(torch, label: str, kwargs: dict, ops: list, small_n=None,
+                   carry: bool = False) -> int:
+    """Phase i1: ``SimCluster(**kwargs)`` on the card and on the CPU
+    through ``ops`` (``["tick", k]``, a method with its arguments, or
+    ``["run_host_loop", spec]``): every state field and metric equal
+    after every tick (each host-loop segment).  Returns the ticks held."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.scenarios.runner import run_host_loop
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    with _small_n(small_n):
+        pair = []
+        for device in ("cuda", "cpu"):
+            if carry:
+                with _carry_env():
+                    c = SimCluster(N_ARMS_SMALL, device=device, **kwargs)
+            else:
+                c = SimCluster(N_ARMS_SMALL, device=device, **kwargs)
+            segs: list = []
+            _record_segments(c, segs)
+            pair.append((c, segs))
+        held = 0
+        for i, op in enumerate(ops):
+            for c, _ in pair:
+                if op[0] == "run_host_loop":
+                    run_host_loop(c, ScenarioSpec.from_dict(op[1]))
+                elif op[0] == "tick":
+                    c.tick(op[1])
+                else:
+                    getattr(c, op[0])(*op[1:])
+            (_, got), (_, want) = pair
+            if len(got) != len(want):
+                raise AssertionError(f"arms {label}: {len(got)} ticks on cuda, {len(want)} on cpu")
+            for t in range(held, len(got)):
+                (mg, sg, _), (mw, sw, _) = got[t], want[t]
+                if mg != mw:
+                    raise AssertionError(f"arms {label} tick {t}: metrics cuda {mg} cpu {mw}")
+                for f, x in sg.items():
+                    y = sw[f]
+                    if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                        raise AssertionError(f"arms {label} tick {t}: {f} differs")
+            held = len(got)
+    return held
+
+
+def check_arms_cuda_equals_cpu(torch) -> None:
+    """Phase i1: each arm at n = 256 on the card and on the CPU."""
+    from ringpop_tpu_torch import prng
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    n, t1 = N_ARMS_SMALL, ["tick", 1]
+    cycles = [["suspend", 4], ["tick", 4], ["resume", 4], ["tick", 4]]
+    every = [[True] * n]
+    sparse_kill = ({"params": SwimParams(loss=0.05, suspicion_ticks=5, sparse_cap=8), "seed": 0},
+                   [t1] * 3 + [["kill", 7]] + [t1] * 12)
+    sparse_over = ({"params": SwimParams(sparse_cap=4), "seed": 0, "init": "self"},
+                   [["join", j, 0] for j in range(1, n)] + [t1] * 20)
+    cases = [
+        ("sparse cap 8, 5% loss, a kill", *sparse_kill, None, False),
+        ("sparse cap 4 from mode='self' with admin joins", *sparse_over, None, False),
+        ("sparse cap 8 under _SPARSE_SMALL_N = 1", *sparse_kill, 1, False),
+        ("sparse cap 4 self-mode under _SPARSE_SMALL_N = 1", *sparse_over, 1, False),
+        ("damping, test_sim_core's parameters and flap cycle",
+         {"params": SwimParams(**DAMP), "seed": 3, "damping": True}, cycles * 8, None, False),
+        ("damping with the delay buffer",
+         {"params": SwimParams(**DAMP), "seed": 2, "damping": True},
+         [["enable_delay", 3], ["set_link_rules", every, every, [0.0], [1], [1]]] + cycles * 3,
+         None, False),
+        ("relay_full_sync, test_faults' relay spec scaled",
+         {"params": SwimParams(suspicion_ticks=8, relay_full_sync=True), "seed": 2},
+         [["run_host_loop", relay_spec(n)]], None, False),
+        ("delta with carried planes at phase 4's caps",
+         {"params": SwimParams(loss=0.3, suspicion_ticks=5), "seed": 0, "backend": "delta",
+          **ARMS_CAPS_SMALL}, [t1] * 3 + [["kill", 17]] + [t1] * 9, None, True),
+    ]
+    for label, kwargs, ops, small_n, carry in cases:
+        t0 = time.perf_counter()
+        held = _arms_lockstep(torch, label, kwargs, ops, small_n, carry)
+        log(f"arms (phase i1): {label}: cuda == cpu on every state field and metric after "
+            f"each of {held} tick calls (a tick(k) or a host-loop segment is one) at n={n} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # delta upto = 0..6 from one state and key, on the card and the CPU
+    params = sdelta.DeltaParams(swim=SwimParams(loss=0.3, suspicion_ticks=5),
+                                wire_cap=ARMS_CAPS_SMALL["wire_cap"],
+                                claim_grid=ARMS_CAPS_SMALL["claim_grid"])
+    c = SimCluster(n, params.swim, seed=0, device="cpu", backend="delta", **ARMS_CAPS_SMALL)
+    c.tick(2)
+    c.kill(17)
+    c.tick(3)
+    key = prng.split(c.key)[1]
+    for upto in range(7):
+        outs = []
+        for device in ("cuda", "cpu"):
+            st = c.state._replace(**{f: None if v is None else v.to(device)
+                                     for f, v in c.state._asdict().items()})
+            net = c.net._replace(**{f: None if v is None else v.to(device)
+                                    for f, v in c.net._asdict().items()})
+            outs.append(sdelta.delta_step_impl(st, net, key.to(device), params, upto))
+        (sg, mg), (sc, mc) = outs
+        _same_state(torch, sg, sc, f"delta upto={upto}")
+        if {k: v.cpu().tolist() for k, v in mg.items()} != {k: v.tolist() for k, v in mc.items()}:
+            raise AssertionError(f"delta upto={upto}: metrics differ")
+    log(f"arms (phase i1): delta upto = 0..6 from one state and key at n={n}: cuda == cpu on "
+        "every field and the partial metrics")
+
+
+def _max_active(state) -> int:
+    return int((state.pb >= 0).sum(dim=1).max())
+
+
+def sparse_config3(torch, dense_ticks: int) -> dict:
+    """Phase i2: BASELINE config 3 on the sparse step (cap 16), in
+    lockstep with the dense step on the same keys: field-equal on every
+    tick on which no row holds more than the cap's active changes, to
+    convergence in the dense main path's tick count, one checksum
+    group."""
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense = SimCluster(N_MAIN, sim.SwimParams(loss=0.01), seed=0, device="cuda")
+    sparse = SimCluster(N_MAIN, sim.SwimParams(loss=0.01, sparse_cap=ARMS_CAP), seed=0,
+                        device="cuda")
+    times = {"dense": [], "sparse": []}
+    syncs, launches_rm = [], 0
+    within, equal, diverged = 0, 0, None
+
+    def step(name, c):
+        nonlocal launches_rm
+        before = recv_merge.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                m = c.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        if name == "sparse":
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            launches_rm += recv_merge.launches - before
+        return m
+
+    detected = None
+    for t in range(5 + MAX_TICKS):
+        if t == 5:
+            dense.kill(VICTIM)
+            sparse.kill(VICTIM)
+        pre = max(_max_active(dense.state), _max_active(sparse.state))
+        md, ms = step("dense", dense), step("sparse", sparse)
+        ok = pre <= ARMS_CAP and max(_max_active(dense.state), _max_active(sparse.state)) <= ARMS_CAP
+        if ok and diverged is None:
+            within += 1
+            same = {k: v for k, v in md.items() if k != "damped_pairs"} == {
+                k: v for k, v in ms.items() if k != "damped_pairs"}
+            for f in ("view_key", "pb", "suspect_left", "tick"):
+                same = same and torch.equal(getattr(dense.state, f), getattr(sparse.state, f))
+            if not same:
+                raise AssertionError(f"sparse (phase i2): tick {t} within the cap but the sparse "
+                                     "step differs from the dense one")
+            equal += 1
+        elif diverged is None:
+            diverged = t
+        if t >= 5:
+            live = torch.as_tensor(sparse.live_indices(), device="cuda")
+            col = sparse.state.view_key[live, VICTIM] & 7
+            if bool((col == sim.FAULTY).all()) and sparse.converged():
+                detected = t - 4
+                break
+    if detected is None:
+        raise AssertionError(f"sparse (phase i2): node {VICTIM} not faulty everywhere")
+    groups = _groups(sparse, sample=False)
+    launches = {"recv_merge": launches_rm, "farmhash32": farmhash32_batch.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"sparse (phase i2): n={N_MAIN} loss=0.01 sparse_cap={ARMS_CAP} seed 0 in lockstep with "
+        f"the dense step: {within} of {len(times['sparse'])} ticks with no row past the cap "
+        f"(first past it: {diverged}), field- and metric-equal to the dense step on all {equal} "
+        f"of them; node {VICTIM} faulty everywhere and views converged {detected} ticks after the "
+        f"kill (dense main path {dense_ticks}); device checksums of all "
+        f"{len(sparse.live_indices())} live rows: {groups} group; median tick sparse "
+        f"{statistics.median(times['sparse']):.3f} ms, dense "
+        f"{statistics.median(times['dense']):.3f} ms (same call); sparse host syncs "
+        f"{sum(syncs)} ({sum(syncs) / len(syncs):.2f} per tick); peak memory (both clusters "
+        f"resident) {peak / 2**30:.2f} GiB; launches of the sparse ticks {launches}")
+    if groups != 1 or detected != dense_ticks or launches_rm <= 0 or diverged is not None:
+        raise AssertionError(f"sparse (phase i2): groups {groups}, ticks {detected} (dense "
+                             f"{dense_ticks}), recv_merge launches {launches_rm}, first tick "
+                             f"past the cap {diverged}")
+    return launches
+
+
+def _peak_breakdown(snapshot: dict, top: int = 10) -> tuple[int, list]:
+    """Replay the allocator trace of ``torch.cuda.memory._snapshot()``:
+    the largest total of live allocations, and the live allocations at
+    that moment grouped by the innermost frame in the package (bytes,
+    count, site), largest first."""
+    live: dict[int, tuple[int, str]] = {}
+    total = best = 0
+    best_live: list = []
+    for ev in snapshot["device_traces"][0]:
+        act = ev["action"]
+        if act == "alloc":
+            site = "outside the package"
+            for fr in ev.get("frames", []):
+                if "ringpop_tpu_torch" in fr["filename"]:
+                    site = (f"{fr['filename'].split('ringpop_tpu_torch/')[-1]}:{fr['line']} "
+                            f"{fr['name']}")
+                    break
+            live[ev["addr"]] = (ev["size"], site)
+            total += ev["size"]
+            if total > best:
+                best, best_live = total, list(live.values())
+        elif act == "free_requested" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])[0]
+    groups: dict[str, list] = {}
+    for size, site in best_live:
+        g = groups.setdefault(site, [0, 0])
+        g[0] += size
+        g[1] += 1
+    return best, sorted(((b, k, s) for s, (b, k) in groups.items()), reverse=True)[:top]
+
+
+def check_selection_split(torch) -> None:
+    """Phase i3, first: at n = 32 767 both selection branches are valid;
+    the block-prefix branch picks what the int16-prefix branch picks."""
+    from ringpop_tpu_torch import prng
+    from ringpop_tpu_torch.models import swim_sim as sim
+
+    n = N_SPLIT
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pingable = torch.rand((n, n), generator=gen, device="cuda") > 0.05
+    pingable.fill_diagonal_(False)
+    key = prng.PRNGKey(12)
+    small = sim._choose_targets_and_witnesses(pingable, 3, key)
+    with _small_n(1):
+        large = sim._choose_targets_and_witnesses(pingable, 3, key)
+    t0, v0, w0, wv0 = small
+    t1, v1, w1, wv1 = large
+    if not (torch.equal(v0, v1) and torch.equal(wv0, wv1) and torch.equal(t0, t1)
+            and torch.equal(torch.where(wv0, w0, 0), torch.where(wv1, w1, 0))):
+        raise AssertionError(f"selection at n={n}: the block-prefix branch picks differently")
+    log(f"wide (phase i3): at n={n} the block-prefix selection (row-searchsorted kernel over "
+        f"[{n}, {-(-n // 64)}] block offsets) picks the int16-prefix branch's target and "
+        "witnesses wherever they are valid (95% pingable, key 12)")
+
+
+def wide_dense(torch) -> tuple[dict, int]:
+    """Phase i3: the dense backend at n = 40 960 (sparse cap 16): 5 ticks,
+    kill node 4242, tick to convergence; the checksums of a sample of live
+    rows in one group; kernel 3 at the block search's shape, held against
+    its plain version on the kill tick's own block search and timed;
+    peak memory and what holds it.  Returns the launches and kernel 3's
+    max abs error there."""
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted, row_searchsorted_plain
+
+    check_selection_split(torch)
+    n = N_WIDE
+    nb = -(-n // 64)
+    _reset_counts()
+    rm0 = recv_merge.launches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    captured: dict = {}
+
+    def capture(offs, want, side="left"):
+        # the kill tick's block search, kept for the check after the run
+        if not captured and len(tick_ms) == 5 and tuple(offs.shape) == (n, nb):
+            captured.update(offs=offs.clone(), want=want.clone(), side=side)
+        return row_searchsorted(offs, want, side=side)
+
+    sim.row_searchsorted = capture
+    try:
+        c = SimCluster(n, sim.SwimParams(loss=0.01, sparse_cap=ARMS_CAP), seed=0, device="cuda")
+        state_bytes = sum(v.numel() * v.element_size() for v in c.state._asdict().values()
+                          if v is not None)
+        tick_ms, tick_peak = [], []
+        detected = None
+        for t in range(5 + MAX_TICKS):
+            if t == 5:
+                c.kill(VICTIM)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            c.tick()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            tick_peak.append(torch.cuda.max_memory_allocated())
+            if t >= 5:
+                live = torch.as_tensor(c.live_indices(), device="cuda")
+                col = c.state.view_key[live, VICTIM] & 7
+                if bool((col == sim.FAULTY).all()) and c.converged():
+                    detected = t - 4
+                    break
+        snap = torch.cuda.memory._snapshot()
+    except torch.OutOfMemoryError:
+        best, sites = _peak_breakdown(torch.cuda.memory._snapshot())
+        log(f"wide (phase i3): out of memory; allocations live at the traced peak "
+            f"({best / 2**30:.2f} GiB), by the innermost package frame:")
+        for b, k, s in sites:
+            log(f"  {b / 2**30:7.2f} GiB in {k:3d} blocks: {s}")
+        raise
+    finally:
+        sim.row_searchsorted = row_searchsorted
+        torch.cuda.memory._record_memory_history(enabled=None)
+    if detected is None:
+        raise AssertionError(f"wide (phase i3): node {VICTIM} not faulty everywhere")
+    rows = _sample_rows(c)
+    groups = len(set(c.checksums(indices=rows, backend="device").values()))
+    converged = c.converged()
+    peak = max(tick_peak)
+    best, sites = _peak_breakdown(snap)
+    blk_launches = row_searchsorted.shapes.get((nb, 4), 0)
+    launches = {"recv_merge": recv_merge.launches - rm0, "farmhash32": farmhash32_batch.launches,
+                "row_searchsorted": row_searchsorted.launches}
+    log(f"wide (phase i3): n={n} ({nb} blocks of 64) loss=0.01 sparse_cap={ARMS_CAP} seed 0: "
+        f"node {VICTIM} faulty everywhere and views converged {detected} ticks after the kill "
+        f"({len(tick_ms)} ticks); converged() {converged}, device checksums of {len(rows)} "
+        f"sampled live rows: {groups} group; median tick {statistics.median(tick_ms):.3f} ms "
+        f"(max {max(tick_ms):.3f}); state {state_bytes / 2**30:.2f} GiB, peak "
+        f"{peak / 2**30:.2f} GiB = {peak / n**2:.2f} B per n^2 (the tick of the peak: "
+        f"{tick_peak.index(peak)}); row_searchsorted launches at [{n}, {nb}] x [{n}, 4]: "
+        f"{blk_launches}; launches {launches}")
+    log(f"wide (phase i3): allocations live at the traced peak ({best / 2**30:.2f} GiB), by the "
+        "innermost package frame:")
+    for b, k, s in sites:
+        log(f"  {b / 2**30:7.2f} GiB in {k:3d} blocks: {s}")
+    if groups != 1 or not converged or blk_launches <= 0:
+        raise AssertionError(f"wide (phase i3): groups {groups}, converged {converged}, block "
+                             f"searches {blk_launches}")
+    offs, want, side = captured["offs"], captured["want"], captured["side"]
+    got, plain = row_searchsorted(offs, want, side=side), row_searchsorted_plain(offs, want, side=side)
+    err = int((got - plain).abs().max())
+    if tuple(want.shape) != (n, 4) or not torch.equal(got, plain):
+        raise AssertionError(f"wide (phase i3): row_searchsorted kernel != plain on the kill "
+                             f"tick's block search {tuple(offs.shape)} x {tuple(want.shape)} "
+                             f"side {side} (max abs err {err})")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    r = time_searchsorted(torch, gen, n, nb, 4)
+    err = max(err, r["max_abs_err"])
+    log(f"row_searchsorted at [{n}, {nb}] x [{n}, 4] (the block search): kernel == plain on the "
+        f"kill tick's own offs/want (side {side}, {int((got == nb).sum())} queries past the "
+        f"last block offset) and on the timed inputs, max abs err {err}; kernel "
+        f"{r['ms']:.4f} ms, torch.searchsorted {r['library_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{r['moved']} bytes at 3.35 TB/s)")
+    del captured, offs, want, got, plain
+    per_n2 = peak / n**2
+    need = 65_536**2 * per_n2
+    log(f"wide (phase i3): at this density n = 65 536 would need {need / 1e9:.1f} GB on one card "
+        f"(state {65_536**2 * 6 / 1e9:.1f} GB)")
+    return launches, err
+
+
+def damping_config3(torch) -> dict:
+    """Phase i4: flap damping at BASELINE config 3: eight suspend/resume
+    cycles of node 4242 quarantine it in some viewers' rings (``ring_for``
+    and ``lookup_batch`` agree key for key), 250 quiet ticks reinstate it;
+    the same cycles without damping, for the tick's cost."""
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+
+    _reset_counts()
+    rm0 = recv_merge.launches
+    params = sim.SwimParams(loss=0.01, **DAMP)
+    times = {True: [], False: []}
+    for damping in (False, True):
+        c = SimCluster(N_MAIN, params, seed=0, device="cuda", damping=damping)
+        for _ in range(DAMP_CYCLES):
+            for flag in (False, True):
+                (c.resume if flag else c.suspend)(VICTIM)
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    c.tick()
+                    torch.cuda.synchronize()
+                    times[damping].append((time.perf_counter() - t0) * 1e3)
+        if not damping:
+            del c
+    pairs = c.damped_pairs()
+    live = set(int(i) for i in c.live_indices())
+    damped_col = c.state.damped[:, VICTIM].cpu().numpy()
+    viewers = [v for v in range(N_MAIN) if damped_col[v] and v in live and v != VICTIM]
+    if pairs <= 0 or not viewers:
+        raise AssertionError(f"damping (phase i4): damped pairs {pairs}, viewers {len(viewers)}")
+    v = viewers[0]
+    addr = c.book.addresses[VICTIM]
+    ring = c.ring_for(v)
+    keys = _keys(16_384, 14)
+    batch = c.lookup_batch(keys, viewer=v)
+    host = [ring.lookup(k) for k in keys]
+    if ring.has_server(addr) or batch != host:
+        raise AssertionError(f"damping (phase i4): viewer {v}'s ring holds {addr}: "
+                             f"{ring.has_server(addr)}; lookup_batch == ring_for: {batch == host}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c.tick(QUIET_TICKS)
+    torch.cuda.synchronize()
+    quiet_s = time.perf_counter() - t0
+    pairs_after = c.damped_pairs()
+    back = c.ring_for(v).has_server(addr)
+    launches = {"recv_merge": recv_merge.launches - rm0, "farmhash32": farmhash32_batch.launches}
+    log(f"damping (phase i4): n={N_MAIN} loss=0.01 {DAMP}: after {DAMP_CYCLES} suspend/resume "
+        f"cycles of node {VICTIM} (4 + 4 ticks) {pairs} damped pairs, {len(viewers)} live "
+        f"viewers damp it; viewer {v}'s ring_for lacks it and lookup_batch of {len(keys)} keys "
+        f"== ring_for({v}).lookup key for key; after {QUIET_TICKS} quiet ticks ({quiet_s:.1f} s) "
+        f"{pairs_after} damped pairs and it is back in the ring: {back}; median tick over the "
+        f"cycles {statistics.median(times[True]):.3f} ms with damping, "
+        f"{statistics.median(times[False]):.3f} ms without (same call); launches {launches}")
+    if pairs_after != 0 or not back:
+        raise AssertionError("damping (phase i4): the quiet ticks did not reinstate the node")
+    return launches
+
+
+def relay_config3(torch) -> dict:
+    """Phase i5: the relay's full rows at BASELINE config 3 through
+    ``run_host_loop`` (``relay_spec``), flag on and off, each on to
+    convergence: ``relay_full_syncs`` > 0 with it, 0 without."""
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+    from ringpop_tpu_torch.scenarios.runner import run_host_loop
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    _reset_counts()
+    rm0 = recv_merge.launches
+    spec = relay_spec(N_MAIN)
+    real = sim._swim_step_handed  # what the dense cluster's tick calls
+    out = {}
+    for flag in (True, False):
+        c = SimCluster(N_MAIN, sim.SwimParams(suspicion_ticks=8, relay_full_sync=flag), seed=2,
+                       device="cuda")
+        steps: list = []
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, int(m["relay_full_syncs"])))
+            return new, m
+
+        sim._swim_step_handed = timed
+        try:
+            run_host_loop(c, ScenarioSpec.from_dict(spec))
+            extra = 0
+            while True:
+                live = torch.as_tensor(c.live_indices(), device="cuda")
+                col = c.state.view_key[live, VICTIM] & 7
+                if bool((col == sim.FAULTY).all()) and c.converged():
+                    break
+                if extra >= MAX_TICKS:
+                    raise AssertionError(f"relay (phase i5): flag {flag} did not converge")
+                c.tick()
+                extra += 1
+        finally:
+            sim._swim_step_handed = real
+        groups = _groups(c, sample=False)
+        total = sum(r for _, r in steps)
+        out[flag] = (statistics.median(ms for ms, _ in steps), total, len(steps), groups)
+        log(f"relay (phase i5): n={N_MAIN} relay_full_sync={flag}: test_faults' relay spec "
+            f"scaled (kill {VICTIM} at 2, loss 0.3 at 4, link loss 0.95 from nodes 0-"
+            f"{N_MAIN // 4 - 1} to {int(0.8 * N_MAIN)}-{int(0.8 * N_MAIN) + 2} over [8, 40), loss 0 "
+            f"at 40; 60 ticks) then {extra} ticks to convergence: relay_full_syncs {total}, "
+            f"median tick {out[flag][0]:.3f} ms over {len(steps)} ticks, device checksums "
+            f"of all live rows in {groups} group")
+        if groups != 1:
+            raise AssertionError(f"relay (phase i5): {groups} checksum groups")
+    if out[True][1] <= 0 or out[False][1] != 0:
+        raise AssertionError(f"relay (phase i5): relay_full_syncs on {out[True][1]}, off "
+                             f"{out[False][1]}")
+    return {"recv_merge": recv_merge.launches - rm0, "farmhash32": farmhash32_batch.launches}
+
+
+def delta_carry_north_star(torch, delta_ticks: int) -> dict:
+    """Phase i6: the delta main path with the carried slot-base planes in
+    lockstep with the uncarried run (every other field and metric equal
+    on every tick, converging in the main path's tick count), then the
+    step's prefixes ``upto`` = 0..7 timed from one state and key."""
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    _reset_counts()
+    n = N_DELTA
+    params = sim.SwimParams(loss=0.01)
+    with _carry_env():
+        carried = SimCluster(n, params, seed=0, device="cuda", backend="delta", **DELTA_CAPS)
+    plain = SimCluster(n, params, seed=0, device="cuda", backend="delta", **DELTA_CAPS)
+    if carried.state.d_bpmask is None or plain.state.d_bpmask is not None:
+        raise AssertionError("carry (phase i6): the switch did not select the planes")
+    times = {"carried": [], "plain": []}
+    launches = {"carried": {}, "plain": {}}
+    victim = torch.full((n,), VICTIM_DELTA, dtype=torch.int32, device="cuda")
+    detected, probe = None, None
+    for t in range(5 + MAX_TICKS):
+        if t == 5:
+            carried.kill(VICTIM_DELTA)
+            plain.kill(VICTIM_DELTA)
+        if t == 8:
+            probe = (plain.state, plain.net, plain.key)
+        for name, c in (("carried", carried), ("plain", plain)):
+            before = {k: _counted()[k].launches for k in ("row_searchsorted", "merge_insert")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = c.tick()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            for k, v in before.items():
+                launches[name][k] = launches[name].get(k, 0) + _counted()[k].launches - v
+            if name == "carried":
+                mc = m
+        if mc != m:
+            raise AssertionError(f"carry (phase i6) tick {t}: metrics differ")
+        for f, x in plain.state._asdict().items():
+            if f in ("d_bpmask", "d_bprank"):
+                continue
+            y = getattr(carried.state, f)
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"carry (phase i6) tick {t}: {f} differs")
+        if t >= 5:
+            live = torch.as_tensor(plain.live_indices(), device="cuda")
+            col = sdelta.view_lookup(carried.state, victim).index_select(0, live) & 7
+            if bool((col == sim.FAULTY).all()) and carried.converged():
+                detected = t - 4
+                break
+    bpm, bpr = sdelta.compute_slot_base(carried.state)
+    planes_ok = (torch.equal(carried.state.d_bpmask, sdelta.bitpack.pack_bits(bpm))
+                 and torch.equal(carried.state.d_bprank, bpr))
+    log(f"carry (phase i6): n={n} {DELTA_CAPS} loss=0.01: the carried run equals the uncarried "
+        f"one on every other field and metric on each of {len(times['plain'])} ticks; node "
+        f"{VICTIM_DELTA} faulty everywhere and converged() {detected} ticks after the kill "
+        f"(delta main path {delta_ticks}); the planes equal compute_slot_base at the end: "
+        f"{planes_ok}; median tick carried {statistics.median(times['carried']):.3f} ms, "
+        f"uncarried {statistics.median(times['plain']):.3f} ms (same call); launches carried "
+        f"{launches['carried']}, uncarried {launches['plain']}")
+    if detected != delta_ticks or not planes_ok or launches["plain"]["merge_insert"] <= 0:
+        raise AssertionError(f"carry (phase i6): ticks {detected}, planes {planes_ok}, "
+                             f"merge_insert {launches['plain']}")
+    from ringpop_tpu_torch import prng
+
+    state, net, key = probe
+    key = prng.split(key)[1]
+    dparams = plain.dparams
+    prefix = {}
+    for upto in range(8):
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sdelta.delta_step_impl(state, net, key, dparams, upto)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        prefix[upto] = statistics.median(runs[1:])
+    log("carry (phase i6): delta step prefixes at n=65536 from the state 3 ticks after the kill, "
+        "median of 5 synchronised calls (ms; upto 7 the full step): " + ", ".join(
+            f"upto {u} {ms:.3f}" for u, ms in prefix.items()) + "; per phase: " + ", ".join(
+            f"{u} {prefix[u] - (prefix[u - 1] if u else 0):.3f}" for u in range(8)))
+    out = {}
+    for name in ("carried", "plain"):
+        for k, v in launches[name].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def arms_phase(torch, dense_ticks: int = 34, delta_ticks: int = 36) -> dict:
+    """Phase i: i1 the lockstep at n = 256, then the full-width runs;
+    returns the kernels' launches summed over i2-i6, and kernel 3's max
+    abs error at i3's block search."""
+    t0 = time.perf_counter()
+    check_arms_cuda_equals_cpu(torch)
+    log(f"arms (phase i1): {time.perf_counter() - t0:.1f} s")
+    launches: dict[str, int] = {}
+    errs: dict[str, int] = {}
+
+    def wide() -> dict:
+        out, errs["row_searchsorted"] = wide_dense(torch)
+        return out
+
+    for run in (lambda: sparse_config3(torch, dense_ticks), wide,
+                lambda: damping_config3(torch), lambda: relay_config3(torch),
+                lambda: delta_carry_north_star(torch, delta_ticks)):
+        t1 = time.perf_counter()
+        for k, v in run().items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"arms: {time.perf_counter() - t1:.1f} s")
+    log(f"arms (phase i): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"arms (phase i): kernel {name} was not launched")
+    return launches, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -2091,6 +2795,9 @@ def main() -> int:
     ap.add_argument("--faults", action="store_true",
                     help="only run phase h (the fault model's lockstep and full-width "
                          "families); print no result line")
+    ap.add_argument("--arms", action="store_true",
+                    help="only run phase i (the remaining step arms: sparse, n = 40 960, "
+                         "damping, relay full sync, carried delta planes); print no result line")
     args = ap.parse_args()
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
@@ -2127,6 +2834,10 @@ def main() -> int:
         faults_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.arms:
+        arms_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -2156,13 +2867,15 @@ def main() -> int:
     config5_launches, short_row = config5(torch)
     rows.append(short_row)
     launches_faults = faults_phase(torch)
+    launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and phase h's
-    # dense runs for the receiver merge; FarmHash's warp kernel on the
-    # dense path, both config-4 paths and phase h, its short-row kernel on
-    # both lookup surfaces and config 5; the delta kernels on the delta
-    # path, both config-4 paths and phase h's delta runs; the hop on the
-    # three ring paths
+    # dense runs and phase i's for the receiver merge; FarmHash's warp
+    # kernel on the dense path, both config-4 paths, phases h and i, its
+    # short-row kernel on both lookup surfaces and config 5; the delta
+    # kernels on the delta path, both config-4 paths and the delta runs of
+    # phases h and i (kernel 3 also at phase i's block search); the hop on
+    # the three ring paths
     launches["farmhash32_short"] = short_launches + config5_launches
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"])
@@ -2171,9 +2884,10 @@ def main() -> int:
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += launches_c4[name] + launches_c4_full[name]
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
-        launches[name] += launches_faults[name]
+        launches[name] += launches_faults[name] + launches_arms.get(name, 0)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

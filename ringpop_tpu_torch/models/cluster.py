@@ -36,6 +36,11 @@ from ringpop_tpu_torch.traffic.workloads import DEFAULT_WINDOW
 DEFAULT_BASE_INC = 1_400_000_000_000  # host clock epoch (ms)
 # View-row keys materialized at once by a device checksum sweep
 ROW_CHUNK_ELEMENTS = 1 << 26
+_STATE_LOST = (
+    "SimCluster.tick: a dense step failed after it had taken the cluster's "
+    "state over, so the state (and any ticks of this call already done) is "
+    "lost; build a new SimCluster"
+)
 
 
 def groups_to_gid(groups: Sequence[Sequence[int]], n: int) -> np.ndarray:
@@ -68,7 +73,9 @@ class SimCluster:
         unless the caller names another; raises when no card is visible
         and none was named).  ``backend='dense'``: the N x N state;
         ``backend='delta'``: the O(N * C) delta-from-base state, whose
-        resource caps are ``capacity``/``wire_cap``/``claim_grid``."""
+        resource caps are ``capacity``/``wire_cap``/``claim_grid``.
+        ``damping=True`` (dense only) carries the flap-damping planes:
+        damped members are quarantined from the viewer's ring."""
         if backend not in ("dense", "delta"):
             raise ValueError(f"unknown backend: {backend!r}")
         if backend == "delta" and damping:
@@ -78,8 +85,6 @@ class SimCluster:
                 "sparse_cap is a dense-backend knob; the delta backend bounds "
                 "messages with wire_cap"
             )
-        if damping:
-            raise NotImplementedError("damping tensors are not ported yet")
         self.device = resolve_device(device)
         self.backend = backend
         self.params = params
@@ -96,7 +101,7 @@ class SimCluster:
                 n, rel, capacity=capacity, mode=init, device=self.device
             )
         else:
-            self.state = sim.init_state(n, rel, mode=init, device=self.device)
+            self.state = sim.init_state(n, rel, mode=init, damping=damping, device=self.device)
         self.net: NetState = sim.make_net(n, device=self.device)
         self.key = prng.PRNGKey(seed)
         self.metrics_log: list[dict[str, int]] = []
@@ -125,14 +130,31 @@ class SimCluster:
                 self.state, metrics = sdelta.delta_run_impl(
                     self.state, self.net, self._split(), self.dparams, ticks
                 )
-        elif ticks == 1:
-            self.state, metrics = sim.swim_step_impl(
-                self.state, self.net, self._split(), self.params
-            )
         else:
-            self.state, metrics = sim.swim_run_impl(
-                self.state, self.net, self._split(), self.params, ticks
-            )
+            # the step takes the cluster's only reference to its state, so
+            # the entry state is freed once replaced (10 GB at n = 40 960);
+            # a step that refuses before taking it leaves it in place, one
+            # that fails after it leaves the cluster without a state
+            if self.state is None:
+                raise RuntimeError(_STATE_LOST)
+            hand = sim._Handoff(self.state)
+            self.state = None
+            try:
+                if ticks == 1:
+                    self.state, metrics = sim._swim_step_handed(
+                        hand, self.net, self._split(), self.params
+                    )
+                else:
+                    self.state, metrics = sim._swim_run_handed(
+                        hand, self.net, self._split(), self.params, ticks
+                    )
+            except Exception as exc:
+                if hand.state is None:
+                    raise RuntimeError(_STATE_LOST) from exc
+                raise
+            finally:
+                if self.state is None:
+                    self.state = hand.state
         values = torch.stack(list(metrics.values())).tolist()
         out = dict(zip(metrics.keys(), (int(v) for v in values)))
         out["ticks"] = int(ticks)
@@ -229,16 +251,31 @@ class SimCluster:
 
     # -- lookup (the ring derived from a node's view, lib/ring.js) -------------
 
+    def _damped_row(self, viewer: int) -> torch.Tensor | None:
+        """bool[N]: the subjects ``viewer`` has damped (None without the
+        damping planes)."""
+        damped = getattr(self.state, "damped", None)
+        return None if damped is None else damped[viewer]
+
     def ring_for(self, viewer: int) -> HashRing:
         """The viewer's host ring: its alive and suspect members (faulty
-        and leave members are out of the ring), hashed on the cluster's
-        device."""
+        and leave members are out of the ring, and so are the members it
+        has damped), hashed on the cluster's device."""
         ring = HashRing(device=self.device)
+        damped = self._damped_row(viewer)
+        damped = None if damped is None else damped.cpu().numpy()
         servers = [
-            m["address"] for m in self.members(viewer) if m["status"] in ("alive", "suspect")
+            m["address"] for m in self.members(viewer)
+            if m["status"] in ("alive", "suspect")
+            and (damped is None or not damped[self.book.index[m["address"]]])
         ]
         ring.add_remove_servers(servers, [])
         return ring
+
+    def damped_pairs(self) -> int:
+        """Total (viewer, subject) damped entries (0 without damping)."""
+        damped = getattr(self.state, "damped", None)
+        return 0 if damped is None else int(damped.sum())
 
     def lookup(self, key: str, viewer: int = 0) -> str | None:
         return self.ring_for(viewer).lookup(key)
@@ -264,6 +301,10 @@ class SimCluster:
         ring = self.traffic_ring()
         # the viewer's bool[N] row, indexed by the walk's owners (no [M, N] mask)
         in_ring = tengine.in_ring_from_rows(self._device_rows(np.asarray([viewer]))[0])
+        damped = self._damped_row(viewer)
+        if damped is not None:
+            # damped members are quarantined from the ring (ring_for)
+            in_ring = in_ring & ~damped
         bufs, lens = ring_ops.encode_strings(keys)
         hashes = farmhash32_batch(
             torch.from_numpy(bufs).to(self.device), torch.from_numpy(lens).to(self.device)

@@ -37,9 +37,11 @@ own row.
 The fault-model arms are ported: link rules, per-node periods and
 ``phase_mod > 1`` (shared with the dense step), and the in-flight claim
 lanes (``pend_*``, ``install_pending``) that carry delayed claims across
-ticks.  Arms outside this port raise ``NotImplementedError``: traced
-knobs, ``prov=True``, ``upto != 7`` and the carried slot-base planes
-(``d_bpmask``/``d_bprank``).  The maintenance and admin operations
+ticks.  The carried slot-base planes (``d_bpmask``/``d_bprank``, built
+under ``RINGPOP_CARRY_SLOTBASE=1`` as in the reference) and the
+truncated profiling steps (``upto`` < 7) are ported too.  Arms outside
+this port raise ``NotImplementedError``: traced knobs and ``prov=True``.
+The maintenance and admin operations
 (``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
 host numpy, as in the reference.
 """
@@ -47,6 +49,7 @@ host numpy, as in the reference.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -113,8 +116,10 @@ class DeltaState(NamedTuple):
     side: torch.Tensor | None = None  # int32[N] viewer's base row (sided mode)
     merge_to: torch.Tensor | None = None  # int32[G, G] full-sync flip table (sided mode)
     digest: torch.Tensor | None = None  # int64[N] rolling view digest (uint32 values)
-    d_bpmask: torch.Tensor | None = None  # carried slot-base planes (not ported)
-    d_bprank: torch.Tensor | None = None
+    # carried slot-base planes (``refresh_carried``): base pingability
+    # (packed bits) and base rank at each slot's subject
+    d_bpmask: torch.Tensor | None = None  # int64[N, ceil(C/32)] (uint32 words)
+    d_bprank: torch.Tensor | None = None  # int32[N, C]
     # The in-flight claim lanes for per-link delay: a message delayed by d
     # at tick t parks its [W] claim list in slot ``(t + d) % D``, lane
     # ``2 * (d - 1) + kind`` (kind 0: the phase-3 ping payload, 1: the
@@ -489,18 +494,44 @@ def compute_digest(state: DeltaState) -> torch.Tensor:
     return (h_base_total + h_corr) & _M32
 
 
+def compute_slot_base(state: DeltaState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bool[N, C], int32[N, C]): base pingability and base rank at each
+    slot's subject, from scratch (empty slots hold (False, 0)); what the
+    carried ``d_bpmask``/``d_bprank`` planes hold."""
+    live = state.d_subj < SENTINEL
+    subj_safe = torch.where(live, state.d_subj, 0)
+    return (
+        state.bp_mask_at(subj_safe) & live,
+        torch.where(live, state.bp_rank_at(subj_safe), 0),
+    )
+
+
 def refresh_carried(state: DeltaState) -> DeltaState:
-    """Recompute the carried rolling digest from scratch: the one call
-    that makes a hand-mutated or rebuilt state step-ready.  The port
-    never carries the slot-base planes."""
-    _check_carry(state)
-    return state._replace(digest=compute_digest(state))
+    """Recompute every carried derivative from scratch: the one call that
+    makes a hand-mutated or rebuilt state step-ready.  The rolling digest
+    is always carried.  The slot-base planes (``d_bpmask``/``d_bprank``,
+    the base gathers of phases 0-1 kept per slot) are carried where the
+    state already carries them, or, for a state built while
+    ``RINGPOP_CARRY_SLOTBASE=1`` (the reference's switch, read here at
+    build time only, with its meaning), from now on; otherwise they are
+    dropped."""
+    state = state._replace(digest=compute_digest(state))
+    if os.environ.get("RINGPOP_CARRY_SLOTBASE", "0") == "1" or state.d_bpmask is not None:
+        return _with_slot_base(state)
+    return state._replace(d_bpmask=None, d_bprank=None)
+
+
+def _with_slot_base(state: DeltaState) -> DeltaState:
+    bpm, bpr = compute_slot_base(state)
+    return state._replace(d_bpmask=bitpack.pack_bits(bpm), d_bprank=bpr)
 
 
 @_scoped("delta.refresh")
 def _refresh_in_step(state: DeltaState) -> DeltaState:
-    """Wholesale digest recompute inside the step (the full-sync path)."""
-    return state._replace(digest=compute_digest(state))
+    """Wholesale recompute inside the step (the full-sync path): the
+    digest, and the slot-base planes where the state carries them."""
+    state = state._replace(digest=compute_digest(state))
+    return _with_slot_base(state) if state.d_bpmask is not None else state
 
 
 def _check_carry(state: DeltaState) -> None:
@@ -508,10 +539,6 @@ def _check_carry(state: DeltaState) -> None:
         raise ValueError(
             "DeltaState.d_bpmask/d_bprank must be carried together "
             "(refresh_carried populates or clears both)"
-        )
-    if state.d_bpmask is not None:
-        raise NotImplementedError(
-            "the carried slot-base planes (DeltaState.d_bpmask/d_bprank) are not ported yet"
         )
 
 
@@ -522,7 +549,10 @@ def _phase0_stats(state: DeltaState) -> _Stats:
     subj_safe = torch.where(live, state.d_subj, 0)
     d_status = state.d_key & 7
     ping_now = live & ((d_status == ALIVE) | (d_status == SUSPECT))
-    ping_base = live & state.bp_mask_at(subj_safe)
+    if state.d_bpmask is not None:
+        ping_base = bitpack.unpack_bits(state.d_bpmask, state.capacity)
+    else:
+        ping_base = live & state.bp_mask_at(subj_safe)
     # the base total, per base row in sided mode ([G] totals gathered by
     # each viewer's side)
     if state.side is None:
@@ -624,7 +654,10 @@ def _selection(
 
     corr_live = d_slot != 0
     cpd = torch.cumsum(d_slot, dim=1, dtype=torch.int32)  # inclusive prefix
-    slot_rank = state.bp_rank_at(torch.where(live, state.d_subj, 0))
+    if state.d_bprank is not None:
+        slot_rank = state.d_bprank
+    else:
+        slot_rank = state.bp_rank_at(torch.where(live, state.d_subj, 0))
     F = torch.where(corr_live, slot_rank + (cpd - d_slot), 1 << 30)
     cc = F.shape[1]
     F = torch.flip(torch.cummin(torch.flip(F, [1]), dim=1).values, [1])  # suffix-min
@@ -792,6 +825,9 @@ def _merge_claims(
             state.d_subj, state.d_key, state.d_pb, state.d_sl, s_ins_subj, s_ins_key,
             sl_start=int(sl_start), suspect=SUSPECT,
         )
+        planes = {}
+        if state.d_bpmask is not None:
+            planes = _merged_slot_base(state, s_ins_subj, m_subj)
         # kept insertions only; the old view at a not-found subject is its
         # base, which is ``cur`` there
         d_ins = _hash_delta_sum(keep, c_key, cur, subj_q) + torch.where(
@@ -801,7 +837,7 @@ def _merge_claims(
         )
         state = state._replace(
             d_subj=m_subj, d_key=m_key, d_pb=m_pb, d_sl=m_sl,
-            digest=(state.digest + d_ins) & _M32,
+            digest=(state.digest + d_ins) & _M32, **planes,
         )
     return _MergeOut(
         state._replace(overflow_drops=state.overflow_drops + dropped),
@@ -809,6 +845,39 @@ def _merge_claims(
         refuted,
         dropped,
     )
+
+
+def _merged_slot_base(
+    state: DeltaState, s_ins_subj: torch.Tensor, m_subj: torch.Tensor
+) -> dict[str, torch.Tensor]:
+    """The carried slot-base planes of a merged table: recomputed at the
+    inserted subjects (the base is the same for the whole step) and
+    gathered for the rest through the merge's inversion, the
+    reference's sorted route: insert k lands at its existing-slot rank
+    plus k, and output slot j takes the existing slot ``j - (inserts
+    before j)`` when it is not an insert."""
+    n, cap = state.n, state.capacity
+    ki = s_ins_subj.shape[1]
+    dev = state.device
+    pos_ins = _row_searchsorted(state.d_subj, s_ins_subj) + torch.arange(
+        ki, dtype=torch.int32, device=dev
+    )
+    out_j = torch.arange(cap, dtype=torch.int32, device=dev).expand(n, cap).contiguous()
+    e = _row_searchsorted(pos_ins, out_j)  # inserts before slot j
+    e_c = torch.clamp(e, max=ki - 1)
+    is_ins = _take(pos_ins, e_c) == out_j
+    x = torch.clamp(out_j - e, max=cap - 1)  # the existing slot feeding j
+    ins_at_j = is_ins & (m_subj < SENTINEL)
+    subj_safe = torch.where(ins_at_j, m_subj, 0)
+    m_bpm = torch.where(
+        is_ins,
+        ins_at_j & state.bp_mask_at(subj_safe),
+        _take(bitpack.unpack_bits(state.d_bpmask, cap), x),
+    )
+    m_bpr = torch.where(
+        is_ins, torch.where(ins_at_j, state.bp_rank_at(subj_safe), 0), _take(state.d_bprank, x)
+    )
+    return {"d_bpmask": bitpack.pack_bits(m_bpm), "d_bprank": m_bpr}
 
 
 # ---------------------------------------------------------------------------
@@ -990,8 +1059,15 @@ def _check_supported(
         raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
-    if upto != 7:
-        raise NotImplementedError("upto < 7 (truncated profiling steps) is not ported yet")
+
+
+def _cut(state: DeltaState, t: torch.Tensor) -> tuple[DeltaState, dict[str, torch.Tensor]]:
+    """A truncated step's result: the state, ``pings_sent`` 0 and ``_t``
+    (int32, wrapping as the reference's int32 sums do)."""
+    return state, {
+        "pings_sent": torch.zeros((), dtype=torch.int32, device=state.device),
+        "_t": _wrap_i32(t.to(torch.int64)).to(torch.int32),
+    }
 
 
 def delta_step_impl(
@@ -1008,7 +1084,12 @@ def delta_step_impl(
     selection, 2 sender issue, 3 ping delivery and claim merge, 4 reply
     (+ full sync) and ack merge, 5 ping-req relay with its four exchange
     stages, then suspect declarations, 6 suspicion expiry.  Returns the
-    new state and the reference's metrics as int32[] tensors."""
+    new state and the reference's metrics as int32[] tensors.
+
+    ``upto`` < 7 truncates the step after that phase, a profiling aid:
+    it returns the state there and the reference's partial metrics,
+    ``pings_sent`` 0 and ``_t``, an int32 digest of the phase's outputs
+    (an [N] vector after phases 0 and 1)."""
     _check_supported(state, net, params, upto, knobs, prov)
     sw = params.swim
     n = state.n
@@ -1035,9 +1116,13 @@ def delta_step_impl(
     stats = _phase0_stats(state)
     maxpb = _max_piggyback_1d(stats.server_count, int(sw.piggyback_factor)).to(torch.int8)
     h_pre = stats.digest
+    if upto <= 0:
+        return _cut(state, stats.digest + maxpb.to(torch.int64))
     sel = _selection(state, stats, net, k_sel, params)
     gossiping, sends, t_safe = sel.gossiping, sel.sends, sel.t_safe
     wit, wit_valid = sel.wit, sel.wit_valid
+    if upto <= 1:
+        return _cut(state, t_safe.to(torch.int64) + wit[:, 0].to(torch.int64) + stats.digest)
 
     # -- phase 2: sender issues up to W changes -------------------------------
     bump = (state.d_pb >= 0) & sends[:, None]
@@ -1052,6 +1137,8 @@ def delta_step_impl(
     else:
         within = torch.zeros_like(bump)
     send_subj, send_key = _windowed_changes(state, within, w)
+    if upto <= 2:
+        return _cut(state, sum(x.sum(dtype=torch.int64) for x in (send_key, send_subj, t_safe, wit)))
 
     # -- phase 3: delivery + receiver merge -----------------------------------
     resp = net.up & net.responsive
@@ -1087,6 +1174,8 @@ def delta_step_impl(
         out = _merge_claims(state, g_subj, g_key, g_valid, sl_start)
         state, ping_applied = out.state, out.applied_points
         claims_dropped = late + mat_late
+    if upto <= 3:
+        return _cut(state, ping_applied)
 
     # -- phase 4: receiver replies; sender merges the ack ---------------------
     has_change2 = state.d_pb >= 0
@@ -1148,6 +1237,8 @@ def delta_step_impl(
         with torch.profiler.record_function("delta.ack_merge"):
             out = _merge_claims(state, *_sort_claim_rows(a_subj, a_key, a_valid), sl_start)
         state, ack_applied = out.state, out.applied_points
+    if upto <= 4:
+        return _cut(state, ack_applied)
 
     # -- phase 5: ping-req relay with the piggyback exchange ------------------
     failed = sends & ~ack
@@ -1200,6 +1291,8 @@ def delta_step_impl(
         state = _merge_claims(
             state, t_safe[:, None], dec_key[:, None], dec_valid[:, None], sl_start
         ).state
+    if upto <= 5:
+        return _cut(state, dec_valid.sum(dtype=torch.int32))
 
     # -- phase 6: suspicion countdowns fire -> faulty --------------------------
     n_expired = zero
@@ -1624,11 +1717,20 @@ def _keep_slots(
     neg = _i8(-1, state.device)
     d_subj = torch.where(keep, state.d_subj, SENTINEL)
     order = torch.argsort(d_subj, dim=1, stable=True)
+    planes = {}
+    if state.d_bpmask is not None:
+        # the carried slot-base planes ride the reorder
+        bpm = torch.where(keep, bitpack.unpack_bits(state.d_bpmask, state.capacity), False)
+        planes = {
+            "d_bpmask": bitpack.pack_bits(torch.gather(bpm, 1, order)),
+            "d_bprank": torch.gather(torch.where(keep, state.d_bprank, 0), 1, order),
+        }
     return state._replace(
         d_subj=torch.gather(d_subj, 1, order),
         d_key=torch.gather(torch.where(keep, d_key, 0), 1, order),
         d_pb=torch.gather(torch.where(keep, d_pb, neg), 1, order),
         d_sl=torch.gather(torch.where(keep, d_sl, neg), 1, order),
+        **planes,
     )
 
 

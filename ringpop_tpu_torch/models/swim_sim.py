@@ -27,10 +27,15 @@ The fault-model arms are ported: directed link rules
 jitter), per-node protocol periods (``NetState.period``) and the static
 ``phase_mod`` stagger, and the in-flight claim buffer
 (``ClusterState.pending``) that carries delayed claims across ticks.
-Arms of the reference that are not ported yet raise
-``NotImplementedError``: ``sparse_cap``, traced knobs, ``prov``,
-damping, ``relay_full_sync`` and n > 32768 (the block-prefix
-selection).
+So are the remaining step arms: sparse dissemination
+(``SwimParams.sparse_cap``, ``_swim_step_sparse``), the block-prefix
+lowerings that the selection and the sparse passes take for rows longer
+than ``_SPARSE_SMALL_N`` (the block search runs on the row-searchsorted
+kernel of ``ops/searchsorted.py``), flap damping (``init_state(damping=
+True)``: the ``damp``/``damped`` planes) and the relay's full rows
+(``SwimParams.relay_full_sync``).  Arms of the reference that are not
+ported yet raise ``NotImplementedError``: traced knobs, ``prov`` and
+the sparse step under a gossip ring.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ringpop_tpu_torch import prng, resolve_device
 from ringpop_tpu_torch.ops import gossip_remote_copy as _grc
 from ringpop_tpu_torch.ops.farmhash import mul32
 from ringpop_tpu_torch.ops.recv_merge import recv_merge
+from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
 
 # Status encoding: lattice rank == code (alive < suspect < faulty < leave).
 NONE = 0
@@ -59,9 +65,11 @@ STATUS_NAMES = {ALIVE: "alive", SUSPECT: "suspect", FAULTY: "faulty", LEAVE: "le
 INC_MAX = (1 << 27) - 1  # inc * 8 + status must fit int32
 
 _M32 = 0xFFFFFFFF
-# Largest row length whose selection prefix fits int16 (the small-n
-# branch of the reference's _choose_targets_and_witnesses).
+# Largest row length whose selection and sparse prefixes fit int16 (the
+# small-n branches); longer rows take the block-prefix lowerings.  Tests
+# lower it to force those at small n, as the reference's tests do.
 _SPARSE_SMALL_N = 32767
+_PREFIX_BLOCK = 64  # int8-safe inner prefix width (inner <= 64 < 127)
 
 
 def _scoped(name: str):
@@ -105,8 +113,11 @@ class ClusterState(NamedTuple):
     pb: torch.Tensor  # int8[N, N]
     suspect_left: torch.Tensor  # int8[N, N]
     tick: torch.Tensor  # int32[]
-    damp: torch.Tensor | None = None  # float16[N, N] (not ported)
-    damped: torch.Tensor | None = None  # bool[N, N] (not ported)
+    # flap damping (``init_state(damping=True)``): the per-pair penalty
+    # score, and the hysteresis bit that quarantines a subject from the
+    # viewer's ring
+    damp: torch.Tensor | None = None  # float16[N, N]
+    damped: torch.Tensor | None = None  # bool[N, N]
     # The in-flight claim buffer for per-link delay: slot ``tick % D``
     # matures at the start of tick ``tick``; a claim row delayed by d
     # folds (lattice max) into slot ``(tick + d) % D`` at its receiver.
@@ -190,9 +201,8 @@ def init_state(
     device: torch.device | str | None = None,
 ) -> ClusterState:
     """Fresh cluster state: ``mode='converged'`` (every node knows every
-    node alive) or ``mode='self'`` (each node knows only itself)."""
-    if damping:
-        raise NotImplementedError("damping tensors are not ported yet")
+    node alive) or ``mode='self'`` (each node knows only itself);
+    ``damping=True`` adds the zeroed damping planes."""
     dev = resolve_device(device)
     if inc is None:
         inc = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -212,6 +222,8 @@ def init_state(
         pb=torch.full((n, n), -1, dtype=torch.int8, device=dev),
         suspect_left=torch.full((n, n), -1, dtype=torch.int8, device=dev),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
+        damp=torch.zeros((n, n), dtype=torch.float16, device=dev) if damping else None,
+        damped=torch.zeros((n, n), dtype=torch.bool, device=dev) if damping else None,
     )
 
 
@@ -229,17 +241,31 @@ def _apply_mask(cur_key: torch.Tensor, in_key: torch.Tensor) -> torch.Tensor:
     return beats & ~leave_guard & (in_key > 0)
 
 
+# Elements of a row block that ``_view_hash`` widens to int64 at once
+# (512 MiB per temporary): the digest of an [N, N] view never builds an
+# int64 [N, N] tensor (13.4 GB at n = 40 960).
+_HASH_CHUNK = 1 << 26
+
+
 @_scoped("swim.view_hash")
 def _view_hash(view_key: torch.Tensor) -> torch.Tensor:
     """Commutative per-node view digest: int64[N] holding uint32 (the
-    full-sync trigger; uint32 products wrap via ``mul32``)."""
-    k = view_key.to(torch.int64)
-    h = mul32(k, 0x85EBCA6B) ^ (k >> 7)
-    h = mul32(h ^ (h >> 13), 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    idx = mul32(torch.arange(view_key.shape[0], device=view_key.device), 0x27D4EB2F)
-    h = torch.where(view_key > 0, h ^ idx, 0)
-    return h.sum(dim=1) & _M32
+    full-sync trigger; uint32 products wrap via ``mul32``), over blocks
+    of rows so that the int64 temporaries stay bounded."""
+    rows, n = view_key.shape
+    idx = mul32(torch.arange(n, dtype=torch.int64, device=view_key.device), 0x27D4EB2F)
+    step = max(1, _HASH_CHUNK // max(n, 1))
+    out = []
+    for lo in range(0, rows, step):
+        vk = view_key[lo : lo + step]
+        k = vk.to(torch.int64)
+        h = mul32(k, 0x85EBCA6B) ^ (k >> 7)
+        h = mul32(h ^ (h >> 13), 0xC2B2AE35)
+        h = h ^ (h >> 16)
+        out.append(torch.where(vk > 0, h ^ idx, 0).sum(dim=1))
+    if not out:
+        return torch.zeros(0, dtype=torch.int64, device=view_key.device)
+    return torch.cat(out) & _M32
 
 
 def _max_piggyback(status_ok: torch.Tensor, factor: int) -> torch.Tensor:
@@ -288,28 +314,60 @@ def _distinct_ranks(
     return torch.stack(ranks, dim=1), torch.stack(valids, dim=1)
 
 
+def _block_prefix(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-level row prefix of a bool [N, M] mask: ``(mb, inner, offs)``,
+    the mask False-padded to a multiple of ``_PREFIX_BLOCK`` and viewed
+    as [N, nb, B], the inclusive int8 prefix within each block, and the
+    exclusive int32 offset of each block [N, nb].  The inclusive prefix
+    of (i, j) is ``offs[i, j // B] + inner[i, j // B, j % B]``."""
+    b = _PREFIX_BLOCK
+    rows, m = mask.shape
+    pad = (-m) % b
+    if pad:
+        mask = torch.cat([mask, torch.zeros((rows, pad), dtype=torch.bool, device=mask.device)], 1)
+    mb = mask.reshape(rows, -1, b)
+    inner = torch.cumsum(mb.to(torch.int8), dim=2, dtype=torch.int8)
+    block_tot = inner[:, :, -1].to(torch.int32)
+    offs = torch.cumsum(block_tot, dim=1, dtype=torch.int32) - block_tot
+    return mb, inner, offs
+
+
 def _choose_targets_and_witnesses(
     pingable: torch.Tensor, k: int, key: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Probe target + ``k`` ping-req witnesses per node, by exact rank
-    located in one int16 row prefix (the small-n branch)."""
+    """Probe target + ``k`` ping-req witnesses per node, by exact rank:
+    located in one int16 row prefix up to ``_SPARSE_SMALL_N``, else in
+    the block prefix (the block by the row-searchsorted kernel over the
+    block offsets, the column by a compare-count inside the gathered
+    int8 block), the same picks bit for bit."""
     n = pingable.shape[0]
-    if n - 1 > _SPARSE_SMALL_N:
-        raise NotImplementedError(
-            f"n={n}: the block-prefix selection for n > {_SPARSE_SMALL_N + 1} "
-            "is not ported yet"
-        )
     count = pingable.sum(dim=1, dtype=torch.int32)
     ranks, valid = _distinct_ranks(count, k + 1, key)
-    csum = torch.cumsum(pingable.to(torch.int16), dim=1, dtype=torch.int16)
-    picks = []
-    for t in range(k + 1):
-        want = (ranks[:, t] + 1).to(torch.int16)
-        hit = pingable & (csum == want[:, None])
-        # argmax of an all-False row is 0, as in the reference
-        picks.append(torch.argmax(hit.to(torch.uint8), dim=1))
-    target = torch.where(valid[:, 0], picks[0], -1)
-    return target, valid[:, 0], torch.stack(picks[1:], dim=1), valid[:, 1:]
+    if n - 1 <= _SPARSE_SMALL_N:
+        csum = torch.cumsum(pingable.to(torch.int16), dim=1, dtype=torch.int16)
+        picks = []
+        for t in range(k + 1):
+            want = (ranks[:, t] + 1).to(torch.int16)
+            hit = pingable & (csum == want[:, None])
+            # argmax of an all-False row is 0, as in the reference
+            picks.append(torch.argmax(hit.to(torch.uint8), dim=1))
+        del csum
+        target = torch.where(valid[:, 0], picks[0], -1)
+        return target, valid[:, 0], torch.stack(picks[1:], dim=1), valid[:, 1:]
+    b = _PREFIX_BLOCK
+    _, inner, offs = _block_prefix(pingable)
+    want = (ranks + 1).contiguous()  # int32 [N, k + 1], 1-based inclusive
+    blk = row_searchsorted(offs, want, side="left") - 1
+    blk = torch.clamp(blk, 0, offs.shape[1] - 1).long()
+    residual = want - torch.gather(offs, 1, blk)  # 1..64 where valid
+    # gather the int8 blocks first and widen the [N, k + 1, B] slice after
+    inner_blk = torch.gather(inner, 1, blk[:, :, None].expand(-1, -1, b)).to(torch.int32)
+    del inner, offs
+    within = (inner_blk < residual[:, :, None]).sum(dim=2)  # a left search
+    # invalid ranks (masked by ``valid``) would index past the row; clamp
+    picks_all = torch.clamp(blk * b + within, max=n - 1)
+    target = torch.where(valid[:, 0], picks_all[:, 0], -1)
+    return target, valid[:, 0], picks_all[:, 1:], valid[:, 1:]
 
 
 def _drop(key: torch.Tensor, shape: tuple, loss: float, device: torch.device) -> torch.Tensor:
@@ -444,11 +502,29 @@ def _row_at(plane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     return plane[_ids(plane.shape[0], plane.device), col]
 
 
-def _row_update(plane: torch.Tensor, col: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """A copy of ``plane`` with ``plane[i, col[i]] = values[i]``."""
+def _row_update(
+    plane: torch.Tensor, col: torch.Tensor, values: torch.Tensor, op: str = "set"
+) -> torch.Tensor:
+    """A copy of ``plane`` with ``plane[i, col[i]]`` set to ``values[i]``
+    (``op="set"``) or raised to it (``op="max"``)."""
+    if _on_ring():
+        return _grc.ring_update_per_row(plane, col, values, op=op)
+    ids = _ids(plane.shape[0], plane.device)
+    if op == "max":
+        values = torch.maximum(plane[ids, col], values.to(plane.dtype))
+    elif op != "set":
+        raise ValueError(f"op={op!r}: set|max")
+    return plane.index_put((ids, col), values)
+
+
+def _row_update_owned(
+    plane: torch.Tensor, col: torch.Tensor, values: torch.Tensor
+) -> torch.Tensor:
+    """``_row_update`` of a plane the caller made and owns: written in
+    place (no [N, N] copy) unless a gossip ring routes the update."""
     if _on_ring():
         return _grc.ring_update_per_row(plane, col, values)
-    return plane.index_put((_ids(plane.shape[0], plane.device), col), values)
+    return plane.index_put_((_ids(plane.shape[0], plane.device), col), values)
 
 
 def _gather_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -463,6 +539,14 @@ class _Merge(NamedTuple):
     state: ClusterState
     applied: torch.Tensor  # bool[N, N]
     refuted: torch.Tensor  # bool[N]
+    flapped: torch.Tensor | None  # bool[N, N] with damping planes, else None
+
+
+def _or(a: torch.Tensor | None, b: torch.Tensor | None) -> torch.Tensor | None:
+    """Union of two flap masks, None standing for all-False."""
+    if a is None:
+        return b
+    return a if b is None else a | b
 
 
 @_scoped("swim.merge_incoming")
@@ -474,7 +558,9 @@ def _merge_incoming(
 ) -> _Merge:
     """Apply one batch of incoming changes at every receiver: refutation
     of rumors about self, then the override lattice; applied changes are
-    recorded with piggyback count 0 and drive the suspicion timers."""
+    recorded with piggyback count 0 and drive the suspicion timers.
+    With damping planes, ``flapped`` marks the applied transitions
+    between alive and suspect/faulty (either way)."""
     n = state.n
     dev = in_key.device
     eye = torch.eye(n, dtype=torch.bool, device=dev)
@@ -488,24 +574,33 @@ def _merge_incoming(
     new_self_inc = torch.maximum(self_inc, rumor_inc) + 1
 
     apply = _apply_mask(cur_key, in_key) & active[:, None] & ~eye
+    flapped = None
+    if state.damp is not None:
+        was = cur_key & 7
+        in_status = in_key & 7
+        flapped = apply & (
+            ((was == ALIVE) & ((in_status == SUSPECT) | (in_status == FAULTY)))
+            | (((was == SUSPECT) | (was == FAULTY)) & (in_status == ALIVE))
+        )
     view_key = torch.where(apply, in_key, cur_key)
     pb = torch.where(apply, 0, state.pb)
 
     ids = _ids(n, dev)
     diag_key = torch.where(refuted, new_self_inc * 8 + ALIVE, _diag(view_key))
-    view_key = _row_update(view_key, ids, diag_key.to(torch.int32))
-    pb = _row_update(pb, ids, torch.where(refuted, 0, _diag(pb)))
+    # both planes are this merge's own new tensors: written in place
+    view_key = _row_update_owned(view_key, ids, diag_key.to(torch.int32))
+    pb = _row_update_owned(pb, ids, torch.where(refuted, 0, _diag(pb)))
 
     applied = apply | (eye & refuted[:, None])
-    new_status = view_key & 7
-    suspect_left = torch.where(
-        applied & (new_status == SUSPECT), sl_start, state.suspect_left
-    )
-    suspect_left = torch.where(applied & (new_status != SUSPECT), -1, suspect_left)
+    del apply, eye
+    is_suspect = (view_key & 7) == SUSPECT
+    suspect_left = torch.where(applied & is_suspect, sl_start, state.suspect_left)
+    suspect_left = torch.where(applied & ~is_suspect, -1, suspect_left)
     return _Merge(
         state._replace(view_key=view_key, pb=pb, suspect_left=suspect_left),
         applied,
         refuted,
+        flapped,
     )
 
 
@@ -566,22 +661,44 @@ def _validate_params(n: int, params: SwimParams) -> int:
 def _check_supported(
     state: ClusterState, net: NetState, params: SwimParams, knobs: Any, prov: bool
 ) -> None:
-    """Raise on every arm of the reference step this slice does not port."""
+    """The reference step's own refusals, then every arm this port does
+    not carry."""
     if params.sparse_cap:
-        raise NotImplementedError("sparse_cap > 0 (sparse dissemination) is not ported yet")
+        if knobs is not None:
+            raise ValueError(
+                "sparse_cap selects the sparse-dissemination program, "
+                "which keeps its knobs compile-time; run knob sweeps "
+                "with sparse_cap=0"
+            )
+        if state.pending is not None:
+            raise NotImplementedError(
+                "sparse_cap does not compose with the latency model "
+                "(ClusterState.pending); run delay scenarios dense"
+            )
+        if prov:
+            raise NotImplementedError(
+                "the provenance plane needs the dense delivery evidence; "
+                "run traced scenarios with sparse_cap=0"
+            )
+        if _on_ring():
+            raise NotImplementedError(
+                "the sharded sparse step is not ported: its claim lists and "
+                "point merges are plain row gathers and scatters that the "
+                "reference leaves to XLA's partitioner, with no ring seam "
+                "to route them through; run sparse_cap unsharded"
+            )
+        if state.damp is not None:
+            raise NotImplementedError("sparse_cap does not support damping tensors")
+    if net.period is not None and params.phase_mod > 1:
+        raise ValueError(
+            "per-node periods (NetState.period, the gray-failure model) "
+            "do not compose with the static phase_mod stagger: a row of "
+            "P in the period tensor subsumes phase_mod=P exactly"
+        )
     if knobs is not None:
         raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
-    if state.damp is not None or state.damped is not None:
-        raise NotImplementedError("damping tensors are not ported yet")
-    if params.relay_full_sync:
-        raise NotImplementedError("relay_full_sync=True is not ported yet")
-    if state.n - 1 > _SPARSE_SMALL_N:
-        raise NotImplementedError(
-            f"n={state.n}: the block-prefix selection for n > "
-            f"{_SPARSE_SMALL_N + 1} is not ported yet"
-        )
     if params.probe not in ("sweep", "uniform"):
         raise ValueError(f"unknown probe policy: {params.probe!r}")
 
@@ -601,12 +718,6 @@ def _phase01_select(
     h_pre = _view_hash(state.view_key)
     own_status = _diag(status)
     gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
-    if net.period is not None and params.phase_mod > 1:
-        raise ValueError(
-            "per-node periods (NetState.period, the gray-failure model) "
-            "do not compose with the static phase_mod stagger: a row of "
-            "P in the period tensor subsumes phase_mod=P exactly"
-        )
     per = torch.clamp(net.period, min=1) if net.period is not None else None
     target, has_target, wit, wit_valid = _choose_targets_and_witnesses(
         pingable, params.ping_req_size, k_sel
@@ -646,6 +757,23 @@ def _stage_issue(
     return st._replace(pb=pb), issued
 
 
+def _claim_rows(view_key: torch.Tensor, issued: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``where(issued, view_key, 0)[idx]``: the issued claims of the rows
+    ``idx``, gathered first and masked in place (no [N, N] claim plane
+    beside the gathered rows)."""
+    rows = _gather_rows(view_key, idx)
+    return rows.masked_fill_(~_gather_rows(issued, idx), 0)
+
+
+def _max_into(acc: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """The lattice max of ``acc`` and ``x``, in place in ``acc``; None
+    (nothing yet) takes ``x`` itself (claims are >= 0, so an all-zero
+    start changes nothing).  Both are the caller's own tensors."""
+    if acc is None:
+        return x
+    return torch.maximum(acc, x, out=acc)
+
+
 def _inbound_counts(t_safe: torch.Tensor, fwd_ok: torch.Tensor) -> torch.Tensor:
     """int32[N] delivered-ping count per receiver (sorted receivers and
     run bounds, no scatter)."""
@@ -667,6 +795,21 @@ def _receiver_merge(
     return recv_merge(t_safe, fwd_ok, claim_rows)
 
 
+class _Handoff:
+    """A state passed with its only reference: the callee takes it out,
+    so that the caller's reference does not keep it alive through the
+    call (at n = 40 960 a dense state is 10 GB)."""
+
+    __slots__ = ("state",)
+
+    def __init__(self, state: ClusterState):
+        self.state = state
+
+    def take(self) -> ClusterState:
+        state, self.state = self.state, None
+        return state
+
+
 class _PingReq(NamedTuple):
     state: ClusterState
     failed: torch.Tensor  # bool[N]
@@ -674,11 +817,13 @@ class _PingReq(NamedTuple):
     declared: torch.Tensor  # bool[N]
     was_alive_at_target: torch.Tensor  # bool[N]
     changes_applied: torch.Tensor  # int32[]
+    flapped: torch.Tensor | None  # bool[N, N] exchange flaps (damping), else None
+    relay_full_syncs: torch.Tensor  # int32[] 5c full rows (relay_full_sync)
 
 
 @_scoped("swim.pingreq")
 def _phase5_pingreq(
-    state: ClusterState,
+    hand: _Handoff,
     net: NetState,
     k_loss3: torch.Tensor,
     sel: _Selection,
@@ -687,11 +832,16 @@ def _phase5_pingreq(
     params: SwimParams,
 ) -> _PingReq:
     """Phase 5: failed probes -> ping-req relay with the full piggyback
-    exchange at all four hops (stages 5a-5d) -> suspect.
+    exchange at all four hops (stages 5a-5d) -> suspect.  With
+    ``params.relay_full_sync``, stage 5c answers a witness with the
+    target's whole row when the target has nothing non-echo to issue to
+    it but its post-5b view hash differs from the witness's period-start
+    hash (the phase-4 full-sync rule at the relay hop).
 
     The reference runs the exchange and each stage under ``lax.cond``;
     here they branch on the predicate on the host.  A skipped stage is a
     proven no-op, so both give the same values."""
+    state = hand.take()
     n = state.n
     dev = state.view_key.device
     ids = _ids(n, dev)
@@ -733,6 +883,8 @@ def _phase5_pingreq(
     declare_suspect = failed & ~any_success & definite_fail
     maxpb8 = sel.maxpb8
     applied = torch.zeros((), dtype=torch.int32, device=dev)
+    relay_fs = torch.zeros((), dtype=torch.int32, device=dev)
+    flaps: list[torch.Tensor | None] = [None]
 
     def slot_counts(recv_idx: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         total = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -744,11 +896,23 @@ def _phase5_pingreq(
         if not bool(pred):
             return st, applied
         mrg = _merge_incoming(st, build_in(st), active, sl_start)
+        flaps[0] = _or(flaps[0], mrg.flapped)
         return mrg.state, applied + mrg.applied.sum(dtype=torch.int32)
 
-    # With no active change anywhere the whole exchange is a proven no-op.
-    if bool(req_del.any() & (state.pb >= 0).any()):
+    # With no active change anywhere the whole exchange is a proven no-op;
+    # under relay_full_sync it is not (a diverged but quiet target must
+    # still answer full rows).
+    xch_pred = req_del.any()
+    if not params.relay_full_sync:
+        xch_pred = xch_pred & (state.pb >= 0).any()
+    if bool(xch_pred):
+        # The stage merges rebind ``st``, so the entry state is dropped as
+        # they go, and each stage's masks as soon as it is done: at
+        # n = 40 960 an int32 [N, N] plane is 6.7 GB.  The receiver merge
+        # reads only delivered senders' rows, so the claim rows it gets
+        # need no per-slot delivery mask.
         st = state
+        del state
         # -- 5a: the ping-req body carries the source's changes
         nreq = (failed[:, None] & sel.wit_valid).sum(dim=1, dtype=torch.int32)
         st, issue_src = _stage_issue(st, nreq, maxpb8)
@@ -757,17 +921,15 @@ def _phase5_pingreq(
 
         def in_a(st2):
             claims_src = torch.where(issue_src, st2.view_key, 0)
-            acc = torch.zeros((n, n), dtype=torch.int32, device=dev)
+            acc = None
             for m in range(kk):
-                slot_in, _ = _receiver_merge(
-                    wit_safe[:, m],
-                    req_del[:, m],
-                    torch.where(req_del[:, m][:, None], claims_src, 0),
-                )
-                acc = torch.maximum(acc, slot_in)
+                slot_in, _ = _receiver_merge(wit_safe[:, m], req_del[:, m], claims_src)
+                acc = _max_into(acc, slot_in)
+                del slot_in  # not kept alive through the next slot's merge
             return acc
 
         st, applied = stage_merge(st, applied, issue_src.any(), in_a, nsrv > 0)
+        del in_a, issue_src
 
         # -- 5b: the witness relay-pings the target with its changes
         st, issue_wit = _stage_issue(st, nsrv, maxpb8)
@@ -776,66 +938,95 @@ def _phase5_pingreq(
         ntgt = slot_counts(t_safe[:, None].expand(kshape), ping_del)
 
         def in_b(st2):
-            claims_wit = torch.where(issue_wit, st2.view_key, 0)
-            acc = torch.zeros((n, n), dtype=torch.int32, device=dev)
+            acc = None
             for m in range(kk):
-                slot_in, _ = _receiver_merge(
-                    t_safe,
-                    ping_del[:, m],
-                    torch.where(
-                        ping_del[:, m][:, None],
-                        _gather_rows(claims_wit, wit_safe[:, m]),
-                        0,
-                    ),
-                )
-                acc = torch.maximum(acc, slot_in)
+                rows = _claim_rows(st2.view_key, issue_wit, wit_safe[:, m])
+                slot_in, _ = _receiver_merge(t_safe, ping_del[:, m], rows)
+                del rows
+                acc = _max_into(acc, slot_in)
+                del slot_in  # not kept alive through the next slot's merge
             return acc
 
         st, applied = stage_merge(st, applied, issue_wit.any(), in_b, ntgt > 0)
+        del in_b, issue_wit
 
         # -- 5c: the target's ack carries its changes back
         st, issue_tgt = _stage_issue(st, ntgt, maxpb8)
         nwit_ack = slot_counts(wit_safe, ack_del)
 
+        fs_slots = None
+        if params.relay_full_sync:
+            # the relay's full sync: nothing non-echo to issue to this
+            # witness, but the target's post-5b hash differs from the
+            # witness's period-start hash
+            h_mid = _view_hash(st.view_key)
+            rows0 = _gather_rows(torch.where(issue_tgt, st.view_key, 0), t_safe)
+            issue_tgt_t = _gather_rows(issue_tgt, t_safe)
+            fs_cols = []
+            for m in range(kk):
+                w_m = wit_safe[:, m]
+                echo0 = _gather_rows(deliv_wit, w_m) & (rows0 == _gather_rows(st.view_key, w_m))
+                has_claim = (ack_del[:, m][:, None] & issue_tgt_t & ~echo0).any(dim=1)
+                fs_cols.append(ack_del[:, m] & ~has_claim & (h_mid[t_safe] != sel.h_pre[w_m]))
+            del rows0, issue_tgt_t, echo0
+            fs_slots = torch.stack(fs_cols, dim=1)  # bool[N, kk]
+            relay_fs = fs_slots.sum(dtype=torch.int32)
+
         def in_c(st2):
-            rows = _gather_rows(torch.where(issue_tgt, st2.view_key, 0), t_safe)
-            acc = torch.zeros((n, n), dtype=torch.int32, device=dev)
+            rows = _claim_rows(st2.view_key, issue_tgt, t_safe)
+            full_rows = _gather_rows(st2.view_key, t_safe) if fs_slots is not None else None
+            acc = None
             for m in range(kk):
                 w_m = wit_safe[:, m]
                 # anti-echo: drop claims equal to what the witness itself
                 # delivered to this target in 5b
-                echo = _gather_rows(deliv_wit, w_m) & (
-                    rows == _gather_rows(st2.view_key, w_m)
-                )
-                send = torch.where(ack_del[:, m][:, None] & ~echo, rows, 0)
+                send = _gather_rows(st2.view_key, w_m)
+                echo = rows == send
+                echo &= _gather_rows(deliv_wit, w_m)
+                send.copy_(rows)
+                send.masked_fill_(echo, 0)
+                del echo
+                if fs_slots is not None:
+                    send = torch.where(fs_slots[:, m][:, None] & (full_rows > 0), full_rows, send)
                 slot_in, _ = _receiver_merge(w_m, ack_del[:, m], send)
-                acc = torch.maximum(acc, slot_in)
+                del send
+                acc = _max_into(acc, slot_in)
+                del slot_in  # not kept alive through the next slot's merge
             return acc
 
-        st, applied = stage_merge(st, applied, issue_tgt.any(), in_c, nwit_ack > 0)
+        pred_c = issue_tgt.any()
+        if fs_slots is not None:
+            pred_c = pred_c | fs_slots.any()
+        st, applied = stage_merge(st, applied, pred_c, in_c, nwit_ack > 0)
+        del in_c, issue_tgt, deliv_wit
 
         # -- 5d: the witness response carries its (fresh) changes
         st, issue_wit2 = _stage_issue(st, nsrv, maxpb8)
         any_resp = resp_del.any(dim=1)
 
         def in_d(st2):
-            claims_wit2 = torch.where(issue_wit2, st2.view_key, 0)
             acc = torch.zeros((n, n), dtype=torch.int32, device=dev)
             for m in range(kk):
-                rows = _gather_rows(claims_wit2, wit_safe[:, m])
-                echo = deliv_src & (rows == st2.view_key)
-                acc = torch.maximum(
-                    acc, torch.where(resp_del[:, m][:, None] & ~echo, rows, 0)
-                )
+                rows = _claim_rows(st2.view_key, issue_wit2, wit_safe[:, m])
+                drop = rows == st2.view_key
+                drop &= deliv_src
+                drop |= ~resp_del[:, m][:, None]
+                rows.masked_fill_(drop, 0)
+                del drop
+                torch.maximum(acc, rows, out=acc)
             return acc
 
         st, applied = stage_merge(st, applied, issue_wit2.any(), in_d, any_resp)
+        del in_d, issue_wit2, deliv_src
         state = st
 
     # the declaration sees the post-exchange view
     was_alive_at_target = (state.view_key[ids, t_safe] & 7) == ALIVE
     state, declared = _declare(state, declare_suspect, t_safe, SUSPECT, sl_start)
-    return _PingReq(state, failed, declare_suspect, declared, was_alive_at_target, applied)
+    return _PingReq(
+        state, failed, declare_suspect, declared, was_alive_at_target, applied,
+        flaps[0], relay_fs,
+    )
 
 
 @_scoped("swim.expiry")
@@ -846,7 +1037,10 @@ def _phase6_expiry(
     sl = state.suspect_left
     sl1 = torch.where(sl > 0, sl - 1, sl)
     expired = (sl1 == 0) & ((state.view_key & 7) == SUSPECT) & gossiping[:, None]
-    vk = torch.where(expired, (state.view_key >> 3) * 8 + FAULTY, state.view_key)
+    faulty = state.view_key | 7
+    faulty -= 7 - FAULTY  # inc * 8 + FAULTY, one int32 temporary
+    vk = torch.where(expired, faulty, state.view_key)
+    del faulty
     pb = torch.where(expired, 0, state.pb)
     sl1 = torch.where(expired, -1, sl1)
     return state._replace(view_key=vk, pb=pb, suspect_left=sl1), expired
@@ -875,8 +1069,28 @@ def swim_step_impl(
     issue; 3. ping delivery + receiver merge; 4. receiver reply (+ full
     sync) + sender merge; 5. failed probes -> ping-req -> suspect;
     6. suspicion countdowns fire -> faulty.  Returns the new state and
-    the reference's metrics, as int32[] tensors."""
-    _check_supported(state, net, params, knobs, prov)
+    the reference's metrics, as int32[] tensors.  ``params.sparse_cap``
+    takes the sparse-dissemination step (``_swim_step_sparse``)."""
+    return _swim_step_handed(_Handoff(state), net, key, params, knobs, prov)
+
+
+def _swim_step_handed(
+    hand: _Handoff,
+    net: NetState,
+    key: torch.Tensor,
+    params: SwimParams,
+    knobs: Any = None,
+    prov: bool = False,
+) -> tuple[ClusterState, dict[str, torch.Tensor]]:
+    """``swim_step_impl`` on a state handed over: when the caller keeps no
+    reference of its own (``SimCluster.tick``, ``_swim_run_handed``), the
+    entry state is freed once it is replaced.  A refusal leaves
+    ``hand.state`` in place; past ``hand.take()`` it is gone."""
+    _check_supported(hand.state, net, params, knobs, prov)
+    sl_start = _validate_params(hand.state.n, params)
+    if params.sparse_cap:
+        return _swim_step_sparse(hand, net, key, params, sl_start)
+    state = hand.take()
     n = state.n
     dev = state.view_key.device
     has_delay = state.pending is not None
@@ -887,14 +1101,13 @@ def swim_step_impl(
     else:
         k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
     ids = _ids(n, dev)
-    sl_start = _validate_params(n, params)
     loss = float(params.loss)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
 
     # -- in-flight claims mature at the start of the tick
-    mat_applied = zero
+    mat_applied, mat_flapped = zero, None
     if has_delay:
-        state, mat_applied = _mature(state, net, sl_start)
+        state, mat_applied, mat_flapped = _mature(state, net, sl_start)
 
     # -- phases 0-1: derived views + probe/witness selection
     sel = _phase01_select(state, net, k_sel, params)
@@ -937,7 +1150,8 @@ def swim_step_impl(
     merged = _merge_incoming(state, in_key, got_ping, sl_start)
     state = merged.state
     ping_applied = merged.applied.sum(dtype=torch.int32)
-    del in_key
+    flap3 = merged.flapped
+    del in_key, merged
 
     # -- phase 4: receiver replies; sender merges the ack
     has_change2 = state.pb >= 0
@@ -974,14 +1188,29 @@ def swim_step_impl(
         merged2 = _merge_incoming(state, in2_key, ack, sl_start)
     state = merged2.state
     ack_applied = merged2.applied.sum(dtype=torch.int32)
-    del in2_key, merged, merged2
+    flap4 = merged2.flapped
+    del in2_key, merged2
 
     # -- phase 5: ping-req for failed probes
-    pr = _phase5_pingreq(state, net, k_loss3, sel, ack, sl_start, params)
+    hand = _Handoff(state)
+    del state
+    pr = _phase5_pingreq(hand, net, k_loss3, sel, ack, sl_start, params)
     state = pr.state
 
     # -- phase 6: suspicion countdowns fire -> faulty
     state, expired = _phase6_expiry(state, gossiping)
+
+    # -- flap damping (with the damping planes only)
+    n_damped = zero
+    if state.damp is not None:
+        flaps = _or(_or(_or(flap3, flap4), pr.flapped), mat_flapped)
+        if flaps is None:
+            flaps = torch.zeros((n, n), dtype=torch.bool, device=dev)
+        # a viewer that itself declares alive -> suspect flaps too
+        declare_flap = pr.declared & pr.was_alive_at_target
+        flaps = _row_update(flaps, t_safe, declare_flap, op="max")
+        state = _damp_update(state, flaps, params)
+        n_damped = state.damped.sum(dtype=torch.int32)
 
     state = state._replace(tick=state.tick + 1)
     metrics = {
@@ -994,8 +1223,8 @@ def swim_step_impl(
         "pingreq_changes_applied": pr.changes_applied,
         "suspects_declared": pr.declare_suspect.sum(dtype=torch.int32),
         "faulty_declared": expired.sum(dtype=torch.int32),
-        "damped_pairs": zero,
-        "relay_full_syncs": zero,
+        "damped_pairs": n_damped,
+        "relay_full_syncs": pr.relay_full_syncs,
     }
     if has_delay:
         metrics["delayed_claims"] = dly3.sum(dtype=torch.int32) + dly4.sum(dtype=torch.int32)
@@ -1003,12 +1232,35 @@ def swim_step_impl(
     return state, metrics
 
 
+@_scoped("swim.damp")
+def _damp_update(state: ClusterState, flaps: torch.Tensor, params: SwimParams) -> ClusterState:
+    """Decay every score, add the penalty where a flap happened, and
+    move the hysteresis bit: set above ``damp_suppress``, cleared below
+    ``damp_reuse``.  The score accumulates in float32 (decay and penalty
+    rounded to float32 first, a multiply then an add) and is stored as
+    float16; the thresholds compare in float16, as the reference's
+    weakly typed scalars beside a float16 plane do."""
+    dev = state.damp.device
+    decay = torch.full((), params.damp_decay_per_tick, dtype=torch.float32, device=dev)
+    penalty = torch.full((), params.damp_penalty, dtype=torch.float32, device=dev)
+    nil = torch.zeros((), dtype=torch.float32, device=dev)
+    damp = (state.damp.to(torch.float32) * decay + torch.where(flaps, penalty, nil)).to(
+        torch.float16
+    )
+    suppress = torch.full((), params.damp_suppress, dtype=torch.float16, device=dev)
+    reuse = torch.full((), params.damp_reuse, dtype=torch.float16, device=dev)
+    damped = (damp > suppress) | (~(damp < reuse) & state.damped)
+    return state._replace(damp=damp, damped=damped)
+
+
 @_scoped("swim.mature")
-def _mature(state: ClusterState, net: NetState, sl_start: int) -> tuple[ClusterState, torch.Tensor]:
+def _mature(
+    state: ClusterState, net: NetState, sl_start: int
+) -> tuple[ClusterState, torch.Tensor, torch.Tensor | None]:
     """Slot ``tick % D`` of the in-flight buffer lands at every up and
     responsive receiver, and is cleared (a stopped receiver's claims are
     lost).  Returns the state, with a buffer this step owns and writes
-    in place from here on, and the applied count.
+    in place from here on, the applied count and the merge's flaps.
 
     The reference merges under ``lax.cond(any(slot > 0))``; here the
     merge runs every tick: a slot of zeros is no claim anywhere, so the
@@ -1018,7 +1270,11 @@ def _mature(state: ClusterState, net: NetState, sl_start: int) -> tuple[ClusterS
     pending = state.pending.clone()
     pending.index_fill_(0, slot0, 0)
     merged = _merge_incoming(state, mature, net.up & net.responsive, sl_start)
-    return merged.state._replace(pending=pending), merged.applied.sum(dtype=torch.int32)
+    return (
+        merged.state._replace(pending=pending),
+        merged.applied.sum(dtype=torch.int32),
+        merged.flapped,
+    )
 
 
 def _park(
@@ -1040,6 +1296,266 @@ def _park(
     pending.view(dd * n, n).scatter_reduce_(0, idx, rows, "amax")
 
 
+# ---------------------------------------------------------------------------
+# sparse dissemination (SwimParams.sparse_cap)
+# ---------------------------------------------------------------------------
+
+# Elements of the [N, columns] position block that the large-row
+# ``_compact_rows`` scatters at once (int64: 512 MiB)
+_COMPACT_CHUNK = 1 << 26
+
+
+def _capped_within(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """``mask & (row-prefix-count(mask) <= cap)``, the first ``cap`` True
+    entries per row: by an int16 prefix for short rows, else by the block
+    prefix with a per-block int8 threshold (no int32 [N, N] prefix)."""
+    n = mask.shape[1]
+    if n <= _SPARSE_SMALL_N:
+        return mask & (torch.cumsum(mask.to(torch.int16), dim=1, dtype=torch.int16) <= cap)
+    mb, inner, offs = _block_prefix(mask)
+    # inner >= 1 at every True entry, so a floor of -1 makes exhausted
+    # blocks compare False; the ceiling 127 means "all fit"
+    thr = torch.clamp(cap - offs, -1, 127).to(torch.int8)
+    within = mb & (inner <= thr[:, :, None])
+    return within.reshape(mask.shape[0], -1)[:, :n]
+
+
+def _compact_rows(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """int32[N, cap]: the column indices of the first ``cap`` True
+    entries per row, -1 padded.  Positions at or past ``cap`` land in a
+    spare column that is cut off (the reference's ``mode="drop"``).
+    Long rows scatter block range by block range from the block prefix,
+    so no [N, N] position tensor is built."""
+    rows, n = mask.shape
+    dev = mask.device
+    out = torch.full((rows, cap + 1), -1, dtype=torch.int32, device=dev)
+    if n <= _SPARSE_SMALL_N:
+        cidx = torch.cumsum(mask.to(torch.int16), dim=1, dtype=torch.int16)
+        pos = torch.where(mask & (cidx <= cap), cidx.to(torch.int64) - 1, cap)
+        del cidx
+        cols = torch.arange(n, dtype=torch.int32, device=dev).expand(rows, n)
+        out.scatter_(1, pos, cols)
+        return out[:, :cap]
+    b = _PREFIX_BLOCK
+    mb, inner, offs = _block_prefix(mask)
+    nb = mb.shape[1]
+    step = max(1, _COMPACT_CHUNK // max(rows * b, 1))
+    for lo in range(0, nb, step):
+        hi = min(nb, lo + step)
+        pos = offs[:, lo:hi, None].to(torch.int64) + inner[:, lo:hi].to(torch.int64) - 1
+        pos = torch.clamp(torch.where(mb[:, lo:hi], pos, cap), max=cap)
+        cols = torch.arange(lo * b, hi * b, dtype=torch.int32, device=dev)
+        out.scatter_(1, pos.reshape(rows, -1), cols.expand(rows, -1))
+    return out[:, :cap]
+
+
+def _point_merge(
+    state: ClusterState,
+    r_idx: torch.Tensor,  # int[B, C] receiver per claim
+    subj: torch.Tensor,  # int[B, C] subject per claim (-1 = none)
+    claim_key: torch.Tensor,  # int32[B, C]
+    valid: torch.Tensor,  # bool[B, C]
+    sl_start: int,
+) -> tuple[ClusterState, torch.Tensor, torch.Tensor]:
+    """Apply compact claim lists at their (receiver, subject) points: the
+    sparse ``_merge_incoming``.  The override mask is evaluated per claim
+    against the pre-merge view (the reference's documented sparse
+    convention); the claims at one point then fold to their lattice max,
+    here by an ``amax`` scatter, and the most refuting self claim decides
+    a refutation.  Returns (state, applied bool[N, N], refuted bool[N])."""
+    n = state.n
+    dev = state.view_key.device
+    ids = _ids(n, dev)
+    subj_safe = torch.clamp(subj, 0, n - 1).long()
+    r_safe = torch.clamp(r_idx, 0, n - 1).long()
+    flat = (r_safe * n + subj_safe).reshape(-1)
+    cur = state.view_key.reshape(-1)[flat].reshape(subj_safe.shape)
+    self_claim = valid & (subj_safe == r_safe)
+    normal = valid & (subj_safe != r_safe) & _apply_mask(cur, claim_key)
+
+    # every key is >= 0, so a zero value is no update under the max
+    v_norm = torch.where(normal, claim_key, 0).reshape(-1)
+    vk = state.view_key.clone()
+    vk.view(-1).scatter_reduce_(0, flat, v_norm, "amax")
+
+    self_key = torch.zeros(n, dtype=torch.int32, device=dev)
+    self_key.scatter_reduce_(
+        0, r_safe.reshape(-1), torch.where(self_claim, claim_key, 0).reshape(-1), "amax"
+    )
+    rumor_status = self_key & 7
+    refuted = (rumor_status == SUSPECT) | (rumor_status == FAULTY)
+    self_inc = torch.diagonal(state.view_key) >> 3
+    new_self_inc = torch.maximum(self_inc, self_key >> 3) + 1
+    diag = torch.diagonal(vk)
+    diag.copy_(torch.where(refuted, new_self_inc * 8 + ALIVE, diag))
+
+    # applied points: every write is True, so colliding writes agree;
+    # the claims that apply nothing aim at a spare element
+    applied = torch.zeros(n * n + 1, dtype=torch.bool, device=dev)
+    applied.scatter_(0, torch.where(normal.reshape(-1), flat, n * n), True)
+    applied = applied[: n * n].view(n, n)
+    eye_applied = torch.diagonal(applied)
+    eye_applied.copy_(eye_applied | refuted)
+    pb = torch.where(applied, 0, state.pb)
+    new_status = vk & 7
+    sl = torch.where(applied & (new_status == SUSPECT), sl_start, state.suspect_left)
+    sl = torch.where(applied & (new_status != SUSPECT), -1, sl)
+    return state._replace(view_key=vk, pb=pb, suspect_left=sl), applied, refuted
+
+
+def _swim_step_sparse(
+    hand: _Handoff, net: NetState, key: torch.Tensor, params: SwimParams, sl_start: int
+) -> tuple[ClusterState, dict[str, torch.Tensor]]:
+    """The protocol period with compact change lists: each ping and ack
+    carries at most ``sparse_cap`` changes as (subject, key) lists applied
+    by ``_point_merge``.  Phases 0-2, 5 and 6 are the dense code; the
+    step equals the dense one whenever no row holds more than
+    ``sparse_cap`` active changes, and entries past the cap neither send
+    nor spend budget.  A tick with a full sync takes the dense reply."""
+    state = hand.take()
+    n = state.n
+    dev = state.view_key.device
+    cap = int(params.sparse_cap)
+    k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
+    ids = _ids(n, dev)
+    loss = float(params.loss)
+
+    # -- phases 0-1: shared with the dense step
+    sel = _phase01_select(state, net, k_sel, params)
+    gossiping, sends, t_safe = sel.gossiping, sel.sends, sel.t_safe
+    maxpb8, h_pre = sel.maxpb8, sel.h_pre
+
+    # -- phase 2: capped issue; only sent changes spend budget
+    bump = (state.pb >= 0) & sends[:, None]
+    pb1 = torch.where(bump, state.pb + 1, state.pb)
+    issue_ok = bump & (pb1 <= maxpb8)
+    del pb1
+    issued_s = _capped_within(issue_ok, cap)
+    bump_eff = bump & ~(issue_ok & ~issued_s)
+    del bump, issue_ok
+    pb_next = torch.where(bump_eff, state.pb + 1, state.pb)
+    pb_next = torch.where(bump_eff & (pb_next > maxpb8), -1, pb_next)
+    state = state._replace(pb=pb_next)
+    del bump_eff, pb_next
+
+    # -- phase 3: compact delivery + point merge
+    resp = net.up & net.responsive
+    fwd_ok = (
+        sends
+        & _adj(net, ids, t_safe)
+        & ~_drop_net(k_loss1, (n,), loss, net, ids, t_safe)
+        & resp[t_safe]
+    )
+    subj = _compact_rows(issued_s, cap)  # int32[N, cap], -1 padded
+    del issued_s
+    subj_safe = torch.clamp(subj, 0, n - 1).long()
+    claim_key = torch.gather(state.view_key, 1, subj_safe)
+    valid_claim = (subj >= 0) & fwd_ok[:, None]
+    # the sent set as a bitmap (the anti-echo reference); pad claims aim
+    # at spare columns past n
+    spare = n + torch.arange(cap, dtype=torch.int64, device=dev)[None, :]
+    delivered = torch.zeros((n, n + cap), dtype=torch.bool, device=dev)
+    delivered.scatter_(1, torch.where(subj >= 0, subj_safe, spare), valid_claim)
+    delivered = delivered[:, :n]
+    inbound = _inbound_counts(t_safe, fwd_ok)
+    got_ping = inbound > 0
+
+    r_idx = t_safe[:, None].expand(n, cap)
+    state, applied3, _ = _point_merge(state, r_idx, subj, claim_key, valid_claim, sl_start)
+    ping_applied = applied3.sum(dtype=torch.int32)
+    del applied3
+
+    # -- phase 4a: receiver piggyback bookkeeping (entries past the cap
+    # window are not sent this tick and keep their budget)
+    has_change2 = state.pb >= 0
+    rep_issuable = has_change2 & got_ping[:, None] & (state.pb + 1 <= maxpb8)
+    within_rep = _capped_within(rep_issuable, cap)
+    overflow_rep = rep_issuable & ~within_rep
+    del rep_issuable
+    inb8 = torch.clamp(inbound, max=127).to(torch.int8)[:, None]
+    served = got_ping[:, None] & has_change2 & ~overflow_rep
+    del has_change2, overflow_rep
+    evict = served & (state.pb > maxpb8 - inb8)
+    pb_after = torch.where(evict, -1, torch.where(served, state.pb + inb8, state.pb))
+    state = state._replace(pb=pb_after)
+    del served, evict, pb_after
+    h_post = _view_hash(state.view_key)
+
+    # -- phase 4b: full-sync detection without a dense reply matrix: any
+    # non-echo claim for sender s = the receiver's issuable count minus
+    # the issuable echo entries among s's sent subjects
+    rep_count = within_rep.sum(dim=1, dtype=torch.int32)
+    rflat = (r_idx.long() * n + subj_safe).reshape(-1)
+    rcv_key_at = state.view_key.reshape(-1)[rflat].reshape(n, cap)
+    snd_key_at = torch.gather(state.view_key, 1, subj_safe)
+    echo_issuable = (
+        valid_claim
+        & within_rep.reshape(-1)[rflat].reshape(n, cap)
+        & (rcv_key_at == snd_key_at)
+    )
+    rep_any = rep_count[t_safe] > echo_issuable.sum(dim=1, dtype=torch.int32)
+    full_sync = fwd_ok & ~rep_any & (h_post[t_safe] != h_pre)
+    ack = fwd_ok & _adj(net, t_safe, ids) & ~_drop_net(k_loss2, (n,), loss, net, t_safe, ids)
+
+    if bool(full_sync.any()):
+        # the dense reply
+        reply_key = state.view_key.index_select(0, t_safe.long())
+        rep_row = within_rep.index_select(0, t_safe.long()) & ~(
+            delivered & (reply_key == state.view_key)
+        )
+        send_row = torch.where(full_sync[:, None], reply_key > 0, rep_row)
+        del rep_row
+        in2_key = torch.where(send_row & ack[:, None], reply_key, 0)
+        del reply_key, send_row
+        merged2 = _merge_incoming(state, in2_key, ack, sl_start)
+        del in2_key
+        state = merged2.state
+        ack_applied = merged2.applied.sum(dtype=torch.int32)
+        del merged2
+    else:
+        # the sparse reply
+        rsubj = _compact_rows(within_rep, cap)  # per receiver
+        subj2 = rsubj.index_select(0, t_safe.long())  # [N(sender), cap]
+        subj2_safe = torch.clamp(subj2, 0, n - 1).long()
+        key2 = state.view_key.reshape(-1)[
+            (t_safe.long()[:, None] * n + subj2_safe).reshape(-1)
+        ].reshape(n, cap)
+        echo2 = torch.gather(delivered, 1, subj2_safe) & (
+            key2 == torch.gather(state.view_key, 1, subj2_safe)
+        )
+        valid2 = (subj2 >= 0) & ack[:, None] & ~echo2
+        sidx = ids[:, None].expand(n, cap)
+        state, applied4, _ = _point_merge(state, sidx, subj2, key2, valid2, sl_start)
+        ack_applied = applied4.sum(dtype=torch.int32)
+        del applied4
+    del delivered, within_rep
+
+    # -- phase 5: ping-req (shared with the dense step)
+    hand = _Handoff(state)
+    del state
+    pr = _phase5_pingreq(hand, net, k_loss3, sel, ack, sl_start, params)
+    state = pr.state
+
+    # -- phase 6: suspicion countdowns (shared)
+    state, expired = _phase6_expiry(state, gossiping)
+
+    state = state._replace(tick=state.tick + 1)
+    metrics = {
+        "pings_sent": sends.sum(dtype=torch.int32),
+        "acks": ack.sum(dtype=torch.int32),
+        "ping_changes_applied": ping_applied,
+        "ack_changes_applied": ack_applied,
+        "full_syncs": full_sync.sum(dtype=torch.int32),
+        "ping_reqs": pr.failed.sum(dtype=torch.int32),
+        "pingreq_changes_applied": pr.changes_applied,
+        "suspects_declared": pr.declare_suspect.sum(dtype=torch.int32),
+        "faulty_declared": expired.sum(dtype=torch.int32),
+        "damped_pairs": torch.zeros((), dtype=torch.int32, device=dev),
+        "relay_full_syncs": pr.relay_full_syncs,
+    }
+    return state, metrics
+
+
 def swim_run_impl(
     state: ClusterState,
     net: NetState,
@@ -1050,12 +1566,27 @@ def swim_run_impl(
 ) -> tuple[ClusterState, dict[str, torch.Tensor]]:
     """``ticks`` protocol periods on ``split(key, ticks)``; returns the
     last tick's metrics, as the reference's scan does."""
+    return _swim_run_handed(_Handoff(state), net, key, params, ticks, knobs)
+
+
+def _swim_run_handed(
+    hand: _Handoff,
+    net: NetState,
+    key: torch.Tensor,
+    params: SwimParams,
+    ticks: int,
+    knobs: Any = None,
+) -> tuple[ClusterState, dict[str, torch.Tensor]]:
+    """``swim_run_impl`` on a state handed over; each tick's state is
+    handed on to the next."""
     if ticks < 1:
         raise ValueError(f"ticks must be >= 1, got {ticks}")
     metrics: dict[str, torch.Tensor] = {}
     for sub in prng.split(key, ticks):
-        state, metrics = swim_step_impl(state, net, sub, params, knobs)
-    return state, metrics
+        state, metrics = _swim_step_handed(hand, net, sub, params, knobs)
+        hand = _Handoff(state)
+        del state
+    return hand.take(), metrics
 
 
 # ---------------------------------------------------------------------------
@@ -1094,10 +1625,9 @@ def admin_leave(state: ClusterState, node: int) -> ClusterState:
 
 def revive(state: ClusterState, node: int, inc: int) -> ClusterState:
     """A killed process restarts fresh: its row is wiped to self-only
-    with a new incarnation; re-entry is an ``admin_join``."""
+    with a new incarnation (and its damping rows cleared); re-entry is an
+    ``admin_join``."""
     _check_inc(torch.tensor([int(inc)]))
-    if state.damp is not None:
-        raise NotImplementedError("damping tensors are not ported yet")
     n = state.n
     dev = state.view_key.device
     vk = state.view_key.clone()
@@ -1108,4 +1638,11 @@ def revive(state: ClusterState, node: int, inc: int) -> ClusterState:
     ).to(torch.int32)
     pb[node] = -1
     sl[node] = -1
-    return state._replace(view_key=vk, pb=pb, suspect_left=sl)
+    state = state._replace(view_key=vk, pb=pb, suspect_left=sl)
+    if state.damp is not None:  # a fresh process has no damp memory
+        damp = state.damp.clone()
+        damped = state.damped.clone()
+        damp[node] = 0
+        damped[node] = False
+        state = state._replace(damp=damp, damped=damped)
+    return state

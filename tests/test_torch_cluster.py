@@ -112,10 +112,42 @@ def test_unported_backends_raise():
     delta = SimCluster(8, backend="delta", capacity=4, device="cpu")  # ported
     delta.enable_delay(3)  # the in-flight lanes are ported too
     assert tuple(delta.state.pend_subj.shape) == (3, 4, 8, 4)
-    with pytest.raises(NotImplementedError):
-        SimCluster(8, damping=True, device="cpu")
+    damped = SimCluster(8, damping=True, device="cpu")  # ported
+    assert damped.state.damp.dtype == torch.float16 and damped.damped_pairs() == 0
     with pytest.raises(ValueError):
         SimCluster(8, backend="sparse", device="cpu")
+
+
+@pytest.mark.parametrize("ticks", [1, 3])
+def test_failed_tick_keeps_or_loses_state_explicitly(monkeypatch, ticks):
+    """The dense tick hands the cluster's state to the step.  A refusal
+    before the step takes it leaves the state in place; a failure after
+    it raises that the state is lost, and so does every later tick."""
+    from ringpop_tpu_torch.models import swim_sim as tsim
+
+    c = port_cluster({"name": "f", "n": 8, "seed": 1})
+    before = c.state
+    c.params = tsim.SwimParams(suspicion_ticks=127)  # refused before the take
+    with pytest.raises(ValueError):
+        c.tick(ticks)
+    assert c.state is before
+    c.params = tsim.SwimParams()
+    calls = []
+    real = tsim._phase6_expiry
+
+    def expiry(*args):
+        calls.append(1)
+        if len(calls) == ticks:
+            raise FloatingPointError("failed inside the step")
+        return real(*args)
+
+    monkeypatch.setattr(tsim, "_phase6_expiry", expiry)
+    with pytest.raises(RuntimeError, match="lost") as info:
+        c.tick(ticks)
+    assert isinstance(info.value.__cause__, FloatingPointError) and c.state is None
+    monkeypatch.setattr(tsim, "_phase6_expiry", real)
+    with pytest.raises(RuntimeError, match="lost"):
+        c.tick()
 
 
 def test_inc_and_addresses():

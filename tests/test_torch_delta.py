@@ -16,8 +16,8 @@ This file holds the lossy cases at n = 16 and 64 (1% loss, a kill);
 ``test_torch_delta_churn.py`` the fault-injection, maintenance and
 production-cap cases, ``test_torch_delta_netsplit.py`` the partition
 and bootstrap cases, ``test_torch_delta_sided*.py`` sided mode; each
-file's reference run stays under a minute on the CPU.  The unported
-arms are checked here too: each raises ``NotImplementedError``.
+file's reference run stays under a minute on the CPU.  The arms are
+checked here too: the unported ones raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -140,9 +140,12 @@ def test_step_runs_on_small_state():
     "pend", "link_d", "knobs", "prov", "upto", "slot_base", "period", "phase_mod",
 ])
 def test_unported_arms_raise(arm):
-    """The arms still to port raise NotImplementedError.  The fault-model
-    arms are ported: the in-flight lanes, a period row and ``phase_mod``
-    step; a delay rule without lanes raises the reference's ValueError."""
+    """Traced knobs and ``prov`` still raise NotImplementedError.  The
+    other arms are ported: the in-flight lanes, a period row,
+    ``phase_mod``, a truncated step (``upto``: partial metrics) and the
+    carried slot-base planes step; a delay rule without lanes raises the
+    reference's ValueError, and so do planes carried one without the
+    other."""
     tdelta, tsim, state, net, key, params = _small()
     kwargs = {}
     n = state.n
@@ -160,10 +163,15 @@ def test_unported_arms_raise(arm):
     elif arm == "prov":
         kwargs["prov"] = True
     elif arm == "upto":
-        kwargs["upto"] = 3
+        _, m = tdelta.delta_step_impl(state, net, key, params, upto=3)
+        assert set(m) == {"pings_sent", "_t"} and int(m["pings_sent"]) == 0
+        return
     elif arm == "slot_base":
-        state = state._replace(d_bpmask=torch.zeros((n, 1), dtype=torch.int64),
-                               d_bprank=torch.zeros((n, 4), dtype=torch.int32))
+        bpm, bpr = tdelta.compute_slot_base(state)
+        with pytest.raises(ValueError, match="together"):
+            tdelta.delta_step_impl(state._replace(d_bprank=bpr), net, key, params)
+        state = state._replace(d_bpmask=tdelta.bitpack.pack_bits(bpm), d_bprank=bpr)
+        runs = True
     elif arm == "period":
         net = net._replace(period=torch.full((n,), 2, dtype=torch.int32))
         runs = True
@@ -179,13 +187,18 @@ def test_unported_arms_raise(arm):
 
 
 def test_unported_arms_raise_outside_the_step():
+    """``refresh_carried`` keeps planes a state carries (recomputing
+    them) and drops them from none; partial groupings still need the
+    dense mask."""
     from ringpop_tpu_torch.models.cluster import SimCluster
 
     tdelta, _, state, _, _, _ = _small()
     carried = state._replace(d_bpmask=torch.zeros((state.n, 1), dtype=torch.int64),
                              d_bprank=torch.zeros((state.n, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tdelta.refresh_carried(carried)
+    fresh = tdelta.refresh_carried(carried)
+    bpm, bpr = tdelta.compute_slot_base(state)
+    assert torch.equal(fresh.d_bpmask, tdelta.bitpack.pack_bits(bpm))
+    assert torch.equal(fresh.d_bprank, bpr)
     c = SimCluster(8, backend="delta", capacity=4, device="cpu")
     c.enable_delay(3)  # the in-flight lanes are ported
     assert c.state.delay_depth == 3
@@ -215,17 +228,28 @@ def test_reference_refusals_kept():
 
 
 def test_port_reads_no_ringpop_environment():
-    """The port has one lowering per kernel site: no ``RINGPOP_*`` switch
-    is read anywhere in its source."""
+    """The port has one lowering per kernel site: the one ``RINGPOP_*``
+    variable its source reads is the reference's own state-build switch
+    ``RINGPOP_CARRY_SLOTBASE``, in ``swim_delta.refresh_carried`` only."""
+    import re
+
     root = os.path.join(REPO, "ringpop_tpu_torch")
     hits = []
     for dirpath, _, files in os.walk(root):
         for f in files:
             if f.endswith((".py", ".cu")):
                 with open(os.path.join(dirpath, f)) as fh:
-                    if "RINGPOP_" in fh.read():
-                        hits.append(f)
-    assert not hits, hits
+                    for name in re.findall(r"RINGPOP_\w+", fh.read()):
+                        hits.append((f, name))
+    assert set(hits) == {("swim_delta.py", "RINGPOP_CARRY_SLOTBASE")}, hits
+    import inspect
+
+    from ringpop_tpu_torch.models import swim_delta as tdelta
+
+    src = inspect.getsource(tdelta)
+    body = inspect.getsource(tdelta.refresh_carried)
+    assert src.count('os.environ.get("RINGPOP_CARRY_SLOTBASE"') == 1
+    assert 'os.environ.get("RINGPOP_CARRY_SLOTBASE"' in body
 
 
 def test_sparsify_inverts_densify():

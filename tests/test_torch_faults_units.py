@@ -279,8 +279,8 @@ def test_empty_slot_matures_to_nothing():
     vk[2, 5] = 8 * 3 + tsim.SUSPECT
     st = st._replace(view_key=vk, suspect_left=torch.where(vk == 26, 4, -1).to(torch.int8))
     net = tsim.make_net(n, device="cpu")
-    out, applied = tsim._mature(st, net, 9)
-    assert int(applied) == 0
+    out, applied, flapped = tsim._mature(st, net, 9)
+    assert int(applied) == 0 and flapped is None  # no damping planes, no flap mask
     for f in ("view_key", "pb", "suspect_left", "tick"):
         assert torch.equal(getattr(out, f), getattr(st, f)), f
     assert not out.pending.any() and out.pending is not st.pending

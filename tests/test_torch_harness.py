@@ -17,7 +17,10 @@ fields are: ``base_key`` turns from [N] to [G, N] and back, and
 
 A case is ``{"name", "n", "params", "seed", "init", "checksums",
 "ops"}``, plus for the delta backend ``"backend": "delta"`` and its
-caps under ``"caps"`` (``capacity``, ``wire_cap``, ``claim_grid``);
+caps under ``"caps"`` (``capacity``, ``wire_cap``, ``claim_grid``),
+``"damping": True`` for the damping planes, and ``"sparse_small_n": m``
+to run the reference with ``swim_sim._SPARSE_SMALL_N = m`` (the forced
+block-prefix lowerings; the port's test patches its own module alike);
 each op is ``["tick", k]`` or a ``SimCluster`` method name with its
 arguments (``["kill", 3]``, ``["partition", [[0, 1], [2]]]``,
 ``["heal_partition"]``, ``["rebase", True]``, ...), the same on both
@@ -58,13 +61,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STATE_FIELDS = ("view_key", "pb", "suspect_left", "tick")
-# the fields a cluster case compares: with the in-flight buffer, which is
-# None unless a case installs it
-CLUSTER_FIELDS = STATE_FIELDS + ("pending",)
+# the fields a cluster case compares: with the in-flight buffer and the
+# damping planes, which are None unless a case installs them
+CLUSTER_FIELDS = STATE_FIELDS + ("pending", "damp", "damped")
 DELTA_FIELDS = (
     "base_key", "bp_mask", "bp_rank", "bp_list", "d_subj", "d_key", "d_pb", "d_sl",
     "tick", "overflow_drops", "side", "merge_to", "digest",
-    "pend_subj", "pend_key", "pend_recv",
+    "pend_subj", "pend_key", "pend_recv", "d_bpmask", "d_bprank",
 )
 # NetState's fault-model fields, recorded before every tick op
 NET_FAULT_FIELDS = (
@@ -94,12 +97,20 @@ from ringpop_tpu.models.cluster import SimCluster
 with open(sys.argv[1]) as f:
     cases = json.load(f)
 out = {}
+small_n = sim._SPARSE_SMALL_N
 for case in cases:
     name = case["name"]
     fields = case["fields"]
+    want_small_n = case.get("sparse_small_n", small_n)
+    if want_small_n != sim._SPARSE_SMALL_N:
+        # a traced constant: programs compiled under the other value go
+        import jax
+        jax.clear_caches()
+        sim._SPARSE_SMALL_N = want_small_n
     c = SimCluster(case["n"], sim.SwimParams(**case.get("params", {})),
                    seed=case.get("seed", 0), init=case.get("init", "converged"),
-                   backend=case.get("backend", "dense"), **case.get("caps", {}))
+                   backend=case.get("backend", "dense"), damping=case.get("damping", False),
+                   **case.get("caps", {}))
     snaps = []
     def snap():
         snaps.append({f: getattr(c.state, f) for f in fields})
@@ -237,7 +248,13 @@ def run_references(
 # ``NetState``), ``["tuple", [...]]`` or ``["py", value]``.  A call with
 # ``"ring": d`` runs jitted inside ``ring_mesh(parallel.make_mesh(d))``
 # (the ring primitives need the context); a call with ``"raises": true``
-# records the name of the exception it raises under ``{name}/raises``.
+# records the name of the exception it raises under ``{name}/raises``; a
+# call with ``"sparse_small_n": m`` runs with ``swim_sim._SPARSE_SMALL_N``
+# set to m in the child (the forced large-row lowerings), as a cluster
+# case with that key does.  ``["cluster_state", {field: key}]``,
+# ``["swim_params", {...}]`` and ``["delta_params", {"swim", "wire_cap",
+# "claim_grid"}]`` build those arguments; a dict result (metrics) is
+# flattened by key.
 _CALLS = _PATCHES + r"""
 import functools
 import jax
@@ -261,6 +278,13 @@ def arg(a):
         return swim_delta.DeltaState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
     if kind == "net":
         return swim_sim.NetState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
+    if kind == "cluster_state":
+        return swim_sim.ClusterState(**{f: jnp.asarray(z[k]) for f, k in v.items()})
+    if kind == "swim_params":
+        return swim_sim.SwimParams(**v)
+    if kind == "delta_params":
+        return swim_delta.DeltaParams(swim=swim_sim.SwimParams(**v["swim"]),
+                                      wire_cap=v["wire_cap"], claim_grid=v["claim_grid"])
     if kind == "tuple":
         return tuple(v)
     return v
@@ -272,13 +296,18 @@ def flat(x, key):
     if hasattr(x, "_asdict"):
         for f, v in x._asdict().items():
             flat(v, f"{key}/{f}")
+    elif isinstance(x, dict):
+        for f, v in x.items():
+            flat(v, f"{key}/{f}")
     elif isinstance(x, tuple):
         for i, v in enumerate(x):
             flat(v, f"{key}/{i}")
     else:
         out[key] = np.asarray(x)
 
+small_n = swim_sim._SPARSE_SMALL_N
 for c in calls:
+    swim_sim._SPARSE_SMALL_N = c.get("sparse_small_n", small_n)
     fn = getattr(mods[c["module"]], c["fn"])
     args = [arg(a) for a in c["args"]]
     if "ring" in c:
@@ -324,6 +353,9 @@ def flatten_outputs(x, key: str, out: dict) -> dict:
     if hasattr(x, "_asdict"):
         for f, v in x._asdict().items():
             flatten_outputs(v, f"{key}/{f}", out)
+    elif isinstance(x, dict):
+        for f, v in x.items():
+            flatten_outputs(v, f"{key}/{f}", out)
     elif isinstance(x, tuple):
         for i, v in enumerate(x):
             flatten_outputs(v, f"{key}/{i}", out)
@@ -333,10 +365,12 @@ def flatten_outputs(x, key: str, out: dict) -> dict:
 
 
 def run_reference_calls(
-    calls: list[dict], arrays: dict[str, np.ndarray], tmp_dir: str
+    calls: list[dict], arrays: dict[str, np.ndarray], tmp_dir: str,
+    env: dict[str, str] | None = None,
 ) -> dict[str, np.ndarray]:
     """Evaluate single reference functions in one child process (the
-    default lowering); returns the flattened outputs of every call."""
+    default lowering, plus ``env``); returns the flattened outputs of
+    every call."""
     spec = os.path.join(tmp_dir, "calls.json")
     inputs = os.path.join(tmp_dir, "call-inputs.npz")
     out = os.path.join(tmp_dir, "call-outputs.npz")
@@ -345,7 +379,7 @@ def run_reference_calls(
     np.savez(inputs, **arrays)
     proc = subprocess.run(
         [sys.executable, "-c", _CALLS, spec, inputs, out],
-        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO),
+        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **(env or {})),
         capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
@@ -359,7 +393,8 @@ def run_reference_calls(
 # "entry": "step"|"run", "n", "d", "params", "seed", "ticks"}`` plus
 # ``"caps"`` (delta: capacity, wire_cap, claim_grid), ``"init"``,
 # ``"joins"`` (dense: every node joins through node 0 first),
-# ``"down"`` (nodes killed before the first tick), and for the delta
+# ``"down"`` (nodes killed before the first tick), ``"damping"`` (dense:
+# the damping planes), and for the delta
 # backend ``"sides"`` (sided mode: halves split by ``make_sides`` and the
 # group-id adjacency) with ``"heal_at"`` (the step from which the
 # adjacency is all one group) and ``"rebase_at"`` (the steps before which
@@ -429,7 +464,8 @@ for case in cases:
         fn = build(mesh, gossip=case.get("gossip"), **like)
     else:
         params = swim
-        state = sim.init_state(n, mode=case.get("init", "converged"))
+        state = sim.init_state(n, mode=case.get("init", "converged"),
+                               damping=case.get("damping", False))
         if case.get("joins"):
             for j in range(1, n):
                 state = sim.admin_join(state, j, 0)
@@ -499,7 +535,8 @@ def port_cluster(case: dict):
     return SimCluster(
         case["n"], tsim.SwimParams(**case.get("params", {})),
         seed=case.get("seed", 0), init=case.get("init", "converged"), device="cpu",
-        backend=case.get("backend", "dense"), **case.get("caps", {}),
+        backend=case.get("backend", "dense"), damping=case.get("damping", False),
+        **case.get("caps", {}),
     )
 
 

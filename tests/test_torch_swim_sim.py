@@ -105,7 +105,7 @@ def test_single_steps_from_reference_state(reference, name):
 
 
 # ---------------------------------------------------------------------------
-# arms outside this slice raise
+# the step's arms and options: ported ones step, the rest raise
 # ---------------------------------------------------------------------------
 
 
@@ -123,15 +123,19 @@ def _small():
     ids=["sparse_cap", "relay_full_sync", "phase_mod"],
 )
 def test_unported_params_raise(params):
-    """The arms still to port raise; ``phase_mod > 1`` is ported and
-    gates probe initiation to each node's phase."""
+    """These arms are ported: ``sparse_cap`` and ``relay_full_sync`` step
+    (on a converged cluster with no change anywhere each equals the
+    plain step, metric for metric), and ``phase_mod > 1`` gates probe
+    initiation to each node's phase."""
     state, net, key = _small()
     if params.phase_mod > 1:
         _, m = tsim.swim_step_impl(state, net, key, params)
         assert 0 < int(m["pings_sent"]) < 8
         return
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state, net, key, params)
+    got, m = tsim.swim_step_impl(state, net, key, params)
+    want, m0 = tsim.swim_step_impl(state, net, key, tsim.SwimParams())
+    assert {k: int(v) for k, v in m.items()} == {k: int(v) for k, v in m0.items()}
+    assert torch.equal(got.view_key, want.view_key) and int(m["pings_sent"]) == 8
 
 
 @pytest.mark.parametrize(
@@ -160,27 +164,28 @@ def test_unported_net_fields_raise(field):
 
 
 def test_unported_state_and_options_raise():
-    """Damping, traced knobs and ``prov`` still raise; the in-flight
-    buffer (``pending``) is ported and reports its metrics."""
+    """Traced knobs and ``prov`` still raise; the in-flight buffer
+    (``pending``) and the damping planes are ported and report their
+    metrics."""
     state, net, key = _small()
     p = tsim.SwimParams()
     _, m = tsim.swim_step_impl(state._replace(pending=torch.zeros(2, 8, 8, dtype=torch.int32)),
                                net, key, p)
     assert int(m["delayed_claims"]) == 0 and int(m["matured_applied"]) == 0
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state._replace(damp=torch.zeros(8, 8, dtype=torch.float16)),
-                            net, key, p)
+    damped = tsim.init_state(8, damping=True, device="cpu")
+    assert damped.damp.dtype == torch.float16 and damped.damped.dtype == torch.bool
+    got, m = tsim.swim_step_impl(damped, net, key, p)
+    assert int(m["damped_pairs"]) == 0 and not got.damp.any()
     with pytest.raises(NotImplementedError):
         tsim.swim_step_impl(state, net, key, p, knobs=object())
     with pytest.raises(NotImplementedError):
         tsim.swim_step_impl(state, net, key, p, prov=True)
-    with pytest.raises(NotImplementedError):
-        tsim.init_state(8, damping=True, device="cpu")
 
 
 def test_block_prefix_size_raises():
-    """n > 32768 needs the block-prefix selection, not ported: the step
-    refuses before touching the (here zero-strided) state."""
+    """n > 32768 is no longer refused: the step's guard is gone, and the
+    selection takes the block-prefix branch at n = 32 769 (on an
+    all-pingable, zero-strided mask each pick is its rank's column)."""
     n = 32769
     big = tsim.ClusterState(
         view_key=torch.zeros(1, 1, dtype=torch.int32).expand(n, n),
@@ -189,8 +194,14 @@ def test_block_prefix_size_raises():
         tick=torch.zeros((), dtype=torch.int32),
     )
     net = tsim.NetState(up=torch.ones(n, dtype=torch.bool), responsive=torch.ones(n, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(big, net, prng.PRNGKey(0), tsim.SwimParams())
+    tsim._check_supported(big, net, tsim.SwimParams(), None, False)
+    pingable = torch.ones(1, 1, dtype=torch.bool).expand(n, n)
+    key = prng.PRNGKey(0)
+    target, valid, wit, wit_valid = tsim._choose_targets_and_witnesses(pingable, 3, key)
+    ranks, _ = tsim._distinct_ranks(torch.full((n,), n, dtype=torch.int32), 4, key)
+    assert valid.all() and wit_valid.all()
+    np.testing.assert_array_equal(target.numpy(), ranks[:, 0].numpy())
+    np.testing.assert_array_equal(wit.numpy(), ranks[:, 1:].numpy())
 
 
 def test_unknown_probe_raises():
