@@ -156,7 +156,26 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     with the flag on (> 0) and off (0); i6, the delta north star with
     the carried planes against the uncarried run, then the step's
     prefixes ``upto`` = 0..7 timed;
-17. print the ``kernels`` JSON line (each kernel's launches summed over
+17. (phase j) the compiled scenario runner: j1, ``run_scenario`` on the
+    card and on the CPU at n = 256 (``mixed_spec``, dense, with in-scan
+    revives; the delay family, delta at phase 4's caps), every trace
+    series, state and net field and the key equal; j2, dense at
+    n = 10,000 (``benchmarks/bench_scenario.py``'s spec, 120 ticks, seed
+    11, and ``mixed_spec``), ``run_scenario`` against ``run_host_loop``
+    from two clusters of one seed (states, net values, keys, loss and
+    the checksums of every live row equal), and a ``tick(1)`` loop over
+    the same scenario; j3, the same on the delta main path (n = 65,536,
+    default caps) with the delay and gray families (80 ticks); each
+    arm's ms per tick, host syncs per tick and peak memory printed, and
+    ``run_scenario`` may take no more syncs a tick outside its revives
+    than the ``tick(1)`` loop inside its ticks; the receiver merge
+    (dense) and the row-searchsorted and merge-insert kernels (delta)
+    must launch; j4, j2's first spec and j3's delay family streamed in
+    40-tick segments with a checkpoint under the git-ignored build
+    directory, killed after the first checkpoint and resumed: trace and
+    final state equal to the unsegmented run, each checkpoint's bytes
+    and save and load seconds printed;
+18. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -166,8 +185,8 @@ the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
 and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
---faults`` runs only phase h and ``--arms`` only phase i; neither prints
-a result line.
+--faults`` runs only phase h, ``--arms`` only phase i and ``--scenarios``
+only phase j; none prints a result line.
 """
 
 from __future__ import annotations
@@ -2783,6 +2802,349 @@ def arms_phase(torch, dense_ticks: int = 34, delta_ticks: int = 36) -> dict:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase j: the compiled scenario runner (SimCluster.run_scenario), streamed
+# soaks and v5 checkpoints
+# ---------------------------------------------------------------------------
+
+N_SCEN_SMALL = 256
+SCEN_TICKS = 120  # benchmarks/bench_scenario.py's horizon
+SCEN_SEGMENT = 40
+SCEN_SEED = 11  # benchmarks/bench_scenario.py:47
+
+
+def scenario_spec(n: int, ticks: int) -> dict:
+    """``benchmarks/bench_scenario.py``'s ``_spec`` (copied here: this
+    script imports nothing of the JAX package): a kill, a 50/50
+    partition with 5% loss, the heal and a loss ramp back to 0."""
+    half = n // 2
+    return {"ticks": ticks, "events": [
+        {"at": ticks // 8, "op": "kill", "node": n - 1},
+        {"at": ticks // 4, "op": "partition", "groups": [list(range(half)), list(range(half, n))]},
+        {"at": ticks // 4, "op": "loss", "p": 0.05},
+        {"at": ticks // 2, "op": "heal"},
+        {"at": ticks // 2 + 5, "op": "loss_ramp", "until": ticks // 2 + 15, "to": 0.0},
+    ]}
+
+
+def _host_copy(c) -> dict:
+    """A cluster's state, net, key and loss copied to the host."""
+    def host(obj):
+        return {f: None if v is None else v.cpu() for f, v in obj._asdict().items()}
+
+    return {"state": host(c.state), "net": host(c.net), "key": c.key.clone(),
+            "loss": c.params.loss}
+
+
+def _same_run(torch, a: dict, b: dict, what: str, net_values: bool = False) -> None:
+    """Equal host copies (``_host_copy``).  ``net_values`` compares the
+    net by value where the host loop's dtypes differ (its period row is
+    int32, the runner's carry int16) and skips an adjacency the host
+    loop left None (fully connected, the runner's group-id zeros)."""
+    import numpy as np
+
+    for f, x in a["state"].items():
+        y = b["state"][f]
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: state {f} differs")
+    for f, x in a["net"].items():
+        y = b["net"][f]
+        if net_values and f == "adj" and (x is None or y is None):
+            continue
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: net {f} present on one side only")
+        if x is None:
+            continue
+        same = (np.array_equal(x.numpy(), y.numpy()) if net_values
+                else x.dtype == y.dtype and torch.equal(x, y))
+        if not same:
+            raise AssertionError(f"{what}: net {f} differs")
+    if not torch.equal(a["key"], b["key"]):
+        raise AssertionError(f"{what}: keys differ")
+    if np.float32(a["loss"]) != np.float32(b["loss"]):
+        raise AssertionError(f"{what}: loss {a['loss']} != {b['loss']}")
+
+
+def _same_trace(a, b, what: str) -> None:
+    import numpy as np
+
+    ta, tb = a.to_arrays(), b.to_arrays()
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{what}: trace series differ ({sorted(ta)} vs {sorted(tb)})")
+    for k, v in ta.items():
+        if v.dtype != tb[k].dtype or not np.array_equal(v, tb[k]):
+            raise AssertionError(f"{what}: trace {k} differs")
+
+
+def check_scenarios_cuda_equals_cpu(torch) -> None:
+    """Phase j1: ``run_scenario`` on the card and on the CPU at n = 256,
+    dense on ``mixed_spec`` (every family, in-scan revives) and delta on
+    the delay family: equal traces, states, nets and keys."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    params = SwimParams(loss=0.01, suspicion_ticks=8)
+    for backend, spec, caps in (
+            ("dense", mixed_spec(N_SCEN_SMALL), {}),
+            ("delta", fam_specs(N_SCEN_SMALL, 40)["delay"], FAULT_CAPS_SMALL)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            c = SimCluster(N_SCEN_SMALL, params, seed=0, device=device, backend=backend, **caps)
+            runs.append((c.run_scenario(spec), _host_copy(c)))
+        (tw, hw), (tg, hg) = runs
+        _same_trace(tg, tw, f"scenarios (phase j1) {backend}")
+        _same_run(torch, hg, hw, f"scenarios (phase j1) {backend}")
+        log(f"scenarios (phase j1): {backend} run_scenario cuda == cpu at n={N_SCEN_SMALL} "
+            f"({spec['ticks']} ticks{', caps ' + str(caps) if caps else ''}): every trace "
+            f"series, state field, net field and the key; live {tg.live[0]} -> "
+            f"{min(tg.live)} -> {tg.live[-1]}, converged at the end {bool(tg.converged[-1])}")
+
+
+def _kernel_counts() -> dict:
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+
+    return {"recv_merge": recv_merge.launches,
+            **{k: _counted()[k].launches for k in ("farmhash32", "row_searchsorted",
+                                                  "merge_insert")}}
+
+
+@contextlib.contextmanager
+def _syncs(torch, sink: dict):
+    """Count the host syncs of the block (``set_sync_debug_mode``) into
+    ``sink["syncs"]``, those inside the runner's revives apart into
+    ``sink["revive_syncs"]``; yields the warnings caught so far."""
+    from ringpop_tpu_torch.scenarios import runner
+
+    real = runner._apply_revives
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def revives(*args, **kwargs):
+            before = len(caught)
+            try:
+                return real(*args, **kwargs)
+            finally:
+                sink["revive_syncs"] = sink.get("revive_syncs", 0) + sum(
+                    "synchroniz" in str(w.message) for w in caught[before:])
+                sink["revive_ticks"] = sink.get("revive_ticks", 0) + 1
+
+        runner._apply_revives = revives
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            runner._apply_revives = real
+    sink["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _scenario_arm(torch, arm: str, make, spec: dict) -> tuple:
+    """One arm of phase j2/j3 from a fresh cluster (made inside the
+    measured window): ``run_scenario``, ``run_host_loop``, or the host
+    loop with every ``tick(k)`` run as k ``tick(1)`` calls.  Returns
+    (cluster, trace or None, what it measured)."""
+    from ringpop_tpu_torch.scenarios.runner import run_host_loop
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    _reset_counts()
+    _counted_recv_merge_reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sink: dict = {}
+    t0 = time.perf_counter()
+    c = make()
+    trace = None
+    with _syncs(torch, sink) as caught:
+        if arm == "run_scenario":
+            trace = c.run_scenario(spec)
+        else:
+            if arm == "tick(1)":
+                real = c.tick
+
+                def ticks(k=1):
+                    for _ in range(k):
+                        before = len(caught)
+                        m = real(1)
+                        sink["tick_syncs"] = sink.get("tick_syncs", 0) + sum(
+                            "synchroniz" in str(w.message) for w in caught[before:])
+                    return m
+
+                c.tick = ticks
+            run_host_loop(c, ScenarioSpec.from_dict(spec))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks_n = spec["ticks"]
+    # per tick: run_scenario's syncs outside its revives (its per-call
+    # ones included), the host loop's all, the tick(1) loop's inside its
+    # tick() calls
+    per_tick = sink.get("tick_syncs", sink["syncs"] - sink.get("revive_syncs", 0))
+    r = {"ms_per_tick": wall * 1e3 / ticks_n, "syncs": sink["syncs"],
+         "revive_syncs": sink.get("revive_syncs", 0),
+         "syncs_per_tick": per_tick / ticks_n,
+         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+         "launches": _kernel_counts()}
+    return c, trace, r
+
+
+def _counted_recv_merge_reset() -> None:
+    from ringpop_tpu_torch.ops.recv_merge import recv_merge
+
+    recv_merge.launches = 0
+
+
+def scenario_compare(torch, label: str, make, spec: dict, sample: bool) -> tuple:
+    """Phase j2/j3 for one spec: ``run_scenario`` against ``run_host_loop``
+    from two clusters of one seed (states, nets, keys, loss and checksum
+    groups equal), and a ``tick(1)`` loop over the same ticks; each
+    arm's ms per tick, host syncs per tick and peak.  Returns the
+    run's host copy, its trace and the launches of ``run_scenario``."""
+    import numpy as np
+
+    t_all = time.perf_counter()
+    a, trace, ra = _scenario_arm(torch, "run_scenario", make, spec)
+    got = _host_copy(a)
+    b, _, rb = _scenario_arm(torch, "host loop", make, spec)
+    _same_run(torch, got, _host_copy(b), f"scenarios {label}: run_scenario vs host loop",
+              net_values=True)
+    _reset_counts()
+    rows = _sample_rows(a) if sample else a.live_indices().tolist()
+    ca = a.checksums(indices=rows, backend="device")
+    cb = b.checksums(indices=rows, backend="device")
+    if ca != cb:
+        raise AssertionError(f"scenarios {label}: checksums differ between the two runs")
+    ck_launches = _counted()["farmhash32"].launches
+    del a, b
+    _, _, rc = _scenario_arm(torch, "tick(1)", make, spec)
+    groups = len(set(ca.values()))
+    revive = (f"; revives {ra['revive_syncs']} syncs over the revive ticks"
+              if ra["revive_syncs"] else "")
+    for arm, r in (("run_scenario", ra), ("host loop", rb), ("tick(1) loop", rc)):
+        log(f"scenarios {label} {arm}: {r['ms_per_tick']:.3f} ms per tick over {spec['ticks']} "
+            f"ticks, host syncs {r['syncs']} ({r['syncs_per_tick']:.2f} per tick: run_scenario's "
+            f"outside revives, the tick(1) loop's inside tick()), "
+            f"peak {r['peak_gib']:.2f} GiB over the start, launches {r['launches']}")
+    log(f"scenarios {label}: run_scenario == host loop on every state field, net value, the "
+        f"key and the loss; checksums of {len(rows)} live rows equal, {groups} group(s) "
+        f"(FarmHash launches {ck_launches}); live {trace.live[0]} -> {int(np.min(trace.live))} "
+        f"-> {trace.live[-1]}, converged ticks {int(trace.converged.sum())}, first "
+        f"{trace.first_converged_tick()}{revive}; {time.perf_counter() - t_all:.1f} s")
+    if "dense" in label and ra["peak_gib"] > 1.1 * rb["peak_gib"]:
+        raise AssertionError(f"scenarios {label}: run_scenario's peak {ra['peak_gib']:.2f} GiB is "
+                             f"more than 10% above the host loop's {rb['peak_gib']:.2f}")
+    if ra["syncs_per_tick"] > rc["syncs_per_tick"]:
+        raise AssertionError(f"scenarios {label}: run_scenario takes {ra['syncs_per_tick']:.2f} "
+                             f"host syncs a tick outside revives, tick(1) {rc['syncs_per_tick']:.2f}")
+    launches = dict(ra["launches"])
+    launches["farmhash32"] += ck_launches
+    return got, trace, launches, (ra, rb, rc)
+
+
+def streamed_soak(torch, label: str, make, spec: dict, want: dict, want_trace) -> dict:
+    """Phase j4: the spec streamed in ``SCEN_SEGMENT``-tick segments with a
+    checkpoint under the git-ignored build directory, killed after the
+    first checkpoint (``interrupt_after=1``) and resumed; the trace and
+    final state must equal the unsegmented run's.  Times each checkpoint
+    save and the load."""
+    import shutil
+
+    from ringpop_tpu_torch import checkpoint
+    from ringpop_tpu_torch.scenarios import stream
+
+    d = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_j")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = os.path.join(d, f"{label}.npz")
+    saves, loads = [], []
+    real_save, real_load = checkpoint.save, checkpoint.load
+
+    def save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(*args, **kwargs)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    def load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    _reset_counts()
+    _counted_recv_merge_reset()
+    t0 = time.perf_counter()
+    checkpoint.save, checkpoint.load = save, load
+    try:
+        c = make()
+        try:
+            stream.run_streamed(c, spec, segment_ticks=SCEN_SEGMENT, checkpoint_path=path,
+                                interrupt_after=1)
+            raise AssertionError(f"scenarios {label}: the soak was not interrupted")
+        except stream.StreamInterrupted:
+            pass
+        del c
+        c, trace = stream.resume(path)
+    finally:
+        checkpoint.save, checkpoint.load = real_save, real_load
+    wall = time.perf_counter() - t0
+    _same_trace(trace, want_trace, f"scenarios (phase j4) {label}")
+    _same_run(torch, _host_copy(c), want, f"scenarios (phase j4) {label}")
+    launches = _kernel_counts()
+    log(f"scenarios (phase j4): {label} streamed ({SCEN_SEGMENT}-tick segments), killed after "
+        f"the first checkpoint and resumed: trace, state, net and key equal to the unsegmented "
+        f"run; checkpoint saves (s, bytes) {[(round(t, 3), b) for t, b in saves]}, load "
+        f"{[round(t, 3) for t in loads]} s; {wall:.1f} s; launches {launches}")
+    del c
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def scenarios_phase(torch) -> dict:
+    """Phase j: j1 the n = 256 lockstep, j2 dense at n = 10 000, j3 delta
+    at n = 65 536, j4 the streamed soaks; returns the kernels' launches
+    summed over j2-j4."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    t0 = time.perf_counter()
+    check_scenarios_cuda_equals_cpu(torch)
+    launches: dict[str, int] = {}
+
+    def add(more: dict) -> None:
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def dense():
+        return SimCluster(N_MAIN, SwimParams(), seed=SCEN_SEED, device="cuda")
+
+    def delta():
+        return SimCluster(N_DELTA, SwimParams(loss=0.01), seed=0, device="cuda",
+                          backend="delta", **DELTA_CAPS)
+
+    soaks = []
+    for label, make, spec, sample in (
+            (f"(phase j2) dense n={N_MAIN} bench_scenario", dense,
+             scenario_spec(N_MAIN, SCEN_TICKS), False),
+            (f"(phase j2) dense n={N_MAIN} mixed", dense, mixed_spec(N_MAIN), False),
+            (f"(phase j3) delta n={N_DELTA} delay", delta,
+             fam_specs(N_DELTA, FAULT_TICKS)["delay"], True),
+            (f"(phase j3) delta n={N_DELTA} gray", delta,
+             fam_specs(N_DELTA, FAULT_TICKS)["gray"], True)):
+        got, trace, runs_launches, _ = scenario_compare(torch, label, make, spec, sample)
+        add(runs_launches)
+        want = ("recv_merge",) if make is dense else ("row_searchsorted", "merge_insert")
+        for k in want:
+            if runs_launches[k] <= 0:
+                raise AssertionError(f"scenarios {label}: kernel {k} was not launched")
+        if "bench_scenario" in label or "delay" in label:
+            soaks.append(("dense" if make is dense else "delta", make, spec, got, trace))
+    for name, make, spec, got, trace in soaks:
+        add(streamed_soak(torch, name, make, spec, got, trace))
+    log(f"scenarios (phase j): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -2798,6 +3160,10 @@ def main() -> int:
     ap.add_argument("--arms", action="store_true",
                     help="only run phase i (the remaining step arms: sparse, n = 40 960, "
                          "damping, relay full sync, carried delta planes); print no result line")
+    ap.add_argument("--scenarios", action="store_true",
+                    help="only run phase j (run_scenario against the host loop at n = 10 000 "
+                         "dense and n = 65 536 delta, streamed soaks and checkpoints); print no "
+                         "result line")
     args = ap.parse_args()
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
@@ -2838,6 +3204,10 @@ def main() -> int:
         arms_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.scenarios:
+        scenarios_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -2868,13 +3238,14 @@ def main() -> int:
     rows.append(short_row)
     launches_faults = faults_phase(torch)
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
+    launches_scen = scenarios_phase(torch)
     # each kernel's launches on the main paths it belongs to, each path
-    # counted from 0 (each printed above): the dense path and phase h's
-    # dense runs and phase i's for the receiver merge; FarmHash's warp
-    # kernel on the dense path, both config-4 paths, phases h and i, its
+    # counted from 0 (each printed above): the dense path and the dense
+    # runs of phases h, i and j for the receiver merge; FarmHash's warp
+    # kernel on the dense path, both config-4 paths, phases h, i and j, its
     # short-row kernel on both lookup surfaces and config 5; the delta
     # kernels on the delta path, both config-4 paths and the delta runs of
-    # phases h and i (kernel 3 also at phase i's block search); the hop on
+    # phases h, i and j (kernel 3 also at phase i's block search); the hop on
     # the three ring paths
     launches["farmhash32_short"] = short_launches + config5_launches
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
@@ -2884,7 +3255,8 @@ def main() -> int:
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += launches_c4[name] + launches_c4_full[name]
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
-        launches[name] += launches_faults[name] + launches_arms.get(name, 0)
+        launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
+                           + launches_scen.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

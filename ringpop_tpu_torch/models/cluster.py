@@ -16,7 +16,7 @@ sub-key to ``swim_run_impl``, which splits it into k keys.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -37,7 +37,7 @@ DEFAULT_BASE_INC = 1_400_000_000_000  # host clock epoch (ms)
 # View-row keys materialized at once by a device checksum sweep
 ROW_CHUNK_ELEMENTS = 1 << 26
 _STATE_LOST = (
-    "SimCluster.tick: a dense step failed after it had taken the cluster's "
+    "SimCluster: a dense step failed after it had taken the cluster's "
     "state over, so the state (and any ticks of this call already done) is "
     "lost; build a new SimCluster"
 )
@@ -105,6 +105,10 @@ class SimCluster:
         self.net: NetState = sim.make_net(n, device=self.device)
         self.key = prng.PRNGKey(seed)
         self.metrics_log: list[dict[str, int]] = []
+        self.traces: list[Any] = []  # scenarios.Trace per run_scenario
+        # the cursor of a streamed run (checkpoint v5), set by
+        # checkpoint.load when the checkpoint was written mid-stream
+        self.stream_cursor: dict[str, Any] | None = None
         self._device_book: ckdev.DeviceBook | None = None
         self._traffic_ring: ring_ops.DeviceRing | None = None  # lazy global ring
 
@@ -130,36 +134,131 @@ class SimCluster:
                 self.state, metrics = sdelta.delta_run_impl(
                     self.state, self.net, self._split(), self.dparams, ticks
                 )
+        elif ticks == 1:
+            (metrics,) = self._handed(
+                lambda hand: sim._swim_step_handed(hand, self.net, self._split(), self.params)
+            )
         else:
-            # the step takes the cluster's only reference to its state, so
-            # the entry state is freed once replaced (10 GB at n = 40 960);
-            # a step that refuses before taking it leaves it in place, one
-            # that fails after it leaves the cluster without a state
-            if self.state is None:
-                raise RuntimeError(_STATE_LOST)
-            hand = sim._Handoff(self.state)
-            self.state = None
-            try:
-                if ticks == 1:
-                    self.state, metrics = sim._swim_step_handed(
-                        hand, self.net, self._split(), self.params
-                    )
-                else:
-                    self.state, metrics = sim._swim_run_handed(
-                        hand, self.net, self._split(), self.params, ticks
-                    )
-            except Exception as exc:
-                if hand.state is None:
-                    raise RuntimeError(_STATE_LOST) from exc
-                raise
-            finally:
-                if self.state is None:
-                    self.state = hand.state
+            (metrics,) = self._handed(
+                lambda hand: sim._swim_run_handed(hand, self.net, self._split(), self.params, ticks)
+            )
         values = torch.stack(list(metrics.values())).tolist()
         out = dict(zip(metrics.keys(), (int(v) for v in values)))
         out["ticks"] = int(ticks)
         self.metrics_log.append(out)
         return out
+
+    def _handed(self, call: Callable[[sim._Handoff], tuple]) -> tuple:
+        """``call(hand)`` on the dense state handed over: it takes the
+        cluster's only reference, so the entry state is freed once
+        replaced (10 GB at n = 40 960).  ``call`` returns the new state
+        first; the rest of its result is returned.  A call that refuses
+        before taking the state leaves it in place, one that fails after
+        it leaves the cluster without a state."""
+        if self.state is None:
+            raise RuntimeError(_STATE_LOST)
+        hand = sim._Handoff(self.state)
+        self.state = None
+        try:
+            self.state, *rest = call(hand)
+        except Exception as exc:
+            if hand.state is None:
+                raise RuntimeError(_STATE_LOST) from exc
+            raise
+        finally:
+            if self.state is None:
+                self.state = hand.state
+        return tuple(rest)
+
+    def run_scenario(
+        self,
+        spec,
+        traffic: Any | None = None,
+        *,
+        segment_ticks: int | None = None,
+        store: str | None = None,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 1,
+        assemble: bool = True,
+        pipeline: bool = True,
+        policy: Any | None = None,
+        param_knobs: dict[str, float | int] | None = None,
+    ) -> Any:
+        """Run a declarative fault timeline in one call
+        (``scenarios.runner.run_compiled``); returns its per-tick
+        ``Trace``, also appended to ``self.traces`` (and an entry with
+        the last tick's counters and ``ticks`` to ``metrics_log``).
+
+        ``spec`` is a ``scenarios.ScenarioSpec``, its dict form or the
+        path of its JSON file.  The key schedule is segment-exact, so the
+        trajectory is that of the same faults applied through
+        ``kill()``/``partition()``/``tick()`` (``runner.run_host_loop``).
+        Every refusal comes before the first key is drawn: a failed call
+        leaves ``self.key`` as it was.
+
+        ``segment_ticks=S`` streams the run (``scenarios.stream``): S-tick
+        segments, telemetry drained per segment into ``store``, a v5
+        checkpoint every ``checkpoint_every`` segments with
+        ``checkpoint_path``; the same trajectory and trace.
+        ``assemble=False`` returns the ``SegmentStore`` instead of the
+        whole trace.  ``pipeline=False`` drains each segment before the
+        next starts.
+
+        Not ported yet, and refused: ``traffic`` (the serving plane),
+        ``policy``, ``param_knobs``; there is no stats sink, so the
+        reference's replay of the trace to one has no counterpart."""
+        from ringpop_tpu_torch.scenarios import compile as scompile
+        from ringpop_tpu_torch.scenarios import runner as srunner
+
+        if segment_ticks is not None:
+            if param_knobs is not None:
+                raise ValueError(
+                    "param_knobs is not wired through the streamed "
+                    "runner yet; run unsegmented (drop segment_ticks)"
+                )
+            from ringpop_tpu_torch.scenarios import stream as sstream
+
+            return sstream.run_streamed(
+                self, spec, segment_ticks=segment_ticks, traffic=traffic, store=store,
+                checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                assemble=assemble, pipeline=pipeline, policy=policy,
+            )
+        if store is not None or checkpoint_path is not None or not assemble:
+            raise ValueError(
+                "store/checkpoint_path/assemble are streaming options; "
+                "pass segment_ticks to stream the run"
+            )
+        srunner.refuse_unported(traffic=traffic, policy=policy, param_knobs=param_knobs)
+        spec = srunner.as_spec(spec)
+        spec.validate(self.n)
+        compiled = scompile.compile_spec(spec, self.n, base_loss=self.params.loss,
+                                         device=self.device)
+        params = self.dparams if self.backend == "delta" else self.params
+        adj = srunner.precheck(self.state, self.net, compiled, params)
+        srunner.precheck_overload(compiled, None, self.net)
+        srunner.precheck_prov(compiled, self.net, params)
+        keys = scompile.key_schedule(self._split, compiled)
+        start_tick = int(self.state.tick)
+
+        def run(state):
+            return srunner.run_compiled(state, self.net, keys, compiled, params, adj=adj)
+
+        if self.backend == "delta":
+            self.state, self.net, ys = run(self.state)
+        else:
+            self.net, ys = self._handed(run)
+        self.set_loss(float(compiled.loss[-1]))
+        trace = srunner.make_trace(srunner.telemetry_numpy(ys), self, start_tick, spec.to_dict())
+        self.traces.append(trace)
+        self.log_run(trace, spec.ticks)
+        return trace
+
+    def log_run(self, trace: Any, ticks: int) -> None:
+        """A scenario run's ``metrics_log`` entry: its last tick's
+        counters and the ticks it spans."""
+        entry = {k: int(v[-1]) for k, v in trace.metrics.items()}
+        entry["ticks"] = ticks
+        self.metrics_log.append(entry)
 
     def run_until_converged(self, max_ticks: int = 1000, check_every: int = 5) -> int:
         """Ticks until convergence (or -1)."""

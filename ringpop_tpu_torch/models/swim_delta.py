@@ -506,16 +506,18 @@ def compute_slot_base(state: DeltaState) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
-def refresh_carried(state: DeltaState) -> DeltaState:
+def refresh_carried(state: DeltaState, digest: bool = True) -> DeltaState:
     """Recompute every carried derivative from scratch: the one call that
     makes a hand-mutated or rebuilt state step-ready.  The rolling digest
-    is always carried.  The slot-base planes (``d_bpmask``/``d_bprank``,
-    the base gathers of phases 0-1 kept per slot) are carried where the
-    state already carries them, or, for a state built while
-    ``RINGPOP_CARRY_SLOTBASE=1`` (the reference's switch, read here at
-    build time only, with its meaning), from now on; otherwise they are
-    dropped."""
-    state = state._replace(digest=compute_digest(state))
+    is always carried (``digest=False`` keeps the state's own, as a
+    checkpoint load that finds it does).  The slot-base planes
+    (``d_bpmask``/``d_bprank``, the base gathers of phases 0-1 kept per
+    slot) are carried where the state already carries them, or, for a
+    state built while ``RINGPOP_CARRY_SLOTBASE=1`` (the reference's
+    switch, read here at build time only, with its meaning), from now
+    on; otherwise they are dropped."""
+    if digest:
+        state = state._replace(digest=compute_digest(state))
     if os.environ.get("RINGPOP_CARRY_SLOTBASE", "0") == "1" or state.d_bpmask is not None:
         return _with_slot_base(state)
     return state._replace(d_bpmask=None, d_bprank=None)
@@ -1660,12 +1662,14 @@ def _converged_impl(
     ids = _ids(n, state.device)
     own = view_lookup(state, ids) & 7
     live = up & responsive & ((own == ALIVE) | (own == SUSPECT))
-    ref = torch.argmax(live.to(torch.uint8))  # 0 for an all-False row
+    # 0 for an all-False row; one-row gathers (indexing with a tensor
+    # scalar would read it back to the host)
+    ref = torch.argmax(live.to(torch.uint8)).reshape(1)
 
-    ref_subj = state.d_subj[ref]  # [C]
-    ref_key = state.d_key[ref]
+    ref_subj = state.d_subj.index_select(0, ref)[0]  # [C]
+    ref_key = state.d_key.index_select(0, ref)[0]
     ref_live = ref_subj < SENTINEL
-    ref_base = _base_rows(state, ref[None])
+    ref_base = _base_rows(state, ref)
     ref_row = _scatter_rows(ref_base, ref_subj[None, :], ref_key[None, :])[0]
 
     slots_live = state.d_subj < SENTINEL

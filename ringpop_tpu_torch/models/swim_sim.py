@@ -1050,8 +1050,10 @@ def converged_impl(state: ClusterState, net: NetState) -> torch.Tensor:
     """Exact view agreement among live (gossiping) nodes: bool[]."""
     own = torch.diagonal(state.view_key) & 7
     live = net.up & net.responsive & ((own == ALIVE) | (own == SUSPECT))
-    ref = torch.argmax(live.to(torch.uint8))
-    row_same = (state.view_key == state.view_key[ref][None, :]).all(dim=1)
+    # the reference row by a one-row gather (indexing with a tensor
+    # scalar would read it back to the host)
+    ref = torch.argmax(live.to(torch.uint8)).reshape(1)
+    row_same = (state.view_key == state.view_key.index_select(0, ref)).all(dim=1)
     return torch.where(live, row_same, True).all() | (live.sum() <= 1)
 
 

@@ -1,6 +1,6 @@
 """The failure model's host side: directed link loss, latency, gray periods.
 
-The port of the host half of ``ringpop_tpu/scenarios/faults.py``.  A
+The port of ``ringpop_tpu/scenarios/faults.py``.  A
 scenario's ``link_loss``/``delay``/``gray`` events lower to three
 things the steps evaluate every tick, all O(N) or O(K * N), never an
 [N, N] matrix:
@@ -18,11 +18,12 @@ things the steps evaluate every tick, all O(N) or O(K * N), never an
   the in-flight claim buffer (``ClusterState.pending``, or the delta
   backend's ``pend_*`` lanes).
 
-``HostPlan`` applies them through ``SimCluster`` at every boundary of
-the host loop (``runner.run_host_loop``).  ``flap``/``rolling_restart``
-need nothing here: they expand to kill/revive primitives
-(``spec.expand_fault_primitives``).  The device tensors of the compiled
-scan (``compile_faults``) are not ported yet.
+``compile_faults`` lowers them to the device tensors the compiled
+runner (``runner.run_compiled``) evaluates each tick; ``HostPlan``
+applies them through ``SimCluster`` at every boundary of the host loop
+(``runner.run_host_loop``).  ``flap``/``rolling_restart`` need nothing
+here: they expand to kill/revive primitives
+(``spec.expand_fault_primitives``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ringpop_tpu_torch import resolve_device
 from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
 
 
@@ -45,6 +47,23 @@ class LinkRule(NamedTuple):
     p: float  # extra drop probability on the link
     delay: int  # base latency in ticks
     jitter: int  # uniform extra latency in {0..jitter}
+
+
+class FaultTensors(NamedTuple):
+    """The rule table and period rows on the cluster's device.
+    ``lr_d``/``lr_j`` are None when the spec delays nothing: their
+    presence routes the step through the in-flight buffer (and widens
+    its key split)."""
+
+    lr_src: torch.Tensor  # bool[K, N]
+    lr_dst: torch.Tensor  # bool[K, N]
+    lr_p: torch.Tensor  # float32[K]
+    lr_start: torch.Tensor  # int32[K]
+    lr_end: torch.Tensor  # int32[K]
+    lr_d: torch.Tensor | None  # int32[K] | None (no delay rules)
+    lr_j: torch.Tensor | None  # int32[K] | None
+    pe_tick: torch.Tensor  # int32[G] period-switch ticks
+    pe_row: torch.Tensor  # int16[G, N] per-node period rows (the runner's carry form)
 
 
 class OverloadConfig(NamedTuple):
@@ -192,6 +211,46 @@ def rules_arrays(
             d[i] = r.delay
             j[i] = r.jitter
     return src, dst, p, d, j
+
+
+def compile_faults(
+    spec: ScenarioSpec, n: int, device: torch.device | str | None = None
+) -> FaultTensors | None:
+    """The spec's fault events as tensors on ``device``, or None when it
+    has none."""
+    rules = link_rules(spec)
+    switches = period_switches(spec, n)
+    if not rules and not switches:
+        return None
+    dev = resolve_device(device)
+    src, dst, p, d, j = rules_arrays(rules, n)
+    has_delay = bool((d + j).any())
+
+    def on(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return FaultTensors(
+        lr_src=on(src),
+        lr_dst=on(dst),
+        lr_p=on(p),
+        lr_start=on(np.array([r.start for r in rules], dtype=np.int32)),
+        lr_end=on(np.array([r.end for r in rules], dtype=np.int32)),
+        lr_d=on(d) if has_delay else None,
+        lr_j=on(j) if has_delay else None,
+        pe_tick=on(np.array([t for t, _ in switches], dtype=np.int32)),
+        pe_row=on(_narrow_period_rows(switches, n)),
+    )
+
+
+def _narrow_period_rows(switches, n: int) -> np.ndarray:
+    """Period-switch rows in the runner's int16 carry form; a period past
+    the int16 range is refused."""
+    rows = np.stack([row for _, row in switches]) if switches else np.zeros((0, n), np.int32)
+    if rows.size and rows.max() > np.iinfo(np.int16).max:
+        raise ValueError(
+            f"set_period row value {rows.max()} exceeds the int16 carry range"
+        )
+    return rows.astype(np.int16)
 
 
 class HostPlan:

@@ -28,7 +28,17 @@ sides; ``["run_host_loop", spec_dict]`` runs a scenario through each
 side's ``scenarios.runner.run_host_loop``, every segment it ticks
 recorded as a tick op; ``["try", op...]`` runs an op and records the
 exception it raises as ``"Type: message"`` under ``{name}/try{i}`` (i
-the op's index; "" for none).  Before every tick the net's fault
+the op's index; "" for none) and the key after it
+(``{name}/key_after_try{i}``).  ``["run_scenario", spec, kwargs]`` runs
+``SimCluster.run_scenario`` on each side; ``["run_streamed", spec,
+kwargs]`` runs ``scenarios.stream.run_streamed``, with a checkpoint in
+the case's ``tmp_dir`` where ``kwargs`` has ``"checkpoint": True``, and
+after an ``interrupt_after`` kill finishes through ``stream.resume``
+(the resumed cluster carries on) unless ``"resume": False`` (the
+checkpoint's path is then recorded under ``{name}/ckpt{i}``).  Each
+records, under ``{name}/sc{i}/``, the trace's arrays (``trace/...``) and
+meta (``trace_meta``), the state, net, key, loss and last
+``metrics_log`` entry after it.  Before every tick the net's fault
 fields (``NET_FAULT_FIELDS``) and the loss are recorded
 (``{name}/net{t}/{field}``, ``{name}/loss{t}``).  A case with
 ``"lookups": {"keys": [...], "viewers": [...]}``
@@ -91,8 +101,10 @@ type(batching.primitive_batchers).__contains__ = lambda self, key: True
 """
 
 _REFERENCE = _PATCHES + r"""
+import os
 from ringpop_tpu.models import swim_sim as sim
 from ringpop_tpu.models.cluster import SimCluster
+from ringpop_tpu.scenarios import stream
 
 with open(sys.argv[1]) as f:
     cases = json.load(f)
@@ -113,7 +125,9 @@ for case in cases:
                    **case.get("caps", {}))
     snaps = []
     def snap():
-        snaps.append({f: getattr(c.state, f) for f in fields})
+        # host copies now: a scenario run donates the state's buffers
+        snaps.append({f: None if getattr(c.state, f) is None else np.asarray(getattr(c.state, f))
+                      for f in fields})
     snap()
     t = 0
     real_tick = c.tick
@@ -149,16 +163,48 @@ for case in cases:
             runner.run_host_loop(c, ScenarioSpec.from_dict(op[1]))
         else:
             getattr(c, op[0])(*op[1:])
+    def record_scenario(key, tr):
+        for k, v in tr.to_arrays().items():
+            out[f"{key}/trace/{k}"] = np.asarray(v)
+        out[f"{key}/trace_meta"] = np.array(json.dumps(tr.meta()))
+        for f in fields:
+            if getattr(c.state, f) is not None:
+                out[f"{key}/state/{f}"] = np.asarray(getattr(c.state, f))
+        for f, v in c.net._asdict().items():
+            if v is not None:
+                out[f"{key}/net/{f}"] = np.asarray(v)
+        out[f"{key}/key"] = np.asarray(c.key)
+        out[f"{key}/loss"] = np.array(c.params.loss)
+        out[f"{key}/log"] = np.array(json.dumps(c.metrics_log[-1]))
     c.tick = tick
     for i, op in enumerate(case["ops"]):
         if op[0] == "tick":
             tick(op[1])
+        elif op[0] == "run_scenario":
+            record_scenario(f"{name}/sc{i}", c.run_scenario(op[1], **(op[2] if len(op) > 2 else {})))
+        elif op[0] == "run_streamed":
+            kw = dict(op[2])
+            ck = os.path.join(case["tmp_dir"], f"{name}-{i}.npz")
+            if kw.pop("checkpoint", False):
+                kw["checkpoint_path"] = ck
+            finish = kw.pop("resume", True)
+            try:
+                tr = stream.run_streamed(c, op[1], **kw)
+            except stream.StreamInterrupted:
+                out[f"{name}/ckpt{i}"] = np.array(ck)
+                if not finish:
+                    continue
+                c, tr = stream.resume(ck)
+                real_tick = c.tick
+                c.tick = tick
+            record_scenario(f"{name}/sc{i}", tr)
         elif op[0] == "try":
             try:
                 call(op[1:])
                 out[f"{name}/try{i}"] = np.array("")
             except Exception as e:
                 out[f"{name}/try{i}"] = np.array(f"{type(e).__name__}: {e}")
+            out[f"{name}/key_after_try{i}"] = np.asarray(c.key)
         else:
             call(op)
     look = case.get("lookups")
@@ -215,7 +261,7 @@ def run_references(
         spec = os.path.join(tmp_dir, f"cases-{name}.json")
         with open(spec, "w") as f:
             json.dump([{**c, "fields": list(case_fields(c)),
-                        "net_fields": list(NET_FAULT_FIELDS)}
+                        "net_fields": list(NET_FAULT_FIELDS), "tmp_dir": tmp_dir}
                        for c in cases if name in c.get("lowerings", envs)], f)
         out = os.path.join(tmp_dir, f"reference-{name}.npz")
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
@@ -540,7 +586,8 @@ def port_cluster(case: dict):
     )
 
 
-def run_port(case: dict, on_tick=None, tries: dict | None = None) -> list[dict]:
+def run_port(case: dict, on_tick=None, tries: dict | None = None,
+             scenarios: dict | None = None, tmp_dir: str | None = None) -> list[dict]:
     """Drive the port's ``SimCluster`` on the CPU through ``case["ops"]``;
     returns one record per tick (a tick op, or a segment of the host
     loop of a ``["run_host_loop", spec]`` op): the state after it, its
@@ -548,8 +595,13 @@ def run_port(case: dict, on_tick=None, tries: dict | None = None) -> list[dict]:
     cluster)`` runs after each tick.  A ``["try", op...]`` op runs the
     op and records, in ``tries`` under the op's index, the exception it
     raised as ``"Type: message"`` ("" for none), as the reference
-    child records ``{name}/try{i}``."""
-    from ringpop_tpu_torch.scenarios import runner
+    child records ``{name}/try{i}``.  ``run_scenario`` and
+    ``run_streamed`` ops (checkpoints in ``tmp_dir``) record in
+    ``scenarios`` under the op's index what ``scenario_record`` gives
+    (``{"ckpt": path}`` for an interrupted run left unfinished), and a
+    ``try`` op its key after (``{"key": ...}``)."""
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.scenarios import runner, stream
     from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
 
     c = port_cluster(case)
@@ -575,15 +627,75 @@ def run_port(case: dict, on_tick=None, tries: dict | None = None) -> list[dict]:
     for i, op in enumerate(case["ops"]):
         if op[0] == "tick":
             tick(op[1])
+        elif op[0] == "run_scenario":
+            scenarios[i] = scenario_record(c, case, c.run_scenario(
+                op[1], **(op[2] if len(op) > 2 else {})))
+        elif op[0] == "run_streamed":
+            kw = dict(op[2])
+            ck = os.path.join(tmp_dir, f"{case['name']}-{i}.npz")
+            if kw.pop("checkpoint", False):
+                kw["checkpoint_path"] = ck
+            finish = kw.pop("resume", True)
+            try:
+                tr = stream.run_streamed(c, op[1], **kw)
+            except stream.StreamInterrupted:
+                if not finish:
+                    scenarios[i] = {"ckpt": ck}
+                    continue
+                c, tr = stream.resume(ck, device="cpu")
+                real_tick = c.tick
+                c.tick = tick
+            scenarios[i] = scenario_record(c, case, tr)
         elif op[0] == "try":
             try:
                 call(op[1:])
                 tries[i] = ""
             except Exception as e:  # noqa: BLE001 - the type is what is compared
                 tries[i] = f"{type(e).__name__}: {e}"
+            if scenarios is not None:
+                scenarios[i] = {"key": convert.key_to_numpy(c.key)}
         else:
             call(op)
     return recs
+
+
+def scenario_record(c, case: dict, trace) -> dict:
+    """What a scenario op leaves, as numpy under the reference's names and
+    dtypes: the trace's arrays and meta, the state, net, key, loss and
+    last ``metrics_log`` entry."""
+    from ringpop_tpu_torch import convert
+
+    state = (convert.delta_state_to_numpy(c.state) if case.get("backend") == "delta"
+             else convert.state_to_numpy(c.state))
+    return {
+        "trace": trace.to_arrays(),
+        "meta": json.loads(json.dumps(trace.meta())),
+        "state": {f: state[f] for f in case_fields(case)},
+        "net": {f: v for f, v in convert.net_to_numpy(c.net).items() if v is not None},
+        "key": convert.key_to_numpy(c.key),
+        "loss": c.params.loss,
+        "log": c.metrics_log[-1],
+    }
+
+
+def assert_same_scenario(ref: dict[str, np.ndarray], case: dict, i: int, got: dict) -> None:
+    """The port's record of scenario op ``i`` equal to the reference's,
+    every array with its dtype."""
+    key = f"{case['name']}/sc{i}"
+    want_trace = {k[len(key) + 7:]: v for k, v in ref.items() if k.startswith(key + "/trace/")}
+    assert set(got["trace"]) == set(want_trace), (key, sorted(got["trace"]), sorted(want_trace))
+    for k, v in want_trace.items():
+        assert_same_field(np.asarray(got["trace"][k]), v, f"{key}: trace {k}")
+    assert got["meta"] == json.loads(str(ref[key + "/trace_meta"])), key
+    for f in case_fields(case):
+        assert_same_field(got["state"][f], ref.get(f"{key}/state/{f}"), f"{key}: state {f}")
+    want_net = {k[len(key) + 5:]: v for k, v in ref.items() if k.startswith(key + "/net/")}
+    assert set(got["net"]) == set(want_net), (key, sorted(got["net"]), sorted(want_net))
+    for f, v in want_net.items():
+        assert_same_field(got["net"][f], v, f"{key}: net {f}")
+    assert_same_field(got["key"], ref[key + "/key"], f"{key}: key")
+    assert got["loss"] == float(ref[key + "/loss"]), key
+    assert got["log"] == json.loads(str(ref[key + "/log"])), key
 
 
 def split_heal(n: int, split: int, heal: int, split_every: int = 4) -> list:
@@ -732,6 +844,10 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.scenarios.faults",
     "ringpop_tpu_torch.scenarios.compile",
     "ringpop_tpu_torch.scenarios.runner",
+    "ringpop_tpu_torch.scenarios.trace",
+    "ringpop_tpu_torch.scenarios.stream",
+    "ringpop_tpu_torch.stats",
+    "ringpop_tpu_torch.checkpoint",
 )
 
 
