@@ -170,12 +170,35 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     ``run_scenario`` may take no more syncs a tick outside its revives
     than the ``tick(1)`` loop inside its ticks; the receiver merge
     (dense) and the row-searchsorted and merge-insert kernels (delta)
-    must launch; j4, j2's first spec and j3's delay family streamed in
-    40-tick segments with a checkpoint under the git-ignored build
-    directory, killed after the first checkpoint and resumed: trace and
-    final state equal to the unsegmented run, each checkpoint's bytes
-    and save and load seconds printed;
-18. print the ``kernels`` JSON line (each kernel's launches summed over
+    must launch; j4, j2's first spec in two 60-tick segments and j3's
+    delay family in 40-tick segments, each with a checkpoint under the
+    git-ignored build directory, killed after the first checkpoint and
+    resumed: trace and final state equal to the unsegmented run, each
+    checkpoint's bytes and save and load seconds printed;
+18. (phase k) scenario sweeps and protocol knobs: k1, ``run_sweep`` on
+    the card and on the CPU from one seed, every series, final state and
+    net field, replica key and the cluster key equal: dense n = 256
+    (``benchmarks/bench_sweep.py``'s spec plus a flap window; loss
+    scales, kill and flap jitter), a dense knob sweep (``ping_req_size``
+    below capacity, ``relay_full_sync`` 0/1), the damp thresholds on a
+    damping cluster, ``benchmarks/tune.py``'s boundary arm (n = 48, 80
+    ticks, eight ``suspicion_ticks``) and a delta knob sweep at phase
+    4's caps; k2, dense n = 10,000 (the bench spec, 60 ticks, R = 4,
+    kill jitter 0-3, ``suspicion_ticks`` 3/5/8/12), replicas 0 and 3
+    equal to their standalone ``run_scenario(replica_spec(...),
+    param_knobs=...)`` runs on every series, state field and the
+    checksums of every live row; k3, delta n = 65,536 (default caps,
+    the same spec, R = 2), the whole sweep, the same streamed in 20-tick
+    segments pipelined and not (equal to it), and replica 1 against its
+    standalone run; then the whole sweep again with knobs
+    (``suspicion_ticks``, ``piggyback_factor``, ``ping_req_size`` below
+    capacity and ``phase_mod`` 2 on replica 1), replica 1 against its
+    standalone run; each arm's ms per replica-tick, host syncs per
+    replica-tick and peak printed, and in each arm a checked replica may
+    take no more syncs a tick (those of its own tick-loop calls plus an
+    R-th of the sweep's per-call ones) than its standalone
+    ``run_scenario``;
+19. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -185,8 +208,8 @@ the ``ringpop_tpu_torch`` package under ROOT, such as a parent checkout,
 and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
---faults`` runs only phase h, ``--arms`` only phase i and ``--scenarios``
-only phase j; none prints a result line.
+--faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
+only phase j and ``--sweeps`` only phase k; none prints a result line.
 """
 
 from __future__ import annotations
@@ -2810,6 +2833,9 @@ def arms_phase(torch, dense_ticks: int = 34, delta_ticks: int = 36) -> dict:
 N_SCEN_SMALL = 256
 SCEN_TICKS = 120  # benchmarks/bench_scenario.py's horizon
 SCEN_SEGMENT = 40
+# the dense soak in two segments: one checkpoint mid-run (each dense
+# checkpoint write takes 14-32 s on one host core), the kill and the resume
+SCEN_SEGMENT_DENSE = SCEN_TICKS // 2
 SCEN_SEED = 11  # benchmarks/bench_scenario.py:47
 
 
@@ -3040,8 +3066,9 @@ def scenario_compare(torch, label: str, make, spec: dict, sample: bool) -> tuple
     return got, trace, launches, (ra, rb, rc)
 
 
-def streamed_soak(torch, label: str, make, spec: dict, want: dict, want_trace) -> dict:
-    """Phase j4: the spec streamed in ``SCEN_SEGMENT``-tick segments with a
+def streamed_soak(torch, label: str, make, spec: dict, want: dict, want_trace,
+                  segment: int) -> dict:
+    """Phase j4: the spec streamed in ``segment``-tick segments with a
     checkpoint under the git-ignored build directory, killed after the
     first checkpoint (``interrupt_after=1``) and resumed; the trace and
     final state must equal the unsegmented run's.  Times each checkpoint
@@ -3078,7 +3105,7 @@ def streamed_soak(torch, label: str, make, spec: dict, want: dict, want_trace) -
     try:
         c = make()
         try:
-            stream.run_streamed(c, spec, segment_ticks=SCEN_SEGMENT, checkpoint_path=path,
+            stream.run_streamed(c, spec, segment_ticks=segment, checkpoint_path=path,
                                 interrupt_after=1)
             raise AssertionError(f"scenarios {label}: the soak was not interrupted")
         except stream.StreamInterrupted:
@@ -3091,7 +3118,7 @@ def streamed_soak(torch, label: str, make, spec: dict, want: dict, want_trace) -
     _same_trace(trace, want_trace, f"scenarios (phase j4) {label}")
     _same_run(torch, _host_copy(c), want, f"scenarios (phase j4) {label}")
     launches = _kernel_counts()
-    log(f"scenarios (phase j4): {label} streamed ({SCEN_SEGMENT}-tick segments), killed after "
+    log(f"scenarios (phase j4): {label} streamed ({segment}-tick segments), killed after "
         f"the first checkpoint and resumed: trace, state, net and key equal to the unsegmented "
         f"run; checkpoint saves (s, bytes) {[(round(t, 3), b) for t, b in saves]}, load "
         f"{[round(t, 3) for t in loads]} s; {wall:.1f} s; launches {launches}")
@@ -3140,8 +3167,301 @@ def scenarios_phase(torch) -> dict:
         if "bench_scenario" in label or "delay" in label:
             soaks.append(("dense" if make is dense else "delta", make, spec, got, trace))
     for name, make, spec, got, trace in soaks:
-        add(streamed_soak(torch, name, make, spec, got, trace))
+        segment = SCEN_SEGMENT_DENSE if name == "dense" else SCEN_SEGMENT
+        add(streamed_soak(torch, name, make, spec, got, trace, segment))
     log(f"scenarios (phase j): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase k: scenario sweeps (SimCluster.run_sweep) and protocol knobs
+# (run_scenario(param_knobs=))
+# ---------------------------------------------------------------------------
+
+N_SWEEP_SMALL = 256
+SWEEP_TICKS = 60  # benchmarks/bench_sweep.py's horizon
+SWEEP_SEGMENT = 20  # k3's streamed segments
+TUNE_SEED = 3  # benchmarks/tune.py:60
+TUNE_SUSPICION = [1, 2, 3, 4, 6, 8, 10, 12]  # tune.py's full boundary axis
+
+
+def sweep_spec(n: int, ticks: int) -> dict:
+    """``benchmarks/bench_sweep.py``'s ``_experiment_spec`` (copied here:
+    this script imports nothing of the JAX package): a kill, 5% loss,
+    then a ramp back to 0."""
+    return {"ticks": ticks, "events": [
+        {"at": ticks // 8, "op": "kill", "node": n - 1},
+        {"at": ticks // 4, "op": "loss", "p": 0.05},
+        {"at": ticks // 2, "op": "loss_ramp", "until": ticks // 2 + 10, "to": 0.0},
+    ]}
+
+
+def boundary_spec(n: int, ticks: int) -> dict:
+    """``benchmarks/tune.py``'s ``arm_boundary`` flap storm (down 3, up 4)."""
+    return {"ticks": ticks, "events": [{
+        "at": 10, "op": "flap", "nodes": [n - 2, n - 3, n - 4], "until": int(ticks * 0.6),
+        "down": 3, "up": 4, "stagger": 2}]}
+
+
+def _same_sweep(torch, a, b, what: str) -> None:
+    """Two ``SweepTrace``s equal: every series with its dtype, the meta
+    (axes, replica keys), and every replica's final state and net field
+    (compared on the host)."""
+    import numpy as np
+
+    ta, tb = a.to_arrays(), b.to_arrays()
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{what}: sweep series differ ({sorted(ta)} vs {sorted(tb)})")
+    for k, v in ta.items():
+        if v.dtype != tb[k].dtype or not np.array_equal(v, tb[k]):
+            raise AssertionError(f"{what}: sweep {k} differs")
+    if a.meta() != b.meta():
+        raise AssertionError(f"{what}: sweep meta differs")
+    for kind in ("final_states", "final_nets"):
+        for r, (x, y) in enumerate(zip(getattr(a, kind), getattr(b, kind))):
+            for f, u in x._asdict().items():
+                v = getattr(y, f)
+                if (u is None) != (v is None) or (
+                        u is not None and (u.dtype != v.dtype or not torch.equal(u.cpu(), v.cpu()))):
+                    raise AssertionError(f"{what}: replica {r} {kind} {f} differs")
+
+
+def _sweep_on(torch, device: str, n: int, params, spec: dict, replicas: int, kwargs: dict,
+              seed: int = 0, **cluster_kw):
+    from ringpop_tpu_torch.models.cluster import SimCluster
+
+    c = SimCluster(n, params, seed=seed, device=device, **cluster_kw)
+    trace = c.run_sweep(spec, replicas, **kwargs)
+    return trace, c.key.clone()
+
+
+def check_sweeps_cuda_equals_cpu(torch) -> None:
+    """Phase k1: ``run_sweep`` on the card and on the CPU from one seed
+    (every series, final state and net field, replica key and the
+    cluster key equal): a dense sweep with loss scales, kill and flap
+    jitter; a dense knob sweep (``ping_req_size`` below capacity,
+    ``relay_full_sync`` 0/1); the damp thresholds on a damping cluster;
+    ``tune.py``'s boundary arm; a delta knob sweep at phase 4's caps."""
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    n = N_SWEEP_SMALL
+    flap = sweep_spec(n, SWEEP_TICKS)
+    flap["events"].append({"at": SWEEP_TICKS // 5, "op": "flap", "nodes": [n - 2, n - 3],
+                           "until": SWEEP_TICKS * 2 // 3, "down": 3, "up": 4})
+    storm = boundary_spec(48, 80)
+    cases = [
+        ("dense scales, kill and flap jitter", n, SwimParams(loss=0.01, suspicion_ticks=8),
+         flap, 3, {"loss_scales": [1.0, 0.5, 2.0], "kill_jitter": [0, 1, 2],
+                   "flap_jitter": [0, 2, 4]}, {}),
+        ("dense knobs ping_req_size, relay_full_sync", n, SwimParams(loss=0.05,
+                                                                     suspicion_ticks=8),
+         sweep_spec(n, 40), 3,
+         {"param_axes": {"ping_req_size": [3, 2, 1], "relay_full_sync": [0, 1, 1]}}, {}),
+        ("dense damp thresholds", n, SwimParams(loss=0.01, suspicion_ticks=8),
+         boundary_spec(n, 40), 2,
+         {"param_axes": {"damp_suppress": [1200.0, 2500.0], "damp_reuse": [400.0, 500.0],
+                         "damp_penalty": [700.0, 500.0]}}, {"damping": True}),
+        ("tune.py boundary arm, n=48", 48, SwimParams(), storm, len(TUNE_SUSPICION),
+         {"param_axes": {"suspicion_ticks": TUNE_SUSPICION}}, {"seed": TUNE_SEED}),
+        ("delta knobs suspicion_ticks, piggyback_factor", n,
+         SwimParams(loss=0.05, suspicion_ticks=8), sweep_spec(n, 40), 2,
+         {"param_axes": {"suspicion_ticks": [5, 10], "piggyback_factor": [3, 5]}},
+         {"backend": "delta", **FAULT_CAPS_SMALL}),
+    ]
+    for label, nn, params, spec, reps, kwargs, ckw in cases:
+        t0 = time.perf_counter()
+        (tw, kw), (tg, kg) = (_sweep_on(torch, d, nn, params, spec, reps, kwargs, **ckw)
+                              for d in ("cpu", "cuda"))
+        _same_sweep(torch, tg, tw, f"sweeps (phase k1) {label}")
+        if not torch.equal(kg, kw):
+            raise AssertionError(f"sweeps (phase k1) {label}: cluster keys differ")
+        extra = ""
+        if "tune" in label:
+            det = tg.detect_ticks()
+            evading = [s for s, d in zip(TUNE_SUSPICION, det) if d < 0]
+            extra = (f"; detect ticks {det.tolist()}, boundary "
+                     f"{min(evading) if evading else None}")
+        log(f"sweeps (phase k1): {label} R={reps} n={nn} {spec['ticks']} ticks: cuda == cpu "
+            f"on every series, final state and net field, replica key and the cluster key; "
+            f"heal ticks {tg.heal_ticks().tolist()}{extra}; {time.perf_counter() - t0:.1f} s")
+
+
+def _sweep_arm(torch, label: str, make, run) -> tuple:
+    """One measured arm of k2/k3 on a fresh cluster made before the
+    window: (cluster, result, what it measured over ``run``), with the
+    host syncs inside each call of the runner's tick loop apart
+    (``scan_syncs``: a sweep's calls go segment by segment, replica by
+    replica within a segment)."""
+    from ringpop_tpu_torch.scenarios import runner
+
+    c = make()
+    _reset_counts()
+    _counted_recv_merge_reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sink: dict = {}
+    scan_syncs: list[int] = []
+    real = runner._scenario_scan_impl
+    t0 = time.perf_counter()
+    with _syncs(torch, sink) as caught:
+        def counted(*args, **kwargs):
+            before = len(caught)
+            try:
+                return real(*args, **kwargs)
+            finally:
+                scan_syncs.append(sum("synchroniz" in str(w.message) for w in caught[before:]))
+
+        runner._scenario_scan_impl = counted
+        try:
+            out = run(c)
+        finally:
+            runner._scenario_scan_impl = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return c, out, {"wall_s": wall, "syncs": sink["syncs"],
+                    "revive_syncs": sink.get("revive_syncs", 0), "scan_syncs": scan_syncs,
+                    "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                    "launches": _kernel_counts()}
+
+
+def _replica_syncs(r: dict, replica: int, replicas: int) -> float:
+    """Replica ``replica``'s host syncs in a sweep arm: those inside its
+    own tick-loop calls plus an R-th of the sweep's per-call ones."""
+    own = sum(r["scan_syncs"][replica::replicas])
+    return own + (r["syncs"] - r["revive_syncs"] - sum(r["scan_syncs"])) / replicas
+
+
+def _arm_line(label: str, arm: str, r: dict, replica_ticks: int) -> str:
+    return (f"sweeps {label} {arm}: {r['wall_s'] * 1e3 / replica_ticks:.3f} ms per replica-tick "
+            f"over {replica_ticks} replica-ticks, host syncs {r['syncs']} "
+            f"({(r['syncs'] - r['revive_syncs']) / replica_ticks:.2f} per replica-tick outside "
+            f"revives), peak {r['peak_gib']:.2f} GiB over the start, launches {r['launches']}")
+
+
+def sweep_compare(torch, label: str, make, spec: dict, replicas: int, kwargs: dict,
+                  check: list[int], streamed: bool, sample: bool) -> dict:
+    """Phase k2/k3: ``run_sweep`` at full width, the replicas in ``check``
+    held against standalone ``run_scenario(replica_spec(...),
+    param_knobs=replica_param_knobs(...))`` runs from their replica keys
+    (every series, final state field and the checksums of the live rows,
+    a sample of them with ``sample``); with ``streamed`` the sweep again
+    in ``SWEEP_SEGMENT``-tick segments, pipelined and not, equal to it.
+    Checks the sync rule and returns the launches of the sweep arms."""
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.scenarios import sweep as ssweep
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+
+    t_all = time.perf_counter()
+    ticks = spec["ticks"]
+    rt = replicas * ticks
+    _, whole, rs = _sweep_arm(torch, label, make, lambda c: c.run_sweep(spec, replicas, **kwargs))
+    log(_arm_line(label, "run_sweep", rs, rt))
+    launches = dict(rs["launches"])
+    arms = {"run_sweep": rs}
+    if streamed:
+        for pipe in (True, False):
+            arm = f"streamed pipeline={pipe}"
+            _, got, r = _sweep_arm(torch, label, make, lambda c, p=pipe: c.run_sweep(
+                spec, replicas, **kwargs, segment_ticks=SWEEP_SEGMENT, pipeline=p))
+            _same_sweep(torch, got, whole, f"sweeps {label}: {arm} vs run_sweep")
+            del got
+            log(_arm_line(label, arm, r, rt) + "; equal to run_sweep")
+            arms[arm] = r
+            for k, v in r["launches"].items():
+                launches[k] += v
+    axes = kwargs.get("param_axes")
+    for r in check:
+        spec_r = ssweep.replica_spec(
+            ScenarioSpec.from_dict(spec), kill_jitter=whole.kill_jitter[r],
+            loss_scale=whole.loss_scales[r], flap_jitter=whole.flap_jitter[r])
+
+        def standalone(c, r=r, spec_r=spec_r):
+            c.key = convert.key_from_numpy(whole.replica_keys[r])
+            return c.run_scenario(spec_r, param_knobs=ssweep.replica_param_knobs(axes, r))
+
+        c, trace, ra = _sweep_arm(torch, label, make, standalone)
+        log(_arm_line(label, f"standalone run_scenario of replica {r}", ra, ticks))
+        want = whole.replica(r).to_arrays()
+        for k, v in trace.to_arrays().items():
+            if v.dtype != want[k].dtype or not (v == want[k]).all():
+                raise AssertionError(f"sweeps {label}: replica {r} series {k} differs from its "
+                                     "standalone run")
+        for f, x in c.state._asdict().items():
+            y = getattr(whole.final_states[r], f)
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"sweeps {label}: replica {r} state {f} differs from its "
+                                     "standalone run")
+        _reset_counts()
+        rows = _sample_rows(c) if sample else c.live_indices().tolist()
+        ck_run = c.checksums(indices=rows, backend="device")
+        c.state, c.net = whole.final_states[r], whole.final_nets[r]
+        ck_sweep = c.checksums(indices=rows, backend="device")
+        launches["farmhash32"] += _counted()["farmhash32"].launches
+        if ck_run != ck_sweep:
+            raise AssertionError(f"sweeps {label}: replica {r} checksums differ")
+        del c
+        # the sync rule, replica by replica: the replicas' knobs give
+        # them different trajectories, so each is held against its own
+        # standalone run
+        per_run = (ra["syncs"] - ra["revive_syncs"]) / ticks
+        per_rep = [_replica_syncs(a, r, replicas) / ticks for a in arms.values()]
+        log(f"sweeps {label}: replica {r} == its standalone run_scenario on every series and "
+            f"state field; checksums of {len(rows)} live rows equal, "
+            f"{len(set(ck_run.values()))} group(s); heal tick {whole.heal_ticks()[r]}, detect "
+            f"tick {whole.detect_ticks()[r]}; host syncs a tick outside revives: "
+            f"{' / '.join(f'{x:.2f}' for x in per_rep)} in {' / '.join(arms)}, "
+            f"{per_run:.2f} standalone")
+        if max(per_rep) > per_run:
+            raise AssertionError(f"sweeps {label}: replica {r} takes {max(per_rep):.2f} host "
+                                 f"syncs a tick outside revives in a sweep, run_scenario "
+                                 f"{per_run:.2f}")
+    log(f"sweeps {label}: summary {whole.summary()['replicas']}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
+def sweeps_phase(torch) -> dict:
+    """Phase k: k1 the lockstep at small n, k2 dense at n = 10 000, k3
+    delta at n = 65 536; returns the kernels' launches summed over k2
+    and k3."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    t0 = time.perf_counter()
+    check_sweeps_cuda_equals_cpu(torch)
+    log(f"sweeps (phase k1): {time.perf_counter() - t0:.1f} s")
+    launches: dict[str, int] = {}
+
+    def dense():
+        return SimCluster(N_MAIN, SwimParams(loss=0.01), seed=0, device="cuda")
+
+    def delta():
+        return SimCluster(N_DELTA, SwimParams(loss=0.01), seed=0, device="cuda",
+                          backend="delta", **DELTA_CAPS)
+
+    for label, make, spec, reps, kwargs, check, streamed, sample in (
+            (f"(phase k2) dense n={N_MAIN}", dense, sweep_spec(N_MAIN, SWEEP_TICKS), 4,
+             {"kill_jitter": [0, 1, 2, 3], "param_axes": {"suspicion_ticks": [3, 5, 8, 12]}},
+             [0, 3], False, False),
+            (f"(phase k3) delta n={N_DELTA}", delta, sweep_spec(N_DELTA, SWEEP_TICKS), 2,
+             {"kill_jitter": [0, 3]}, [1], True, True),
+            # every delta knob site at full width (streamed sweeps take no
+            # knobs): replica 1 carries a later countdown, a smaller
+            # piggyback factor, ping_req_size below capacity and a
+            # dividing phase_mod
+            (f"(phase k3) delta n={N_DELTA} knobs", delta, sweep_spec(N_DELTA, SWEEP_TICKS), 2,
+             {"kill_jitter": [0, 3], "param_axes": {
+                 "suspicion_ticks": [5, 8], "piggyback_factor": [15, 5],
+                 "ping_req_size": [3, 2], "phase_mod": [1, 2]}}, [1], False, True)):
+        got = sweep_compare(torch, label, make, spec, reps, kwargs, check, streamed, sample)
+        want = ("recv_merge",) if make is dense else ("row_searchsorted", "merge_insert")
+        for k in (*want, "farmhash32"):
+            if got[k] <= 0:
+                raise AssertionError(f"sweeps {label}: kernel {k} was not launched")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"sweeps (phase k): {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
 
 
@@ -3160,6 +3480,10 @@ def main() -> int:
     ap.add_argument("--arms", action="store_true",
                     help="only run phase i (the remaining step arms: sparse, n = 40 960, "
                          "damping, relay full sync, carried delta planes); print no result line")
+    ap.add_argument("--sweeps", action="store_true",
+                    help="only run phase k (run_sweep and param_knobs: cuda == cpu at small n, "
+                         "n = 10 000 dense and n = 65 536 delta against standalone runs); print "
+                         "no result line")
     ap.add_argument("--scenarios", action="store_true",
                     help="only run phase j (run_scenario against the host loop at n = 10 000 "
                          "dense and n = 65 536 delta, streamed soaks and checkpoints); print no "
@@ -3208,6 +3532,10 @@ def main() -> int:
         scenarios_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.sweeps:
+        sweeps_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -3239,14 +3567,15 @@ def main() -> int:
     launches_faults = faults_phase(torch)
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
     launches_scen = scenarios_phase(torch)
+    launches_sweeps = sweeps_phase(torch)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
-    # runs of phases h, i and j for the receiver merge; FarmHash's warp
-    # kernel on the dense path, both config-4 paths, phases h, i and j, its
+    # runs of phases h, i, j and k for the receiver merge; FarmHash's warp
+    # kernel on the dense path, both config-4 paths, phases h-k, its
     # short-row kernel on both lookup surfaces and config 5; the delta
     # kernels on the delta path, both config-4 paths and the delta runs of
-    # phases h, i and j (kernel 3 also at phase i's block search); the hop on
-    # the three ring paths
+    # phases h, i, j and k (kernel 3 also at phase i's block search); the
+    # hop on the three ring paths
     launches["farmhash32_short"] = short_launches + config5_launches
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"])
@@ -3256,7 +3585,7 @@ def main() -> int:
         launches[name] += launches_c4[name] + launches_c4_full[name]
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
-                           + launches_scen.get(name, 0))
+                           + launches_scen.get(name, 0) + launches_sweeps.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -204,9 +204,14 @@ class SimCluster:
         whole trace.  ``pipeline=False`` drains each segment before the
         next starts.
 
-        Not ported yet, and refused: ``traffic`` (the serving plane),
-        ``policy``, ``param_knobs``; there is no stats sink, so the
-        reference's replay of the trace to one has no counterpart."""
+        ``param_knobs`` overrides protocol knobs for this run
+        (``{"suspicion_ticks": 9, ...}``, ``swim_sim.SwimKnobs`` names),
+        validated before the key is drawn
+        (``runner.validate_param_knobs``); not with ``segment_ticks``.
+
+        Not ported yet, and refused: ``traffic`` (the serving plane) and
+        ``policy``; there is no stats sink, so the reference's replay of
+        the trace to one has no counterpart."""
         from ringpop_tpu_torch.scenarios import compile as scompile
         from ringpop_tpu_torch.scenarios import runner as srunner
 
@@ -228,7 +233,7 @@ class SimCluster:
                 "store/checkpoint_path/assemble are streaming options; "
                 "pass segment_ticks to stream the run"
             )
-        srunner.refuse_unported(traffic=traffic, policy=policy, param_knobs=param_knobs)
+        srunner.refuse_unported(traffic=traffic, policy=policy)
         spec = srunner.as_spec(spec)
         spec.validate(self.n)
         compiled = scompile.compile_spec(spec, self.n, base_loss=self.params.loss,
@@ -237,11 +242,18 @@ class SimCluster:
         adj = srunner.precheck(self.state, self.net, compiled, params)
         srunner.precheck_overload(compiled, None, self.net)
         srunner.precheck_prov(compiled, self.net, params)
+        if param_knobs is not None:
+            srunner.validate_param_knobs(
+                self.n, self.params, {k: [v] for k, v in param_knobs.items()},
+                backend=self.backend, period_active=srunner.period_active(self.net, compiled),
+                damping=getattr(self.state, "damp", None) is not None,
+            )
         keys = scompile.key_schedule(self._split, compiled)
         start_tick = int(self.state.tick)
 
         def run(state):
-            return srunner.run_compiled(state, self.net, keys, compiled, params, adj=adj)
+            return srunner.run_compiled(state, self.net, keys, compiled, params, adj=adj,
+                                        param_knobs=param_knobs)
 
         if self.backend == "delta":
             self.state, self.net, ys = run(self.state)
@@ -251,6 +263,98 @@ class SimCluster:
         trace = srunner.make_trace(srunner.telemetry_numpy(ys), self, start_tick, spec.to_dict())
         self.traces.append(trace)
         self.log_run(trace, spec.ticks)
+        return trace
+
+    def run_sweep(
+        self,
+        spec,
+        replicas: int,
+        *,
+        loss_scales: Sequence[float] | None = None,
+        kill_jitter: Sequence[int] | None = None,
+        flap_jitter: Sequence[int] | None = None,
+        traffic: Any | None = None,
+        shard: bool = False,
+        segment_ticks: int | None = None,
+        store: str | None = None,
+        assemble: bool = True,
+        pipeline: bool = True,
+        policy: Any | None = None,
+        policy_axes: dict[str, Any] | None = None,
+        param_axes: dict[str, Any] | None = None,
+        program_tag: str | None = None,
+    ) -> Any:
+        """Run R replicas of a scenario (``scenarios.sweep``); returns a
+        ``SweepTrace`` with [R, ticks] telemetry and the replicas' final
+        states and nets attached in memory (``final_states[r]``,
+        ``final_nets[r]``).
+
+        Each replica starts from a copy of the current state and draws
+        its own replica key from the cluster key, so replica r equals a
+        standalone ``run_scenario`` from that key.  ``loss_scales``,
+        ``kill_jitter`` and ``flap_jitter`` vary the scenario per
+        replica; ``param_axes`` sweeps protocol knobs (``{"suspicion_ticks":
+        [3, 6, 9, 12]}`` gives replica r the r-th value), and replica r
+        equals ``run_scenario(param_knobs=sweep.replica_param_knobs(
+        param_axes, r))``.
+
+        The cluster does not advance: only its key moves (R draws), and
+        ``metrics_log`` and ``traces`` stay as they were.  Every refusal
+        comes before the first replica key is drawn.
+
+        ``segment_ticks=S`` streams the sweep (``stream.run_sweep_streamed``):
+        [R, S] slabs drained per segment into ``store``, the same
+        replicas; not with ``param_axes``.  ``shard=True`` is a no-op on
+        one card and raises on several; ``program_tag`` has no effect
+        until the dispatch ledger is ported.  Not ported yet, and
+        refused: ``traffic``, ``policy`` and ``policy_axes``."""
+        from ringpop_tpu_torch import convert
+        from ringpop_tpu_torch.scenarios import runner as srunner
+        from ringpop_tpu_torch.scenarios import sweep as ssweep
+
+        if segment_ticks is not None:
+            if param_axes:
+                raise ValueError(
+                    "param_axes is not wired through the streamed "
+                    "sweep yet; run unsegmented (drop segment_ticks)"
+                )
+            from ringpop_tpu_torch.scenarios import stream as sstream
+
+            return sstream.run_sweep_streamed(
+                self, spec, replicas, segment_ticks=segment_ticks, loss_scales=loss_scales,
+                kill_jitter=kill_jitter, flap_jitter=flap_jitter, traffic=traffic, store=store,
+                assemble=assemble, pipeline=pipeline, shard=shard, policy=policy,
+                policy_axes=policy_axes,
+            )
+        if store is not None or not assemble:
+            raise ValueError(
+                "store/assemble are streaming options; pass segment_ticks "
+                "to stream the sweep"
+            )
+        spec = srunner.as_spec(spec)
+        spec.validate(self.n)
+        cs = ssweep.compile_sweep(
+            spec, self.n, replicas=replicas, base_loss=self.params.loss,
+            loss_scales=loss_scales, kill_jitter=kill_jitter, flap_jitter=flap_jitter,
+            device=self.device,
+        )
+        params = self.dparams if self.backend == "delta" else self.params
+        # every refusal before the replica keys are drawn
+        ssweep.prepare(self.state, self.net, cs, params, shard=shard, traffic=traffic,
+                       policy=policy, policy_axes=policy_axes, param_axes=param_axes)
+        replica_keys = [self._split() for _ in range(replicas)]
+        keys = ssweep.sweep_key_schedule(replica_keys, cs)
+        states, nets, ys = ssweep.run_sweep_compiled(
+            self.state, self.net, keys, cs, params, shard=shard, param_axes=param_axes,
+            program_tag=program_tag,
+        )
+        trace = ssweep.sweep_trace(
+            srunner.telemetry_numpy(ys), self,
+            np.stack([convert.key_to_numpy(k) for k in replica_keys]), cs,
+            int(self.state.tick), spec.to_dict(),
+        ).validate()
+        trace.final_states = states
+        trace.final_nets = nets
         return trace
 
     def log_run(self, trace: Any, ticks: int) -> None:

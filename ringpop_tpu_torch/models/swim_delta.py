@@ -39,8 +39,10 @@ The fault-model arms are ported: link rules, per-node periods and
 lanes (``pend_*``, ``install_pending``) that carry delayed claims across
 ticks.  The carried slot-base planes (``d_bpmask``/``d_bprank``, built
 under ``RINGPOP_CARRY_SLOTBASE=1`` as in the reference) and the
-truncated profiling steps (``upto`` < 7) are ported too.  Arms outside
-this port raise ``NotImplementedError``: traced knobs and ``prov=True``.
+truncated profiling steps (``upto`` < 7) are ported too, and so are
+the knobs (``swim_sim.SwimKnobs``: the countdown start, the piggyback
+factor, a knob ``phase_mod`` and the capacity-padded ``ping_req_size``).
+Arms outside this port raise ``NotImplementedError``: ``prov=True``.
 The maintenance and admin operations
 (``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
 host numpy, as in the reference.
@@ -631,7 +633,8 @@ class _Select(NamedTuple):
 
 @_scoped("delta.select")
 def _selection(
-    state: DeltaState, stats: _Stats, net: NetState, k_sel: torch.Tensor, params: DeltaParams
+    state: DeltaState, stats: _Stats, net: NetState, k_sel: torch.Tensor, params: DeltaParams,
+    knobs: Any = None,
 ) -> _Select:
     """Probe target + witnesses, RNG-identical to the dense phase 1: the
     rank -> subject map is evaluated at the per-row sorted correction
@@ -691,6 +694,10 @@ def _selection(
     has_target = valid[:, 0]
     wit = picks[:, 1:]
     wit_valid = valid[:, 1:]
+    phase_mod = sw.phase_mod if knobs is None else knobs.phase_mod
+    if knobs is not None:
+        # capacity-padded effective k (the dense selection's mask)
+        wit_valid = wit_valid & (torch.arange(k, device=dev)[None, :] < knobs.ping_req_size)
 
     if sw.probe == "sweep":
         mult = 0x9E37
@@ -700,7 +707,7 @@ def _selection(
         # floored modulo
         start = _wrap_i32(ids.to(torch.int64) * mult) % n
         # with staggered periods the sweep advances once per period
-        div = _sweep_divisor(sw.phase_mod, per)
+        div = _sweep_divisor(phase_mod, per)
         tick = state.tick.to(torch.int64)
         swept = ((start + (tick if div is None else tick // div)) % n).to(torch.int32)
         sst = view_lookup(state, swept) & 7
@@ -711,7 +718,7 @@ def _selection(
     elif sw.probe != "uniform":
         raise ValueError(f"unknown probe policy: {sw.probe!r}")
 
-    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, sw.phase_mod, per)
+    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, phase_mod, per)
     t_safe = torch.where(sends, target, 0)
     return _Select(gossiping, sends, t_safe, wit, wit_valid)
 
@@ -1057,8 +1064,6 @@ def _check_supported(
             "per-node periods (NetState.period) do not compose with the "
             "static phase_mod stagger: a row of P subsumes phase_mod=P"
         )
-    if knobs is not None:
-        raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
 
@@ -1099,6 +1104,11 @@ def delta_step_impl(
     w = params.wire_cap
     ids = _ids(n, dev)
     sl_start = _validate_params(n, sw)
+    if knobs is not None:
+        # the knob's countdown start; the delta backend has no damping
+        # plane and no relay full sync, so those knobs are pinned to
+        # their defaults upstream (runner.validate_param_knobs)
+        sl_start = int(knobs.suspicion_ticks) + 1
     loss = float(sw.loss)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     has_delay = state.pend_subj is not None
@@ -1116,11 +1126,12 @@ def delta_step_impl(
 
     # -- phases 0-1 -----------------------------------------------------------
     stats = _phase0_stats(state)
-    maxpb = _max_piggyback_1d(stats.server_count, int(sw.piggyback_factor)).to(torch.int8)
+    pb_factor = sw.piggyback_factor if knobs is None else knobs.piggyback_factor
+    maxpb = _max_piggyback_1d(stats.server_count, int(pb_factor)).to(torch.int8)
     h_pre = stats.digest
     if upto <= 0:
         return _cut(state, stats.digest + maxpb.to(torch.int64))
-    sel = _selection(state, stats, net, k_sel, params)
+    sel = _selection(state, stats, net, k_sel, params, knobs)
     gossiping, sends, t_safe = sel.gossiping, sel.sends, sel.t_safe
     wit, wit_valid = sel.wit, sel.wit_valid
     if upto <= 1:

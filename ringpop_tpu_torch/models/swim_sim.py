@@ -33,9 +33,14 @@ lowerings that the selection and the sparse passes take for rows longer
 than ``_SPARSE_SMALL_N`` (the block search runs on the row-searchsorted
 kernel of ``ops/searchsorted.py``), flap damping (``init_state(damping=
 True)``: the ``damp``/``damped`` planes) and the relay's full rows
-(``SwimParams.relay_full_sync``).  Arms of the reference that are not
-ported yet raise ``NotImplementedError``: traced knobs, ``prov`` and
-the sparse step under a gossip ring.
+(``SwimParams.relay_full_sync``).  The knob plane (``SwimKnobs``,
+``knobs=``) is ported: the value-like params as host numbers with the
+reference's dtypes applied, taking the reference's knob path at each
+site where it differs from ``params._replace`` (``ping_req_size``
+capacity-padded).
+Arms of the reference that are not ported yet raise
+``NotImplementedError``: ``prov`` and the sparse step under a gossip
+ring.
 """
 
 from __future__ import annotations
@@ -104,6 +109,113 @@ class SwimParams(NamedTuple):
     probe: str = "sweep"
     relay_full_sync: bool = False
     phase_mod: int = 1
+
+
+class SwimKnobs(NamedTuple):
+    """The value-like ``SwimParams`` fields a run may override without a
+    new program (``run_scenario(param_knobs=...)``, a sweep's
+    ``param_axes``).  The reference traces them as device scalars so
+    that one XLA program serves every value; the port has no compile to
+    save, so each knob is a host number with the reference's dtype
+    applied (``SWIM_KNOB_DTYPES``), and reading one never syncs.
+
+    A knob takes the reference's knob path, which is not always the
+    path of ``params._replace``: ``ping_req_size`` is capacity-padded
+    (every draw keeps the static ``SwimParams.ping_req_size`` shape and
+    witness slots at or above the knob's k are masked out).  The
+    reference also builds the relay's full-sync machinery for every
+    knob run and masks it by the 0/1 ``relay_full_sync``, and divides
+    the sweep by a knob ``phase_mod`` of 1; both give the values of the
+    knob-free path at those values, which is what the port runs.
+    ``period_ms`` stays a param: it never enters the step."""
+
+    suspicion_ticks: int  # countdown start is this + 1
+    piggyback_factor: int
+    phase_mod: int  # stagger divisor (1 = lockstep)
+    relay_full_sync: int  # 0/1, dense only
+    ping_req_size: int  # effective k <= the static capacity
+    damp_penalty: float  # float32
+    damp_decay_per_tick: float  # float32
+    damp_suppress: float  # float16: compared against the f16 damp plane
+    damp_reuse: float  # float16
+
+
+# knob name -> the dtype the reference gives it (its consumption site's)
+SWIM_KNOB_DTYPES = {
+    "suspicion_ticks": np.int32,
+    "piggyback_factor": np.int32,
+    "phase_mod": np.int32,
+    "relay_full_sync": np.int32,
+    "ping_req_size": np.int32,
+    "damp_penalty": np.float32,
+    "damp_decay_per_tick": np.float32,
+    "damp_suppress": np.float16,
+    "damp_reuse": np.float16,
+}
+
+
+def swim_knob_values(params: SwimParams) -> dict[str, float | int]:
+    """Host knob values implied by ``params``: what every knob a run does
+    not override pins to."""
+    return {
+        "suspicion_ticks": int(params.suspicion_ticks),
+        "piggyback_factor": int(params.piggyback_factor),
+        "phase_mod": int(params.phase_mod),
+        "relay_full_sync": int(bool(params.relay_full_sync)),
+        "ping_req_size": int(params.ping_req_size),
+        "damp_penalty": float(params.damp_penalty),
+        "damp_decay_per_tick": float(params.damp_decay_per_tick),
+        "damp_suppress": float(params.damp_suppress),
+        "damp_reuse": float(params.damp_reuse),
+    }
+
+
+def check_knob_value(name: str, v: float | int, params: SwimParams) -> None:
+    """Range guard for one knob value (the digit budgets also need ``n``:
+    ``_validate_params`` checks those)."""
+    if name == "suspicion_ticks" and not 0 <= int(v) <= 126:
+        raise ValueError(
+            f"suspicion_ticks knob {v} outside the int8 countdown "
+            "range [0, 126]"
+        )
+    if name == "ping_req_size" and not 1 <= int(v) <= int(params.ping_req_size):
+        raise ValueError(
+            f"ping_req_size knob {v} outside the compiled capacity "
+            f"[1, {params.ping_req_size}] (capacity-padded knob: raise "
+            "SwimParams.ping_req_size to widen the compiled k_max)"
+        )
+    if name == "phase_mod" and int(v) < 1:
+        raise ValueError(f"phase_mod knob must be >= 1, got {v}")
+    if name == "relay_full_sync" and int(v) not in (0, 1):
+        raise ValueError(f"relay_full_sync knob is 0/1, got {v}")
+    if name == "piggyback_factor" and int(v) < 0:
+        raise ValueError(f"piggyback_factor knob must be >= 0, got {v}")
+
+
+def knob_cast(name: str, v: float | int) -> float | int:
+    """``v`` as the host number of the knob's dtype: int32 knobs as ints,
+    float32 and float16 knobs rounded through their type."""
+    dt = np.dtype(SWIM_KNOB_DTYPES[name])
+    return float(dt.type(v)) if dt.kind == "f" else int(dt.type(v))
+
+
+def swim_knob_arrays(
+    params: SwimParams, overrides: dict[str, float | int] | None = None
+) -> SwimKnobs:
+    """The knobs of one run: ``params``' values with ``overrides``
+    (host numbers) in their place, each cast to its knob dtype.
+    Unknown names and out-of-range values raise here."""
+    vals = swim_knob_values(params)
+    if overrides:
+        bad = sorted(set(overrides) - set(vals))
+        if bad:
+            raise ValueError(
+                f"unknown traced swim knob(s) {bad}; valid: {sorted(vals)}"
+            )
+        for k, v in overrides.items():
+            check_knob_value(k, v, params)
+            vals[k] = v
+    return SwimKnobs(**{k: knob_cast(k, v) for k, v in vals.items()})
 
 
 class ClusterState(NamedTuple):
@@ -439,11 +551,14 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) & _M32) - (1 << 31)
 
 
-def _sweep_divisor(phase_mod: int, per: torch.Tensor | None) -> torch.Tensor | int | None:
+def _sweep_divisor(
+    phase_mod: int, per: torch.Tensor | None
+) -> torch.Tensor | int | None:
     """Per-node sweep-advance divisor for staggered protocol periods:
     the period row where one is installed, else ``phase_mod`` when it
-    is above 1, else None (the lockstep form).  Both backends share it,
-    so a row of P reproduces ``phase_mod = P`` on each."""
+    is above 1, else None (the lockstep form; the reference's knob path
+    divides by a knob of 1 instead, which gives the same values).  Both backends share it, so a row of P
+    reproduces ``phase_mod = P`` on each."""
     if per is not None:
         return per
     if phase_mod > 1:
@@ -642,19 +757,41 @@ class _Selection(NamedTuple):
     h_pre: torch.Tensor  # int64[N] (uint32 values)
 
 
-def _validate_params(n: int, params: SwimParams) -> int:
-    """Host-side int8-range guards; returns the suspicion countdown start."""
-    if int(params.suspicion_ticks) > 126:
-        raise ValueError(
-            f"suspicion_ticks={params.suspicion_ticks} exceeds the int8 "
-            "countdown range (max 126); raise period_ms instead"
-        )
+def _validate_params(
+    n: int, params: SwimParams, knob_values: dict[str, Any] | None = None
+) -> int:
+    """Host-side int8-range guards; returns the suspicion countdown start.
+
+    ``knob_values`` maps a knob name to every value it will take (one
+    for a run, a sweep's whole axis): the budgets must hold at the
+    axis maximum, so each value is checked and the error names the
+    replica whose value broke them."""
+    sus_vals = [(int(params.suspicion_ticks), None)]
+    fac_vals = [(int(params.piggyback_factor), None)]
+    if knob_values:
+        if "suspicion_ticks" in knob_values:
+            sus_vals = [(int(v), i) for i, v in enumerate(knob_values["suspicion_ticks"])]
+        if "piggyback_factor" in knob_values:
+            fac_vals = [(int(v), i) for i, v in enumerate(knob_values["piggyback_factor"])]
+
+    def where(i):
+        return "" if i is None else f" (param_axes replica {i})"
+
+    for v, i in sus_vals:
+        if v > 126:
+            raise ValueError(
+                f"suspicion_ticks={v}{where(i)} exceeds the int8 "
+                "countdown range (max 126); raise period_ms instead"
+            )
+    # the digit count maxes at len(str(n))
     max_digits = len(str(n))
-    if int(params.piggyback_factor) * max_digits > 126:
-        raise ValueError(
-            f"piggyback_factor={params.piggyback_factor} can exceed the int8 "
-            f"piggyback budget at n={n} (factor * {max_digits} digits > 126)"
-        )
+    for v, i in fac_vals:
+        if v * max_digits > 126:
+            raise ValueError(
+                f"piggyback_factor={v}{where(i)} can exceed the "
+                f"int8 piggyback budget at n={n} "
+                f"(factor * {max_digits} digits > 126)"
+            )
     return int(params.suspicion_ticks) + 1
 
 
@@ -695,8 +832,6 @@ def _check_supported(
             "do not compose with the static phase_mod stagger: a row of "
             "P in the period tensor subsumes phase_mod=P exactly"
         )
-    if knobs is not None:
-        raise NotImplementedError("traced SwimKnobs are not ported yet")
     if prov:
         raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
     if params.probe not in ("sweep", "uniform"):
@@ -705,7 +840,8 @@ def _check_supported(
 
 @_scoped("swim.phase01_select")
 def _phase01_select(
-    state: ClusterState, net: NetState, k_sel: torch.Tensor, params: SwimParams
+    state: ClusterState, net: NetState, k_sel: torch.Tensor, params: SwimParams,
+    knobs: SwimKnobs | None = None,
 ) -> _Selection:
     """Phase 0 (derived views) + phase 1 (probe targets and witnesses)."""
     n = state.n
@@ -714,7 +850,8 @@ def _phase01_select(
     status = state.view_key & 7
     status_ok = (status == ALIVE) | (status == SUSPECT)
     pingable = status_ok & ~eye
-    maxpb = _max_piggyback(status_ok, int(params.piggyback_factor))
+    kn = params if knobs is None else knobs
+    maxpb = _max_piggyback(status_ok, int(kn.piggyback_factor))
     h_pre = _view_hash(state.view_key)
     own_status = _diag(status)
     gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
@@ -722,6 +859,12 @@ def _phase01_select(
     target, has_target, wit, wit_valid = _choose_targets_and_witnesses(
         pingable, params.ping_req_size, k_sel
     )
+    if knobs is not None:
+        # capacity-padded: the selection (and every phase-5 draw) keeps
+        # the static k; witness slots at or above the knob's k drop out
+        wit_valid = wit_valid & (
+            torch.arange(params.ping_req_size, device=dev)[None, :] < knobs.ping_req_size
+        )
     if params.probe == "sweep":
         # deterministic rotation; the multiplier must be coprime to n
         mult = 0x9E37
@@ -729,13 +872,13 @@ def _phase01_select(
             mult += 1
         start = (_ids(n, dev) * mult) % n
         # with staggered periods the sweep advances once per period
-        div = _sweep_divisor(params.phase_mod, per)
+        div = _sweep_divisor(kn.phase_mod, per)
         swept = (start + state.tick.to(torch.int64) // (1 if div is None else div)) % n
         ok = _row_at(pingable, swept)
         target = torch.where(ok, swept, target)
         has_target = has_target | ok
         wit_valid = wit_valid & (wit != target[:, None])
-    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, params.phase_mod, per)
+    sends = _stagger_send_gate(gossiping & has_target, state.tick, n, kn.phase_mod, per)
     t_safe = torch.where(sends, target, 0)
     return _Selection(
         gossiping, sends, t_safe, wit, wit_valid, maxpb.to(torch.int8)[:, None], h_pre
@@ -830,13 +973,17 @@ def _phase5_pingreq(
     ack: torch.Tensor,
     sl_start: int,
     params: SwimParams,
+    knobs: SwimKnobs | None = None,
 ) -> _PingReq:
     """Phase 5: failed probes -> ping-req relay with the full piggyback
     exchange at all four hops (stages 5a-5d) -> suspect.  With
     ``params.relay_full_sync``, stage 5c answers a witness with the
     target's whole row when the target has nothing non-echo to issue to
     it but its post-5b view hash differs from the witness's period-start
-    hash (the phase-4 full-sync rule at the relay hop).
+    hash (the phase-4 full-sync rule at the relay hop).  With knobs the
+    0/1 ``relay_full_sync`` knob takes the flag's place (the reference
+    builds the machinery for every knob run and zeroes its slots at 0,
+    which gives the values of not building it).
 
     The reference runs the exchange and each stage under ``lax.cond``;
     here they branch on the predicate on the host.  A skipped stage is a
@@ -899,11 +1046,13 @@ def _phase5_pingreq(
         flaps[0] = _or(flaps[0], mrg.flapped)
         return mrg.state, applied + mrg.applied.sum(dtype=torch.int32)
 
+    build_fs = bool(params.relay_full_sync if knobs is None else knobs.relay_full_sync)
+
     # With no active change anywhere the whole exchange is a proven no-op;
     # under relay_full_sync it is not (a diverged but quiet target must
     # still answer full rows).
     xch_pred = req_del.any()
-    if not params.relay_full_sync:
+    if not build_fs:
         xch_pred = xch_pred & (state.pb >= 0).any()
     if bool(xch_pred):
         # The stage merges rebind ``st``, so the entry state is dropped as
@@ -955,7 +1104,7 @@ def _phase5_pingreq(
         nwit_ack = slot_counts(wit_safe, ack_del)
 
         fs_slots = None
-        if params.relay_full_sync:
+        if build_fs:
             # the relay's full sync: nothing non-echo to issue to this
             # witness, but the target's post-5b hash differs from the
             # witness's period-start hash
@@ -967,7 +1116,8 @@ def _phase5_pingreq(
                 w_m = wit_safe[:, m]
                 echo0 = _gather_rows(deliv_wit, w_m) & (rows0 == _gather_rows(st.view_key, w_m))
                 has_claim = (ack_del[:, m][:, None] & issue_tgt_t & ~echo0).any(dim=1)
-                fs_cols.append(ack_del[:, m] & ~has_claim & (h_mid[t_safe] != sel.h_pre[w_m]))
+                col = ack_del[:, m] & ~has_claim & (h_mid[t_safe] != sel.h_pre[w_m])
+                fs_cols.append(col)
             del rows0, issue_tgt_t, echo0
             fs_slots = torch.stack(fs_cols, dim=1)  # bool[N, kk]
             relay_fs = fs_slots.sum(dtype=torch.int32)
@@ -1090,6 +1240,9 @@ def _swim_step_handed(
     ``hand.state`` in place; past ``hand.take()`` it is gone."""
     _check_supported(hand.state, net, params, knobs, prov)
     sl_start = _validate_params(hand.state.n, params)
+    if knobs is not None:
+        # the knob's countdown start (the host guard held its range)
+        sl_start = int(knobs.suspicion_ticks) + 1
     if params.sparse_cap:
         return _swim_step_sparse(hand, net, key, params, sl_start)
     state = hand.take()
@@ -1112,7 +1265,7 @@ def _swim_step_handed(
         state, mat_applied, mat_flapped = _mature(state, net, sl_start)
 
     # -- phases 0-1: derived views + probe/witness selection
-    sel = _phase01_select(state, net, k_sel, params)
+    sel = _phase01_select(state, net, k_sel, params, knobs)
     gossiping, sends, t_safe = sel.gossiping, sel.sends, sel.t_safe
     maxpb8, h_pre = sel.maxpb8, sel.h_pre
 
@@ -1196,7 +1349,7 @@ def _swim_step_handed(
     # -- phase 5: ping-req for failed probes
     hand = _Handoff(state)
     del state
-    pr = _phase5_pingreq(hand, net, k_loss3, sel, ack, sl_start, params)
+    pr = _phase5_pingreq(hand, net, k_loss3, sel, ack, sl_start, params, knobs)
     state = pr.state
 
     # -- phase 6: suspicion countdowns fire -> faulty
@@ -1211,7 +1364,7 @@ def _swim_step_handed(
         # a viewer that itself declares alive -> suspect flaps too
         declare_flap = pr.declared & pr.was_alive_at_target
         flaps = _row_update(flaps, t_safe, declare_flap, op="max")
-        state = _damp_update(state, flaps, params)
+        state = _damp_update(state, flaps, params if knobs is None else knobs)
         n_damped = state.damped.sum(dtype=torch.int32)
 
     state = state._replace(tick=state.tick + 1)
@@ -1235,13 +1388,16 @@ def _swim_step_handed(
 
 
 @_scoped("swim.damp")
-def _damp_update(state: ClusterState, flaps: torch.Tensor, params: SwimParams) -> ClusterState:
+def _damp_update(
+    state: ClusterState, flaps: torch.Tensor, params: SwimParams | SwimKnobs
+) -> ClusterState:
     """Decay every score, add the penalty where a flap happened, and
     move the hysteresis bit: set above ``damp_suppress``, cleared below
     ``damp_reuse``.  The score accumulates in float32 (decay and penalty
     rounded to float32 first, a multiply then an add) and is stored as
     float16; the thresholds compare in float16, as the reference's
-    weakly typed scalars beside a float16 plane do."""
+    weakly typed scalars (and its float16 knobs) beside a float16 plane
+    do.  ``params`` is the ``SwimParams`` or the run's ``SwimKnobs``."""
     dev = state.damp.device
     decay = torch.full((), params.damp_decay_per_tick, dtype=torch.float32, device=dev)
     penalty = torch.full((), params.damp_penalty, dtype=torch.float32, device=dev)

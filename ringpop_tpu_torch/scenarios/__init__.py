@@ -1,7 +1,6 @@
 """Scenarios: declarative fault timelines, run in one call per backend.
 
-The port of ``ringpop_tpu/scenarios`` without the sweep and the
-incident library:
+The port of ``ringpop_tpu/scenarios`` without the incident library:
 
 * ``spec``    — the declarative ``ScenarioSpec`` and the ``--script``
   mini-DSL compiler into it;
@@ -13,9 +12,12 @@ incident library:
   per-tick telemetry, and its host-loop twin ``run_host_loop``;
 * ``trace``   — the stacked telemetry, its ``.npz`` form and summary;
 * ``stream``  — S-tick segments, the segment store, checkpoints every
-  segment and ``resume``.
+  segment and ``resume``, and the streamed sweep;
+* ``sweep``   — R replicas of a scenario (seed, loss scale, kill and
+  flap jitter, protocol knobs), with the stacked ``SweepTrace``.
 
-Entry points: ``SimCluster.run_scenario(spec[, segment_ticks=S])`` and
+Entry points: ``SimCluster.run_scenario(spec[, segment_ticks=S,
+param_knobs=...])``, ``SimCluster.run_sweep(spec, replicas)`` and
 ``stream.resume(checkpoint)``.
 """
 
@@ -32,11 +34,19 @@ from ringpop_tpu_torch.scenarios.faults import (
 )
 from ringpop_tpu_torch.scenarios.trace import Trace
 from ringpop_tpu_torch.scenarios.runner import run_compiled, run_host_loop
+from ringpop_tpu_torch.scenarios.sweep import (
+    CompiledSweep,
+    SweepTrace,
+    compile_sweep,
+    replica_spec,
+    run_sweep_compiled,
+)
 from ringpop_tpu_torch.scenarios.stream import (
     SegmentStore,
     StreamInterrupted,
     resume,
     run_streamed,
+    run_sweep_streamed,
 )
 
 __all__ = [
@@ -55,8 +65,14 @@ __all__ = [
     "Trace",
     "run_compiled",
     "run_host_loop",
+    "CompiledSweep",
+    "SweepTrace",
+    "compile_sweep",
+    "replica_spec",
+    "run_sweep_compiled",
     "SegmentStore",
     "StreamInterrupted",
     "resume",
     "run_streamed",
+    "run_sweep_streamed",
 ]

@@ -13,10 +13,12 @@ and ``sim.admin_join`` take host ints) and a few per call.
 ``SimCluster`` surface, segment by segment: the parity baseline.
 
 Event order within a tick (shared with the host loop): node bit edits,
-then revives, then partition rows.  The serving plane (``traffic``),
-the overload feedback loop, policies, provenance and traced protocol
-knobs are not ported yet: asking for them raises ``NotImplementedError``
-before any key is drawn.
+then revives, then partition rows.  ``param_knobs`` overrides the
+protocol knobs (``swim_sim.SwimKnobs``) for a run, validated on the
+host before any key is drawn (``validate_param_knobs``).  The serving
+plane (``traffic``), the overload feedback loop, policies and
+provenance are not ported yet: asking for them raises
+``NotImplementedError`` before any key is drawn.
 """
 
 from __future__ import annotations
@@ -52,8 +54,7 @@ def dispatch_count() -> int:
     return _dispatches
 
 
-def refuse_unported(*, traffic: Any = None, policy: Any = None,
-                    param_knobs: Any = None) -> None:
+def refuse_unported(*, traffic: Any = None, policy: Any = None) -> None:
     """The scenario planes this port does not carry yet, refused before
     any key is drawn."""
     if traffic is not None:
@@ -64,11 +65,6 @@ def refuse_unported(*, traffic: Any = None, policy: Any = None,
     if policy is not None:
         raise NotImplementedError(
             "policy= (the remediation policy plane) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
-        )
-    if param_knobs is not None:
-        raise NotImplementedError(
-            "param_knobs= (traced protocol knobs) is not ported yet "
             "(ROADMAP queue 1 item 6)"
         )
 
@@ -235,10 +231,69 @@ def precheck_prov(
     )
 
 
-def validate_param_knobs(*args: Any, **kwargs: Any) -> None:
-    """The composition guards of traced protocol knobs: not ported yet."""
-    del args, kwargs
-    refuse_unported(param_knobs=True)
+_DAMP_KNOBS = ("damp_penalty", "damp_decay_per_tick", "damp_suppress", "damp_reuse")
+
+
+def validate_param_knobs(
+    n: int,
+    swim_params: SwimParams,
+    knob_values: dict[str, Any],
+    *,
+    backend: str,
+    period_active: bool,
+    damping: bool,
+) -> None:
+    """Host-side guards for protocol knobs, shared by a run's
+    ``param_knobs`` (one value each) and a sweep's ``param_axes`` (one
+    list per knob), checked against every value a knob will take:
+
+    - the range and the int8 digit budgets at the axis maximum
+      (``swim_sim.check_knob_value``, ``swim_sim._validate_params``);
+    - ``phase_mod`` stays 1 when the run carries per-node period rows
+      (gray or overload events): the period row subsumes the stagger;
+    - the delta backend has no relay full sync and no damping plane, so
+      those knobs raise instead of doing nothing;
+    - the damp knobs need the damping planes on the dense backend."""
+    for name, vals in knob_values.items():
+        for v in vals:
+            sim.check_knob_value(name, v, swim_params)
+    sim._validate_params(n, swim_params, knob_values=knob_values)
+    if period_active:
+        for i, v in enumerate(knob_values.get("phase_mod", ())):
+            if int(v) != 1:
+                raise ValueError(
+                    f"phase_mod={int(v)} (axis value {i}): scenarios with "
+                    "per-node period rows (gray degradation / overload) "
+                    "subsume the stagger divisor, so the knob would be "
+                    "silently ignored; pin phase_mod to 1 here"
+                )
+    if backend == "delta":
+        for i, v in enumerate(knob_values.get("relay_full_sync", ())):
+            if int(v) != 0:
+                raise ValueError(
+                    f"relay_full_sync={int(v)} (axis value {i}): the delta "
+                    "backend has no full-sync exchange arm; sweep this "
+                    "knob on the dense backend"
+                )
+        bad = sorted(set(knob_values) & set(_DAMP_KNOBS))
+        if bad:
+            raise ValueError(
+                f"damp knob(s) {bad}: the delta backend has no damping "
+                "plane; sweep damp thresholds on the dense backend"
+            )
+    elif not damping:
+        bad = sorted(set(knob_values) & set(_DAMP_KNOBS))
+        if bad:
+            raise ValueError(
+                f"damp knob(s) {bad} need the damping plane armed: "
+                "init the dense cluster with damping=True"
+            )
+
+
+def period_active(net: NetState, compiled: CompiledScenario) -> bool:
+    """Whether the run carries a per-node period row: the net's own, or
+    the ones ``prepare_faults`` installs for gray or overload events."""
+    return net.period is not None or compiled.has_gray or compiled.overload is not None
 
 
 def prepare_faults(
@@ -361,14 +416,15 @@ def _scenario_scan_impl(
     tick0: int = 0,
     *,
     params: SwimParams | DeltaParams,
+    knobs: sim.SwimKnobs | None = None,
 ) -> tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None, dict]:
     """Ticks ``tick0 .. tick0 + len(keys) - 1`` of the scenario on the
     state in ``hand``, which each step takes over.  ``loss`` is the
     schedule's float32 values for these ticks (host copy: the step
-    draws against the same float32 as after ``set_loss``).  Returns the
-    state, up, responsive, adjacency, period row (int16) and the
-    telemetry: each metric, ``converged``, ``live`` and ``loss`` as [T]
-    device tensors."""
+    draws against the same float32 as after ``set_loss``); ``knobs``
+    goes to every step.  Returns the state, up, responsive, adjacency,
+    period row (int16) and the telemetry: each metric, ``converged``,
+    ``live`` and ``loss`` as [T] device tensors."""
     n = compiled.n
     dev = up.device
     is_delta = isinstance(params, DeltaParams)
@@ -403,12 +459,13 @@ def _scenario_scan_impl(
         net = NetState(up=u, responsive=r, adj=gid, period=per_eff, **link_kw)
         if is_delta:
             sp = params._replace(swim=params.swim._replace(loss=float(loss[i])))
-            hand.state, metrics = sdelta.delta_step_impl(hand.state, net, keys[i], sp)
+            hand.state, metrics = sdelta.delta_step_impl(hand.state, net, keys[i], sp,
+                                                         knobs=knobs)
             conv = sdelta._converged_impl(hand.state, u, r)
             own = sdelta.view_lookup(hand.state, ids) & 7
         else:
             sp = params._replace(loss=float(loss[i]))
-            hand.state, metrics = sim._swim_step_handed(hand, net, keys[i], sp)
+            hand.state, metrics = sim._swim_step_handed(hand, net, keys[i], sp, knobs)
             conv = sim.converged_impl(hand.state, net)
             own = torch.diagonal(hand.state.view_key) & 7
         live = (u & r & ((own == sim.ALIVE) | (own == sim.SUSPECT))).sum(dtype=torch.int32)
@@ -471,10 +528,12 @@ def run_compiled(
     ``adj`` is the normalized adjacency from a ``precheck`` the caller
     already ran.  A dense ``state`` may come as ``sim._Handoff`` holding
     the caller's only reference, so that no entry state stays alive
-    through the run.  ``traffic``, ``policy`` and ``param_knobs`` are
+    through the run.  ``param_knobs`` overrides protocol knobs
+    (``swim_sim.SwimKnobs`` names, host numbers) for this run, checked
+    by ``validate_param_knobs`` first.  ``traffic`` and ``policy`` are
     not ported yet and raise."""
     global _dispatches
-    refuse_unported(traffic=traffic, policy=policy, param_knobs=param_knobs)
+    refuse_unported(traffic=traffic, policy=policy)
     hand = state if isinstance(state, sim._Handoff) else sim._Handoff(state)
     if keys.shape[0] != compiled.ticks:
         raise ValueError(f"key schedule has {keys.shape[0]} rows for {compiled.ticks} ticks")
@@ -482,11 +541,21 @@ def run_compiled(
         adj = precheck(hand.state, net, compiled, params)
         precheck_overload(compiled, traffic, net)
         precheck_prov(compiled, net, params)
+    knobs = None
+    if param_knobs is not None:
+        swp = getattr(params, "swim", params)
+        validate_param_knobs(
+            compiled.n, swp, {k: [v] for k, v in param_knobs.items()},
+            backend="delta" if isinstance(params, DeltaParams) else "dense",
+            period_active=period_active(net, compiled),
+            damping=getattr(hand.state, "damp", None) is not None,
+        )
+        knobs = sim.swim_knob_arrays(swp, param_knobs)
     hand.state, period = prepare_faults(hand.take(), net, compiled, params)
     _dispatches += 1
     st, up, resp, adj, period, ys = _scenario_scan_impl(
         hand, net.up, net.responsive, adj, period, compiled, keys,
-        compiled.loss.cpu().numpy(), params=params,
+        compiled.loss.cpu().numpy(), params=params, knobs=knobs,
     )
     return st, final_net(up, resp, adj, period, compiled), ys
 

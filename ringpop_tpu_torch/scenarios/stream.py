@@ -1,8 +1,7 @@
 """The streamed scenario runner: S-tick segments, a segment store, and
 checkpointed soaks that resume.
 
-The port of ``ringpop_tpu/scenarios/stream.py`` (the single-cluster
-run; the streamed sweep is not ported yet).  A T-tick run becomes
+The port of ``ringpop_tpu/scenarios/stream.py``.  A T-tick run becomes
 ``ceil(T / S)`` segments of ``runner._scenario_scan_impl``, each taking
 over the state the one before left:
 
@@ -21,6 +20,11 @@ over the state the one before left:
   (spec, segment size, ticks done, the key the schedule derives from)
   beside the state at the boundary, so ``resume`` finishes a killed soak
   with the uninterrupted run's trace and state.
+* **Streamed sweeps.**  ``run_sweep_streamed`` runs R replicas
+  (``sweep.Replicas``) segment by segment, replica by replica within a
+  segment, and drains [R, S] ``SweepTrace`` slabs (store kind
+  ``"sweep"``); the same replicas as the unsegmented ``run_sweep``.
+  Sweeps do not checkpoint.
 
 The per-segment dispatch ledger rows and the stats-bridge replays of the
 reference wait for the operator planes (ROADMAP queue 1 item 6).
@@ -41,6 +45,7 @@ from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState
 from ringpop_tpu_torch.scenarios import compile as scompile
 from ringpop_tpu_torch.scenarios import runner as srunner
+from ringpop_tpu_torch.scenarios import sweep as ssweep
 from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
 from ringpop_tpu_torch.scenarios.trace import Trace
 
@@ -139,8 +144,9 @@ class SegmentStore:
     def ticks_stored(self) -> int:
         return sum(int(r["ticks"]) for r in self.rows)
 
-    def append(self, slab: Trace, *, segment: int, tick0: int) -> dict[str, Any]:
-        """Write one slab (atomically) and its manifest line."""
+    def append(self, slab: Any, *, segment: int, tick0: int) -> dict[str, Any]:
+        """Write one slab (a ``Trace``, or a ``SweepTrace`` in a store of
+        kind ``"sweep"``; atomically) and its manifest line."""
         fname = f"seg-{segment:05d}.npz"
         slab.save(os.path.join(self.path, fname))
         row = {"segment": int(segment), "tick0": int(tick0), "ticks": int(slab.ticks),
@@ -165,21 +171,22 @@ class SegmentStore:
         os.replace(tmp, manifest)
         self.rows = keep
 
-    def load_segment(self, i: int) -> Trace:
+    def load_segment(self, i: int) -> Any:
+        path = os.path.join(self.path, self.rows[i]["file"])
         if self.kind == "sweep":
-            raise NotImplementedError(
-                "streamed sweep stores (SweepTrace slabs) are not ported yet "
-                "(ROADMAP queue 1 item 5, the sweep)"
-            )
-        return Trace.load(os.path.join(self.path, self.rows[i]["file"]))
+            return ssweep.SweepTrace.load(path)
+        return Trace.load(path)
 
-    def iter_traces(self) -> Iterator[Trace]:
+    def iter_traces(self) -> Iterator[Any]:
         """One slab resident at a time."""
         for i in range(len(self.rows)):
             yield self.load_segment(i)
 
-    def assemble(self) -> Trace:
+    def assemble(self) -> Any:
         """The whole series (O(total ticks))."""
+        if self.kind == "sweep":
+            return ssweep.SweepTrace.concat_ticks(
+                self.iter_traces(), spec=self.meta.get("spec")).validate()
         return Trace.concat(self.iter_traces(), spec=self.meta.get("spec")).validate()
 
 
@@ -452,3 +459,93 @@ def _drive(
         return trace
     cluster.log_run(last["slab"], T)
     return store_obj
+
+
+# ---------------------------------------------------------------------------
+# the streamed sweep (R replicas x S-tick segments)
+# ---------------------------------------------------------------------------
+
+
+def run_sweep_streamed(
+    cluster: Any,
+    spec: Any,
+    replicas: int,
+    *,
+    segment_ticks: int,
+    loss_scales: Any | None = None,
+    kill_jitter: Any | None = None,
+    flap_jitter: Any | None = None,
+    traffic: Any | None = None,
+    store: str | None = None,
+    assemble: bool = True,
+    pipeline: bool = True,
+    shard: bool = False,
+    policy: Any | None = None,
+    policy_axes: dict[str, Any] | None = None,
+) -> Any:
+    """R replicas of a scenario, streamed segment by segment: the [R, S]
+    telemetry slabs go to ``store`` (kind ``"sweep"``) or are joined at
+    the end, so host telemetry is O(R x segment), and every replica
+    equals the unsegmented ``run_sweep``'s (the same replica keys, the
+    schedules sliced per segment).  Segment k + 1 is issued for every
+    replica before segment k's slab is copied to pinned host memory;
+    ``pipeline=False`` drains each segment first.  As with ``run_sweep``
+    the cluster does not advance (only its key moves), and sweeps do not
+    checkpoint.  ``traffic``, ``policy`` and ``policy_axes`` are not
+    ported yet and raise."""
+    spec = srunner.as_spec(spec)
+    spec.validate(cluster.n)
+    if not assemble and store is None:
+        raise ValueError("assemble=False discards nothing only with a segment store")
+    cs = ssweep.compile_sweep(
+        spec, cluster.n, replicas=replicas, base_loss=cluster.params.loss,
+        loss_scales=loss_scales, kill_jitter=kill_jitter, flap_jitter=flap_jitter,
+        device=cluster.device,
+    )
+    params = cluster.dparams if cluster.backend == "delta" else cluster.params
+    adj, _ = ssweep.prepare(cluster.state, cluster.net, cs, params, shard=shard,
+                            traffic=traffic, policy=policy, policy_axes=policy_axes)
+    # everything that can raise comes before the replica keys are drawn
+    S = int(segment_ticks)
+    T = cs.base.ticks
+    bounds = segment_bounds(T, S)
+    run_id = uuid.uuid4().hex[:12]
+    start_tick = int(cluster.state.tick)
+    store_obj = None
+    if store is not None:
+        store_obj = SegmentStore.create(store, {
+            "kind": "sweep", "run_id": run_id, "n": cluster.n, "backend": cluster.backend,
+            "segment_ticks": S, "ticks": T, "start_tick": start_tick, "spec": spec.to_dict(),
+        })
+    replica_keys = [cluster._split() for _ in range(replicas)]
+    keys = ssweep.sweep_key_schedule(replica_keys, cs)
+    rkeys_np = np.stack([k.numpy().astype(np.uint32) for k in replica_keys])
+    reps = ssweep.Replicas(cluster.state, cluster.net, adj, cs, keys, params, None)
+    slabs: list[Any] = []
+    pending: _Pending | None = None
+
+    def drain(p: _Pending) -> None:
+        slab = ssweep.sweep_trace(p.host(), cluster, rkeys_np, cs, start_tick + p.a, None)
+        if store_obj is not None:
+            store_obj.append(slab, segment=p.seg, tick0=p.a)
+        else:
+            slabs.append(slab)
+
+    for seg, (a, b) in enumerate(bounds):
+        launched = _Pending(seg, a, reps.segment(a, b))
+        if pending is not None:
+            drain(pending)
+        pending = launched
+        if not pipeline:
+            drain(pending)
+            pending = None
+    if pending is not None:
+        drain(pending)
+    states, nets = reps.finish()
+    if not assemble:
+        return store_obj
+    trace = (store_obj.assemble() if store_obj is not None
+             else ssweep.SweepTrace.concat_ticks(slabs, spec=spec.to_dict())).validate()
+    trace.final_states = states
+    trace.final_nets = nets
+    return trace

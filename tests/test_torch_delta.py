@@ -140,12 +140,12 @@ def test_step_runs_on_small_state():
     "pend", "link_d", "knobs", "prov", "upto", "slot_base", "period", "phase_mod",
 ])
 def test_unported_arms_raise(arm):
-    """Traced knobs and ``prov`` still raise NotImplementedError.  The
-    other arms are ported: the in-flight lanes, a period row,
-    ``phase_mod``, a truncated step (``upto``: partial metrics) and the
-    carried slot-base planes step; a delay rule without lanes raises the
-    reference's ValueError, and so do planes carried one without the
-    other."""
+    """``prov`` still raises NotImplementedError.  The other arms are
+    ported: the knobs (at ``params``' own values: the plain step's
+    result), the in-flight lanes, a period row, ``phase_mod``, a
+    truncated step (``upto``: partial metrics) and the carried slot-base
+    planes step; a delay rule without lanes raises the reference's
+    ValueError, and so do planes carried one without the other."""
     tdelta, tsim, state, net, key, params = _small()
     kwargs = {}
     n = state.n
@@ -159,7 +159,12 @@ def test_unported_arms_raise(arm):
             tdelta.delta_step_impl(state, net, key, params)
         return
     elif arm == "knobs":
-        kwargs["knobs"] = object()
+        kwargs["knobs"] = tsim.swim_knob_arrays(params.swim)
+        want = tdelta.delta_step_impl(state, net, key, params)[0]
+        got = tdelta.delta_step_impl(state, net, key, params, **kwargs)[0]
+        assert all(x is None or torch.equal(x, getattr(got, f))
+                   for f, x in want._asdict().items())
+        runs = True
     elif arm == "prov":
         kwargs["prov"] = True
     elif arm == "upto":

@@ -38,7 +38,14 @@ after an ``interrupt_after`` kill finishes through ``stream.resume``
 checkpoint's path is then recorded under ``{name}/ckpt{i}``).  Each
 records, under ``{name}/sc{i}/``, the trace's arrays (``trace/...``) and
 meta (``trace_meta``), the state, net, key, loss and last
-``metrics_log`` entry after it.  Before every tick the net's fault
+``metrics_log`` entry after it.  ``["run_sweep", spec, replicas,
+kwargs]`` runs ``SimCluster.run_sweep`` (``"store": True`` streams into
+a store in the case's ``tmp_dir``) and records under ``{name}/sw{i}/``
+the sweep trace's arrays and meta, each replica's final state and net
+stacked on a leading replica axis (``states/...``, ``nets/...``), and
+the cluster's state, key and log length after it (``sweep_record``,
+``assert_same_sweep``).  In a ``try`` op a trailing ``{"kwargs": {...}}``
+passes keyword arguments.  Before every tick the net's fault
 fields (``NET_FAULT_FIELDS``) and the loss are recorded
 (``{name}/net{t}/{field}``, ``{name}/loss{t}``).  A case with
 ``"lookups": {"keys": [...], "viewers": [...]}``
@@ -161,8 +168,25 @@ for case in cases:
             from ringpop_tpu.scenarios import runner
             from ringpop_tpu.scenarios.spec import ScenarioSpec
             runner.run_host_loop(c, ScenarioSpec.from_dict(op[1]))
+        elif isinstance(op[-1], dict) and set(op[-1]) == {"kwargs"}:
+            getattr(c, op[0])(*op[1:-1], **op[-1]["kwargs"])
         else:
             getattr(c, op[0])(*op[1:])
+    def record_sweep(key, tr):
+        for k, v in tr.to_arrays().items():
+            out[f"{key}/trace/{k}"] = np.asarray(v)
+        out[f"{key}/trace_meta"] = np.array(json.dumps(tr.meta()))
+        for f in fields:
+            if getattr(tr.final_states, f) is not None:
+                out[f"{key}/states/{f}"] = np.asarray(getattr(tr.final_states, f))
+        for f, v in tr.final_nets._asdict().items():
+            if v is not None:
+                out[f"{key}/nets/{f}"] = np.asarray(v)
+        for f in fields:
+            if getattr(c.state, f) is not None:
+                out[f"{key}/state/{f}"] = np.asarray(getattr(c.state, f))
+        out[f"{key}/key"] = np.asarray(c.key)
+        out[f"{key}/log_len"] = np.array([len(c.metrics_log), len(c.traces)])
     def record_scenario(key, tr):
         for k, v in tr.to_arrays().items():
             out[f"{key}/trace/{k}"] = np.asarray(v)
@@ -198,6 +222,11 @@ for case in cases:
                 real_tick = c.tick
                 c.tick = tick
             record_scenario(f"{name}/sc{i}", tr)
+        elif op[0] == "run_sweep":
+            kw = dict(op[3])
+            if kw.pop("store", False):
+                kw["store"] = os.path.join(case["tmp_dir"], f"{name}-sweep-{i}")
+            record_sweep(f"{name}/sw{i}", c.run_sweep(op[1], op[2], **kw))
         elif op[0] == "try":
             try:
                 call(op[1:])
@@ -620,6 +649,8 @@ def run_port(case: dict, on_tick=None, tries: dict | None = None,
     def call(op):
         if op[0] == "run_host_loop":
             runner.run_host_loop(c, ScenarioSpec.from_dict(op[1]))
+        elif isinstance(op[-1], dict) and set(op[-1]) == {"kwargs"}:
+            getattr(c, op[0])(*op[1:-1], **op[-1]["kwargs"])
         else:
             getattr(c, op[0])(*op[1:])
 
@@ -646,6 +677,11 @@ def run_port(case: dict, on_tick=None, tries: dict | None = None,
                 real_tick = c.tick
                 c.tick = tick
             scenarios[i] = scenario_record(c, case, tr)
+        elif op[0] == "run_sweep":
+            kw = dict(op[3])
+            if kw.pop("store", False):
+                kw["store"] = os.path.join(tmp_dir, f"{case['name']}-sweep-{i}")
+            scenarios[i] = sweep_record(c, case, c.run_sweep(op[1], op[2], **kw))
         elif op[0] == "try":
             try:
                 call(op[1:])
@@ -676,6 +712,45 @@ def scenario_record(c, case: dict, trace) -> dict:
         "loss": c.params.loss,
         "log": c.metrics_log[-1],
     }
+
+
+def sweep_record(c, case: dict, trace) -> dict:
+    """What a sweep op leaves, as numpy under the reference's names and
+    dtypes: the sweep trace's arrays and meta, each replica's final
+    state and net stacked on a leading replica axis, and the cluster's
+    state, key and log length after it."""
+    from ringpop_tpu_torch import convert
+
+    to_np = (convert.delta_state_to_numpy if case.get("backend") == "delta"
+             else convert.state_to_numpy)
+    per = [to_np(st) for st in trace.final_states]
+    nets = [convert.net_to_numpy(nt) for nt in trace.final_nets]
+    state = to_np(c.state)
+    return {
+        "trace": trace.to_arrays(),
+        "meta": json.loads(json.dumps(trace.meta())),
+        "states": {f: np.stack([p[f] for p in per]) for f in case_fields(case)
+                   if per[0][f] is not None},
+        "nets": {f: np.stack([p[f] for p in nets]) for f in nets[0] if nets[0][f] is not None},
+        "state": {f: state[f] for f in case_fields(case) if state[f] is not None},
+        "key": convert.key_to_numpy(c.key),
+        "log_len": np.array([len(c.metrics_log), len(c.traces)]),
+    }
+
+
+def assert_same_sweep(ref: dict[str, np.ndarray], case: dict, i: int, got: dict) -> None:
+    """The port's record of sweep op ``i`` equal to the reference's,
+    every array with its dtype."""
+    key = f"{case['name']}/sw{i}"
+    for part, width in (("trace", 7), ("states", 8), ("nets", 6), ("state", 7)):
+        want = {k[len(key) + width:]: v for k, v in ref.items()
+                if k.startswith(f"{key}/{part}/")}
+        assert set(got[part]) == set(want), (key, part, sorted(got[part]), sorted(want))
+        for k, v in want.items():
+            assert_same_field(np.asarray(got[part][k]), v, f"{key}: {part} {k}")
+    assert got["meta"] == json.loads(str(ref[key + "/trace_meta"])), key
+    assert_same_field(got["key"], ref[key + "/key"], f"{key}: key")
+    np.testing.assert_array_equal(got["log_len"], ref[key + "/log_len"], err_msg=key)
 
 
 def assert_same_scenario(ref: dict[str, np.ndarray], case: dict, i: int, got: dict) -> None:
@@ -846,6 +921,7 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.scenarios.runner",
     "ringpop_tpu_torch.scenarios.trace",
     "ringpop_tpu_torch.scenarios.stream",
+    "ringpop_tpu_torch.scenarios.sweep",
     "ringpop_tpu_torch.stats",
     "ringpop_tpu_torch.checkpoint",
 )

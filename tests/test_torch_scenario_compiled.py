@@ -188,17 +188,16 @@ def test_single_call_counts_and_logs():
 
 
 def test_unported_planes_refused_before_the_key():
-    """Traffic, policies, traced knobs and tracked rumors raise
-    ``NotImplementedError`` naming their queue item, the streaming
-    options without ``segment_ticks`` the reference's ``ValueError``;
-    none draws a key."""
+    """Traffic, policies and tracked rumors raise ``NotImplementedError``
+    naming their queue item, the streaming options without
+    ``segment_ticks`` and knobs the plane cannot take the reference's
+    ``ValueError``; none draws a key."""
     c = SimCluster(6, SwimParams(suspicion_ticks=5), seed=1, device="cpu")
     before = c.key.clone()
     track = {"ticks": 4, "trace_rumors": 1, "events": [{"at": 1, "op": "track", "node": 2}]}
     for kwargs, spec, match in (
         ({"traffic": {"keys": 8}}, PLAIN, "item 7"),
         ({"policy": "admission"}, PLAIN, "item 6"),
-        ({"param_knobs": {"suspicion_ticks": 9}}, PLAIN, "item 6"),
         ({}, track, "provenance plane"),
         ({"traffic": {"keys": 8}, "segment_ticks": 2}, PLAIN, "item 7"),
     ):
@@ -209,6 +208,8 @@ def test_unported_planes_refused_before_the_key():
         c.run_scenario(PLAIN, store="unused")
     with pytest.raises(ValueError, match="not wired through the streamed"):
         c.run_scenario(PLAIN, segment_ticks=2, param_knobs={"suspicion_ticks": 9})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trunner.validate_param_knobs(6, SwimParams(), {})
+    with pytest.raises(ValueError, match="damping=True"):
+        c.run_scenario(PLAIN, param_knobs={"damp_reuse": 100.0})
+    trunner.validate_param_knobs(6, SwimParams(), {}, backend="dense", period_active=False,
+                                 damping=False)
     assert torch.equal(c.key, before)

@@ -164,9 +164,9 @@ def test_unported_net_fields_raise(field):
 
 
 def test_unported_state_and_options_raise():
-    """Traced knobs and ``prov`` still raise; the in-flight buffer
-    (``pending``) and the damping planes are ported and report their
-    metrics."""
+    """``prov`` still raises; the knobs (at ``params``' own values: the
+    plain step's result), the in-flight buffer (``pending``) and the
+    damping planes are ported and report their metrics."""
     state, net, key = _small()
     p = tsim.SwimParams()
     _, m = tsim.swim_step_impl(state._replace(pending=torch.zeros(2, 8, 8, dtype=torch.int32)),
@@ -176,8 +176,10 @@ def test_unported_state_and_options_raise():
     assert damped.damp.dtype == torch.float16 and damped.damped.dtype == torch.bool
     got, m = tsim.swim_step_impl(damped, net, key, p)
     assert int(m["damped_pairs"]) == 0 and not got.damp.any()
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state, net, key, p, knobs=object())
+    want, wm = tsim.swim_step_impl(state, net, key, p)
+    got, gm = tsim.swim_step_impl(state, net, key, p, knobs=tsim.swim_knob_arrays(p))
+    assert all(x is None or torch.equal(x, getattr(got, f)) for f, x in want._asdict().items())
+    assert {k: int(v) for k, v in wm.items()} == {k: int(v) for k, v in gm.items()}
     with pytest.raises(NotImplementedError):
         tsim.swim_step_impl(state, net, key, p, prov=True)
 
