@@ -198,7 +198,28 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     take no more syncs a tick (those of its own tick-loop calls plus an
     R-th of the sweep's per-call ones) than its standalone
     ``run_scenario``;
-19. print the ``kernels`` JSON line (each kernel's launches summed over
+19. (phase l) the serving plane, the overload loop and the policies:
+    l1, at n = 256 (dense, and delta at phase 4's caps) one 30-tick
+    scenario (a gray window, a delay rule, a kill at tick 5, an overload
+    window) served under a uniform (``every=2``), a zipf (16 latency
+    buckets, ``lookup_n=3``) and a tenant workload, each policy at its
+    default, and an admission ``run_sweep`` over ``shed_hi``/``shed_lo``:
+    every series, histogram plane, state and net field (``ov_*``,
+    ``po_*``) and the key equal on the card and on the CPU; so are 200
+    ticks of ``sample_tick`` and the Gumbel transform on all 2^23 float32
+    uniforms; l2, ``benchmarks/bench_policies.py``'s headline (n = 64,
+    120 ticks, eight arms) equal on the card and the CPU, printed beside
+    ``BASELINE.md:810-819``; l3, ``cascading_overload`` at BASELINE
+    config 3's protocol (n = 10,000, 120 ticks; the workload cut to
+    2,048 keys a tick over a 16,384-key pool): a traffic-free control,
+    the feedback arm, ``combined`` whole and in 40-tick segments (equal);
+    l4, the same at n = 65,536 delta (60 ticks, 20-tick segments) with
+    one serve's own peak; each arm's ms and host syncs a tick (a served
+    run may take no more than the control), peak and scorecard; l5,
+    ``parallel.sharded_serve`` over D = 4 shards equal to ``serve_once``
+    at n = 10,000, with ring-hop launches.  The CPU side of l1 and l2
+    runs in a child process (``--serving-cpu``) started after phase a;
+20. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -209,7 +230,8 @@ and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
-only phase j and ``--sweeps`` only phase k; none prints a result line.
+only phase j, ``--sweeps`` only phase k and ``--serving`` only phase l;
+none prints a result line.
 """
 
 from __future__ import annotations
@@ -3465,6 +3487,560 @@ def sweeps_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase l: the serving plane (traffic=), the overload feedback loop and the
+# remediation policies (policy=), sharded and standalone serving
+# ---------------------------------------------------------------------------
+
+N_SERVE_SMALL = 256
+SERVE_TICKS_SMALL = 30
+SERVE_WLS_SMALL = {
+    "uniform": {"kind": "uniform", "keys_per_tick": 128, "pool": 1024, "every": 2},
+    "zipf": {"kind": "zipf", "keys_per_tick": 128, "pool": 1024, "zipf_s": 1.2,
+             "latency_buckets": 16, "lookup_n": 3},
+    "tenant": {"kind": "tenant", "keys_per_tick": 128, "pool": 1024, "tenants": 8},
+}
+POLICY_NAMES = ("admission", "combined", "quarantine", "retry_budget")
+SWEEP_AXES = {"shed_hi": [2, 4], "shed_lo": [1, 2]}
+SAMPLE_TICKS_CHECK = 200
+HEADLINE_N = 64  # benchmarks/bench_policies.py:30-32
+HEADLINE_SEED = 3
+HEADLINE_TICKS = 120
+HEADLINE_SEGMENT = 32
+INCIDENT_BUCKETS = 16  # scenarios/library.py LATENCY_BUCKETS
+SERVE_TICKS = 120  # the cascading_overload incident's horizon
+SERVE_TICKS_DELTA = 60  # cut to 60 ticks at n = 65 536
+SERVE_KEYS = 2048  # cut from 8n keys a tick
+SERVE_POOL = 16384  # cut from a 32n pool
+SERVE_SEGMENT = 40
+SERVE_SEGMENT_DELTA = 20
+# BASELINE.md:810-819 (the reference on the CPU, jax 0.4.37's PRNG mode):
+# arm -> goodput, amplification, lat p99 ms, gray timeouts, failed, peak
+# gray, shed, peak quarantine, retry-cap min
+BASELINE_HEADLINE = {
+    ("dense", "control"): (1.000, 1.00, 0, 0, 0, 0, None, None, None),
+    ("dense", "feedback"): (0.766, 2.71, 4096, 80658, 14353, 8, None, None, None),
+    ("dense", "admission"): (0.392, 2.55, 0, 0, 0, 8, 37370, 0, 3),
+    ("dense", "retry_budget"): (0.619, 1.66, 0, 25235, 23438, 8, 0, 0, 0),
+    ("dense", "quarantine"): (1.000, 1.00, 0, 0, 0, 11, 0, 24, 3),
+    ("dense", "combined"): (1.000, 1.00, 0, 0, 0, 11, 0, 24, 3),
+    ("delta", "feedback"): (0.766, 2.71, 4096, 80658, 14353, 8, None, None, None),
+    ("delta", "combined"): (1.000, 1.00, 0, 0, 0, 11, 0, 24, 3),
+}
+
+
+def serving_spec_small(n: int, ticks: int = SERVE_TICKS_SMALL) -> dict:
+    """Phase l1's scenario: a gray window (factor 4), a delay rule, a kill
+    at tick 5 and an overload window."""
+    return {"ticks": ticks, "events": [
+        {"at": 3, "op": "gray", "nodes": [1, 2, 3], "factor": 4, "until": 20},
+        {"at": 4, "op": "delay", "src": list(range(n // 4)), "dst": list(range(n // 2, n)),
+         "delay": 1, "jitter": 2, "until": 24},
+        {"at": 5, "op": "kill", "node": n - 1},
+        {"at": 2, "op": "overload", "until": ticks - 2, "capacity": 3, "threshold": 12,
+         "recover": 4, "factor": 4},
+    ]}
+
+
+def cascading_overload(n: int, ticks: int, overload: bool = True) -> tuple[dict, dict]:
+    """``scenarios/library.py``'s ``cascading_overload`` incident for n and
+    ticks (copied here: this script imports nothing of the JAX package):
+    ``_wl``'s zipf 1.2 workload (8n keys a tick, a max(32n, 256)-key
+    pool, 16 latency buckets) and the overload window its capacity knob
+    sets; ``overload=False`` is the control arm."""
+    wl = {"kind": "zipf", "zipf_s": 1.2, "keys_per_tick": 8 * n, "pool": max(32 * n, 256),
+          "latency_buckets": INCIDENT_BUCKETS}
+    m = wl["keys_per_tick"]
+    capacity = max(3, (3 * m) // (2 * n))
+    events = [{"at": ticks // 12 + 1, "op": "overload", "until": int(ticks * 0.92),
+               "capacity": capacity, "threshold": 6 * capacity, "recover": 2 * capacity,
+               "factor": 6}] if overload else []
+    return {"ticks": ticks, "events": events}, wl
+
+
+def incident_summary(trace) -> dict:
+    """The serving scorecard of ``scenarios/library.py``'s
+    ``incident_summary`` (the keys the headline table prints)."""
+    from ringpop_tpu_torch.traffic.engine import total_sends
+    from ringpop_tpu_torch.traffic.latency import hist_stats
+
+    m = trace.metrics
+    out = {"lookups": int(m["lookups"].sum()), "delivered": int(m["delivered"].sum()),
+           "proxy_failed": int(m["proxy_failed"].sum()), "sends": total_sends(m),
+           "gray_timeouts": int(m["gray_timeouts"].sum()),
+           "lat_p99_ms": int(hist_stats(trace.planes["lat_hist_ms"].sum(axis=0))["p99"]),
+           "ov_gray_peak": int(m["ov_gray_nodes"].max()) if "ov_gray_nodes" in m else 0}
+    if "policy_shed" in m:
+        out.update(policy_shed=int(m["policy_shed"].sum()),
+                   policy_quar_peak=int(m["policy_quarantined"].max()),
+                   policy_retry_cap_min=int(m["policy_retry_cap"].min()))
+    return out
+
+
+def _np_copy(c) -> dict:
+    """A cluster's state, net, key and loss as numpy (picklable)."""
+    def host(obj):
+        return {f: None if v is None else v.cpu().numpy() for f, v in obj._asdict().items()}
+
+    return {"state": host(c.state), "net": host(c.net), "key": c.key.numpy().copy(),
+            "loss": c.params.loss}
+
+
+def _sweep_copy(tr) -> dict:
+    return {"trace": tr.to_arrays(),
+            "states": [{f: None if v is None else v.cpu().numpy() for f, v in s._asdict().items()}
+                       for s in tr.final_states],
+            "nets": [{f: None if v is None else v.cpu().numpy() for f, v in s._asdict().items()}
+                     for s in tr.final_nets]}
+
+
+def serving_small_runs(device: str) -> dict:
+    """Phase l1's runs on ``device``: the scenario under each workload,
+    each policy at its default under the zipf workload, on both
+    backends, and the admission sweep over ``SWEEP_AXES`` (dense)."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    n = N_SERVE_SMALL
+    spec = serving_spec_small(n)
+    params = SwimParams(loss=0.01, suspicion_ticks=8)
+    out = {}
+    for backend, caps in (("dense", {}), ("delta", FAULT_CAPS_SMALL)):
+        def make():
+            return SimCluster(n, params, seed=0, device=device, backend=backend, **caps)
+
+        for name, wl in SERVE_WLS_SMALL.items():
+            c = make()
+            out[f"{backend}/{name}"] = {"trace": c.run_scenario(spec, traffic=wl).to_arrays(),
+                                        **_np_copy(c)}
+        for name in POLICY_NAMES:
+            c = make()
+            tr = c.run_scenario(spec, traffic=SERVE_WLS_SMALL["zipf"], policy=name)
+            out[f"{backend}/policy_{name}"] = {"trace": tr.to_arrays(), **_np_copy(c)}
+    c = SimCluster(n, params, seed=0, device=device)
+    tr = c.run_sweep(spec, 2, traffic=SERVE_WLS_SMALL["zipf"], policy="admission",
+                     policy_axes=SWEEP_AXES)
+    out["dense/sweep_admission"] = {**_sweep_copy(tr), "key": c.key.numpy().copy()}
+    return out
+
+
+def sample_ticks(device: str) -> dict:
+    """Phase l1's sampler check: 200 ticks of a zipf workload (128 keys a
+    tick, a 1 024-key pool), and 3 ticks at phase l3's shape."""
+    from ringpop_tpu_torch.traffic import engine
+    from ringpop_tpu_torch.traffic.workloads import compile_traffic
+
+    out = {}
+    addrs = [f"10.0.0.{i}:3000" for i in range(N_SERVE_SMALL)]
+    for label, wl, ticks in (
+            ("small", SERVE_WLS_SMALL["zipf"], SAMPLE_TICKS_CHECK),
+            ("l3", {"kind": "zipf", "zipf_s": 1.2, "keys_per_tick": SERVE_KEYS,
+                    "pool": SERVE_POOL}, 3)):
+        ct = compile_traffic(wl, N_SERVE_SMALL, addrs, device=device)
+        out[label] = [_pair_np(engine.sample_tick(ct.tensors, t, ct.static.m))
+                      for t in range(ticks)]
+    return out
+
+
+def _pair_np(pair):
+    """A sampled batch (keys, viewers) as one int32 [2, M] host array."""
+    import numpy as np
+
+    return np.stack([x.cpu().numpy() for x in pair])
+
+
+def headline_runs(device: str) -> dict:
+    """Phase l2's arms on ``device``: ``benchmarks/bench_policies.py``'s
+    headline (n = 64, 120 ticks, 32-tick segments, seed 3): the control,
+    the feedback arm and each policy at its default on the dense
+    backend, the feedback arm and ``combined`` on the delta backend."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    n = HEADLINE_N
+    spec, wl = cascading_overload(n, HEADLINE_TICKS)
+    spec_ctl, _ = cascading_overload(n, HEADLINE_TICKS, overload=False)
+    arms = [("dense", "control", spec_ctl, None), ("dense", "feedback", spec, None)]
+    arms += [("dense", p, spec, p) for p in POLICY_NAMES]
+    arms += [("delta", "feedback", spec, None), ("delta", "combined", spec, "combined")]
+    out = {}
+    for backend, name, sp, policy in arms:
+        kw = {} if backend == "dense" else {"capacity": n, "wire_cap": n,
+                                              "claim_grid": 3 * n * n}
+        c = SimCluster(n, SwimParams(), seed=HEADLINE_SEED, device=device, backend=backend,
+                       **kw)
+        tr = c.run_scenario(sp, traffic=wl, segment_ticks=HEADLINE_SEGMENT, policy=policy)
+        out[f"{backend}/{name}"] = {"trace": tr.to_arrays(), "summary": incident_summary(tr),
+                                    **_np_copy(c)}
+    return out
+
+
+def serving_cpu_reference(path: str) -> None:
+    """The CPU side of phases l1 and l2, run in a child process while the
+    card works (``--serving-cpu``): saved to ``path`` with ``torch.save``."""
+    import torch
+
+    torch.set_num_threads(SERVE_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = {"small": serving_small_runs("cpu")}
+    log(f"l1 runs {time.perf_counter() - t0:.1f} s")
+    out["samples"] = sample_ticks("cpu")
+    out["small_s"] = time.perf_counter() - t0
+    log(f"l1 samples {out['small_s']:.1f} s")
+    out["headline"] = headline_runs("cpu")
+    out["total_s"] = time.perf_counter() - t0
+    log(f"l2 arms {out['total_s']:.1f} s")
+    tmp = path + ".tmp"
+    torch.save(out, tmp)
+    os.replace(tmp, path)
+
+
+SERVE_CPU_THREADS = 4  # of the machine's 8 cores; the card's host loop keeps the rest
+SERVE_CPU_TIMEOUT = 1000
+
+
+class CpuReference:
+    """The child process computing phase l's CPU side (started early so
+    that it overlaps the card's phases; stopped at exit either way)."""
+
+    def __init__(self):
+        self.dir = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_l")
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, "cpu_reference.pt")
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        self.log = open(os.path.join(self.dir, "cpu_reference.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serving-cpu", self.path],
+            cwd=REPO, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self, torch) -> dict:
+        left = SERVE_CPU_TIMEOUT - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError("serving (phase l): the CPU reference child timed out")
+        self.log.flush()
+        if rc != 0:
+            with open(self.log.name) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"serving (phase l): the CPU reference child failed:\n{tail}")
+        return torch.load(self.path, weights_only=False)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def _same_record(a: dict, b: dict, what: str) -> None:
+    """Equal run records (``_np_copy`` plus a trace's arrays, or a sweep's
+    trace, final states and nets): every array with its dtype."""
+    import numpy as np
+
+    def same(x, y, where):
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: {where} present on one side only")
+        if x is None:
+            return
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {where} differs")
+
+    if a["trace"].keys() != b["trace"].keys():
+        raise AssertionError(f"{what}: trace series differ "
+                             f"({sorted(set(a['trace']) ^ set(b['trace']))})")
+    for k in a["trace"]:
+        same(a["trace"][k], b["trace"][k], f"trace {k}")
+    for part in ("state", "net"):
+        for f in a.get(part, {}):
+            same(a[part][f], b[part][f], f"{part} {f}")
+    for part in ("states", "nets"):
+        for r, (x, y) in enumerate(zip(a.get(part, []), b.get(part, []))):
+            for f in x:
+                same(x[f], y[f], f"replica {r} {part} {f}")
+    same(a["key"], b["key"], "key")
+    if "loss" in a and np.float32(a["loss"]) != np.float32(b["loss"]):
+        raise AssertionError(f"{what}: loss differs")
+
+
+def check_serving_cuda_equals_cpu(torch, cpu: dict) -> None:
+    """Phase l1: the runs, the sampler and the Gumbel transform on the
+    card equal the CPU's."""
+    import numpy as np
+
+    from ringpop_tpu_torch import prng
+
+    t0 = time.perf_counter()
+    got = serving_small_runs("cuda")
+    want = cpu["small"]
+    if got.keys() != want.keys():
+        raise AssertionError("serving (phase l1): run sets differ")
+    for name in got:
+        _same_record(got[name], want[name], f"serving (phase l1) {name}")
+    fired = {name: (int(r["trace"]["m.ov_gray_nodes"].max()),
+                    int(r["trace"].get("m.policy_shed", np.zeros(1)).sum()),
+                    int(r["trace"].get("m.policy_quarantined", np.zeros(1)).max()),
+                    int(r["trace"]["m.delivered"].sum()))
+             for name, r in got.items() if "m.ov_gray_nodes" in r["trace"]}
+    log(f"serving (phase l1): {len(got)} runs at n={N_SERVE_SMALL} ({SERVE_TICKS_SMALL} ticks: "
+        f"gray, delay, kill, overload; workloads {sorted(SERVE_WLS_SMALL)}; each policy at its "
+        f"default; the admission sweep over {SWEEP_AXES}) cuda == cpu: every trace series and "
+        f"histogram plane, state and net field (ov_*, po_*) and the key; (peak gray, shed, peak "
+        f"quarantine, delivered) {fired}; {time.perf_counter() - t0:.1f} s")
+    samples = sample_ticks("cuda")
+    for label, rows in samples.items():
+        for t, (a, b) in enumerate(zip(rows, cpu["samples"][label])):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"serving (phase l1): sample_tick {label} tick {t} differs")
+    u = np.maximum(np.arange(2**23, dtype=np.float32) * np.float32(2**-23),
+                   np.finfo(np.float32).tiny)
+    ut = torch.from_numpy(u)
+    g_card = prng.gumbel_from_uniform(ut.cuda()).cpu().numpy()
+    g_cpu = prng.gumbel_from_uniform(ut).numpy()
+    misses = int((g_card.view(np.int32) != g_cpu.view(np.int32)).sum())
+    if misses:
+        raise AssertionError(f"serving (phase l1): the Gumbel transform differs on {misses} "
+                             "of 2^23 uniforms between the card and the CPU")
+    log(f"serving (phase l1): sample_tick cuda == cpu on {SAMPLE_TICKS_CHECK} ticks of "
+        f"{SERVE_WLS_SMALL['zipf']['keys_per_tick']} keys and 3 ticks of {SERVE_KEYS} keys over "
+        f"a {SERVE_POOL}-key pool; the Gumbel transform cuda == cpu on all 2^23 uniform "
+        f"outputs (0 misses); {time.perf_counter() - t0:.1f} s")
+
+
+def check_headline(torch, cpu: dict) -> None:
+    """Phase l2: the policy headline on the card, equal to the CPU's,
+    printed beside BASELINE.md's table."""
+    t0 = time.perf_counter()
+    got = headline_runs("cuda")
+    for name in got:
+        _same_record(got[name], cpu["headline"][name], f"serving (phase l2) {name}")
+    log(f"serving (phase l2): bench_policies.py's headline (n={HEADLINE_N}, {HEADLINE_TICKS} "
+        f"ticks, zipf 1.2 at {8 * HEADLINE_N} keys a tick, {HEADLINE_SEGMENT}-tick segments, "
+        f"seed {HEADLINE_SEED}): all {len(got)} arms cuda == cpu (every series, state, net, "
+        f"key); {time.perf_counter() - t0:.1f} s.  The port's numbers, then BASELINE.md:810-819 "
+        "(the reference under jax 0.4.37's PRNG mode, so its draws, and these rows, may "
+        "differ):")
+    log("| backend | arm | goodput | amplification | lat p99 ms | gray timeouts | failed "
+        "| peak gray | shed | peak quar | cap min || BASELINE row |")
+    for (backend, name), base in BASELINE_HEADLINE.items():
+        s = got[f"{backend}/{name}"]["summary"]
+        goodput = s["delivered"] / max(s["lookups"], 1)
+        amp = s["sends"] / max(s["delivered"], 1)
+        log(f"| {backend} | {name} | {goodput:.3f} | {amp:.2f} | {s['lat_p99_ms']} "
+            f"| {s['gray_timeouts']} | {s['proxy_failed']} | {s['ov_gray_peak']}/{HEADLINE_N} "
+            f"| {s.get('policy_shed', '-')} | {s.get('policy_quar_peak', '-')} "
+            f"| {s.get('policy_retry_cap_min', '-')} || {base} |")
+
+
+def _serve_counts() -> dict:
+    """The launch counters phase l reads: ``_kernel_counts`` and the
+    short-row FarmHash kernel (the key pool, the traffic ring's names)."""
+    return {**_kernel_counts(), "farmhash32_short": _counted()["farmhash32"].short_launches}
+
+
+def _serve_arm(torch, label: str, make, spec: dict, traffic, policy,
+               segment: int | None = None) -> tuple:
+    """One arm of phases l3/l4 from a fresh cluster (made, and its
+    workload lowered, before the measured window): ms a tick, host syncs
+    a tick outside revives, peak memory, launches and the scorecard."""
+    _reset_counts()
+    _counted_recv_merge_reset()
+    c = make()
+    ct = c.compile_traffic(traffic) if traffic is not None else None
+    build_launches = _serve_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sink: dict = {}
+    t0 = time.perf_counter()
+    with _syncs(torch, sink):
+        trace = c.run_scenario(spec, traffic=ct, policy=policy, segment_ticks=segment)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = spec["ticks"]
+    run_launches = _serve_counts()
+    r = {"ms_per_tick": wall * 1e3 / ticks,
+         "syncs_per_tick": (sink["syncs"] - sink.get("revive_syncs", 0)) / ticks,
+         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+         "launches": {k: build_launches[k] + run_launches[k] for k in run_launches},
+         "summary": incident_summary(trace) if traffic is not None else None}
+    s = r["summary"]
+    score = ""
+    if s is not None:
+        score = (f"; goodput {s['delivered'] / max(s['lookups'], 1):.4f}, amplification "
+                 f"{s['sends'] / max(s['delivered'], 1):.3f}, lat p99 {s['lat_p99_ms']} ms, "
+                 f"gray timeouts {s['gray_timeouts']}, peak gray {s['ov_gray_peak']}, shed "
+                 f"{s.get('policy_shed', '-')}, peak quarantine {s.get('policy_quar_peak', '-')}")
+    log(f"serving {label}: {r['ms_per_tick']:.3f} ms per tick over {ticks} ticks"
+        f"{f' ({segment}-tick segments)' if segment else ''}, host syncs "
+        f"{r['syncs_per_tick']:.2f} per tick, peak {r['peak_gib']:.2f} GiB over the start, "
+        f"launches {r['launches']}{score}")
+    return c, ct, trace, r
+
+
+def serving_full(torch, backend: str) -> dict:
+    """Phase l3 (dense, BASELINE config 3's protocol at n = 10 000) or l4
+    (delta, the north star at n = 65 536): the cascading_overload spec
+    with the cut workload, the feedback arm (l3 only), ``combined``
+    whole and streamed (equal), and the traffic-free control, whose host
+    syncs a tick the served runs may not exceed."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    dense = backend == "dense"
+    n = N_MAIN if dense else N_DELTA
+    ticks = SERVE_TICKS if dense else SERVE_TICKS_DELTA
+    phase = "(phase l3)" if dense else "(phase l4)"
+    spec, wl = cascading_overload(n, ticks)
+    spec_ctl, _ = cascading_overload(n, ticks, overload=False)
+    wl = dict(wl, keys_per_tick=SERVE_KEYS, pool=SERVE_POOL)
+    t_all = time.perf_counter()
+
+    def make():
+        if dense:
+            return SimCluster(N_MAIN, SwimParams(loss=0.01), seed=0, device="cuda")
+        return SimCluster(N_DELTA, SwimParams(loss=0.01), seed=0, device="cuda",
+                          backend="delta", **DELTA_CAPS)
+
+    log(f"serving {phase}: {backend} n={n}, cascading_overload for {ticks} ticks "
+        f"(overload {spec['events'][0]}), workload {wl} (cut from {8 * n} keys a tick and a "
+        f"{32 * n}-key pool)")
+    runs = {}
+    _, _, _, runs["control"] = _serve_arm(torch, f"{phase} {backend} control (no traffic, "
+                                          "no overload)", make, spec_ctl, None, None)
+    if dense:
+        _, _, _, runs["feedback"] = _serve_arm(torch, f"{phase} {backend} feedback (no policy)",
+                                               make, spec, wl, None)
+    c, ct, whole, runs["combined"] = _serve_arm(torch, f"{phase} {backend} combined", make,
+                                                spec, wl, "combined")
+    want = _np_copy(c)
+    want["trace"] = whole.to_arrays()
+    serve_peak = None
+    if not dense:
+        # the serve's own peak: one serve of the final views, standalone
+        from ringpop_tpu_torch.policies import core as pol
+        from ringpop_tpu_torch.scenarios import runner
+        from ringpop_tpu_torch.traffic import engine
+
+        st = runner.policy_traffic(ct, pol.compile_policy("combined", n=n, m=SERVE_KEYS))
+        policy = (c.net.po_shed, c.net.po_quar, c.net.po_retry_cap)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.serve_once(engine.DeltaRows(c.state), c.net.up, c.net.responsive, st.tensors,
+                          ticks, static=st.static, policy=policy)
+        torch.cuda.synchronize()
+        serve_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"serving {phase}: one serve of the final delta views (DeltaRows: the {SERVE_KEYS} "
+            f"viewers' rows and each hop's holders' from the tables, the divergence and "
+            f"self-in-ring counts without the [N, N] table) peaks at {serve_peak:.3f} GiB over "
+            "its start")
+    del c
+    seg = SERVE_SEGMENT if dense else SERVE_SEGMENT_DELTA
+    c2, _, _, runs["streamed"] = _serve_arm(torch, f"{phase} {backend} combined streamed", make,
+                                            spec, wl, "combined", segment=seg)
+    got = _np_copy(c2)
+    got["trace"] = c2.traces[-1].to_arrays()
+    _same_record(got, want, f"serving {phase} combined streamed vs whole")
+    del c2
+    # the streamed arm reads each segment back (a sync a segment) and is
+    # held to the whole run's result, not to the control's syncs
+    for arm in ("feedback", "combined"):
+        if arm in runs and runs[arm]["syncs_per_tick"] > runs["control"]["syncs_per_tick"]:
+            raise AssertionError(
+                f"serving {phase}: the served {arm} run takes {runs[arm]['syncs_per_tick']:.2f} "
+                f"host syncs a tick, the traffic-free control {runs['control']['syncs_per_tick']:.2f}")
+    want_k = ("recv_merge",) if dense else ("row_searchsorted", "merge_insert")
+    for arm in ("combined", "streamed"):
+        la = runs[arm]["launches"]
+        for k in want_k:
+            if la[k] <= 0:
+                raise AssertionError(f"serving {phase}: kernel {k} was not launched ({arm})")
+        if la["farmhash32"] + la["farmhash32_short"] <= 0:
+            raise AssertionError(f"serving {phase}: FarmHash was not launched ({arm})")
+    s = runs["combined"]["summary"]
+    if s["ov_gray_peak"] <= 0 and s.get("policy_quar_peak", 0) <= 0:
+        raise AssertionError(f"serving {phase}: neither the overload meter nor the policy fired")
+    if not np.isfinite(runs["combined"]["ms_per_tick"]):
+        raise AssertionError(f"serving {phase}: no tick time")
+    log(f"serving {phase}: combined streamed ({seg}-tick segments) == whole on every series, "
+        f"state and net field (ov_*, po_*) and the key; served runs' host syncs a tick <= the "
+        f"control's; {time.perf_counter() - t_all:.1f} s")
+    launches: dict[str, int] = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "runs": runs, "serve_peak_gib": serve_peak}
+
+
+def sharded_serving(torch) -> dict:
+    """Phase l5: phase l3's workload served from a converged dense cluster
+    at n = 10 000 by ``parallel.sharded_serve`` over D = 4 shards on the
+    card (every viewer and holder row a ring fetch, hop kernel launches)
+    and by ``serve_once`` on the same rows: every counter equal."""
+    from ringpop_tpu_torch import parallel
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+    from ringpop_tpu_torch.traffic import engine
+
+    t0 = time.perf_counter()
+    c = SimCluster(N_MAIN, SwimParams(loss=0.01), seed=0, device="cuda")
+    c.tick(5)
+    c.kill(VICTIM)
+    c.tick(3)
+    _, wl = cascading_overload(N_MAIN, SERVE_TICKS)
+    ct = c.compile_traffic(dict(wl, keys_per_tick=SERVE_KEYS, pool=SERVE_POOL))
+    mesh = parallel.make_mesh(devices=[torch.device("cuda")] * SHARDS)
+    serve = parallel.sharded_serve(mesh, static=ct.static)
+    _reset_counts()
+    for t in (0, 1, 2):
+        want = engine.serve_once(c.state.view_key, c.net.up, c.net.responsive, ct.tensors, t,
+                                 static=ct.static)
+        got = serve(c.state.view_key, c.net.up, c.net.responsive, ct.tensors, t)
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"serving (phase l5): sharded {k} differs at t={t}")
+    hops = _counted()["ring_hop"].launches
+    if hops <= 0:
+        raise AssertionError("serving (phase l5): sharded_serve launched no ring hop")
+    log(f"serving (phase l5): sharded_serve over D={SHARDS} shards == serve_once at "
+        f"n={N_MAIN} (3 ticks of {SERVE_KEYS} keys, a kill 3 ticks back; lookups "
+        f"{int(want['lookups'])}, delivered {int(want['delivered'])}, ring divergence "
+        f"{int(want['ring_divergence'])}); ring hop launches {hops}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ring_hop": hops}
+
+
+def serving_phase(torch, cpu_ref: "CpuReference") -> dict:
+    """Phase l: l1 cuda == cpu at n = 256 (and the sampler, the Gumbel
+    transform), l2 the policy headline, l3 dense n = 10 000, l4 delta
+    n = 65 536, l5 sharded serving; returns the kernels' launches summed
+    over l3-l5."""
+    t0 = time.perf_counter()
+    t_wait = time.perf_counter()
+    cpu = cpu_ref.result(torch)
+    log(f"serving (phase l): the CPU side took {cpu['small_s']:.1f} s (l1) and "
+        f"{cpu['total_s']:.1f} s (l1 + l2) in its child process ({SERVE_CPU_THREADS} threads, "
+        f"started {time.perf_counter() - cpu_ref.t0:.1f} s ago; waited "
+        f"{time.perf_counter() - t_wait:.1f} s for it)")
+    check_serving_cuda_equals_cpu(torch, cpu)
+    check_headline(torch, cpu)
+    del cpu
+    launches: dict[str, int] = {}
+    for backend in ("dense", "delta"):
+        for k, v in serving_full(torch, backend)["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    launches["ring_hop"] = launches.get("ring_hop", 0) + sharded_serving(torch)["ring_hop"]
+    log(f"serving (phase l): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -3484,11 +4060,21 @@ def main() -> int:
                     help="only run phase k (run_sweep and param_knobs: cuda == cpu at small n, "
                          "n = 10 000 dense and n = 65 536 delta against standalone runs); print "
                          "no result line")
+    ap.add_argument("--serving", action="store_true",
+                    help="only run phase l (the serving plane, the overload loop and the "
+                         "policies: cuda == cpu at small n, the policy headline, n = 10 000 "
+                         "dense, n = 65 536 delta, sharded serving); print no result line")
+    ap.add_argument("--serving-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--scenarios", action="store_true",
                     help="only run phase j (run_scenario against the host loop at n = 10 000 "
                          "dense and n = 65 536 delta, streamed soaks and checkpoints); print no "
                          "result line")
     args = ap.parse_args()
+    if args.serving_cpu:
+        # the child of phase l: its CPU side, written to the given path
+        sys.path.insert(0, REPO)
+        serving_cpu_reference(args.serving_cpu)
+        return 0
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
         import torch
@@ -3516,6 +4102,22 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     dev = torch.device("cuda")
+    refs: list[CpuReference] = []
+    try:
+        return run_phases(torch, args, root, dev, refs, t_start)
+    finally:
+        for ref in refs:
+            ref.stop()
+
+
+def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
+    """The phases ``main`` was asked for.  Phase l's CPU side is started
+    into ``refs`` (which ``main`` stops at exit)."""
+    if args.serving:
+        refs.append(CpuReference())
+        serving_phase(torch, refs[0])
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.config4_65k:
         config4_full(torch, CONFIG4_MAX_HEAL)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3549,6 +4151,9 @@ def main() -> int:
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
     check_sided_cuda_equals_cpu(torch)
+    # phase l's CPU side runs in a child process from here on, after the
+    # lockstep phases that run on the CPU themselves
+    refs.append(CpuReference())
     launches, converged_dense, c = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
@@ -3568,6 +4173,7 @@ def main() -> int:
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
     launches_scen = scenarios_phase(torch)
     launches_sweeps = sweeps_phase(torch)
+    launches_serving = serving_phase(torch, refs[0])
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h, i, j and k for the receiver merge; FarmHash's warp
@@ -3576,16 +4182,18 @@ def main() -> int:
     # kernels on the delta path, both config-4 paths and the delta runs of
     # phases h, i, j and k (kernel 3 also at phase i's block search); the
     # hop on the three ring paths
-    launches["farmhash32_short"] = short_launches + config5_launches
+    launches["farmhash32_short"] = (short_launches + config5_launches
+                                    + launches_serving["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
-                            + launches_ring_sided["ring_hop"])
+                            + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"])
     for name in ("row_searchsorted", "merge_insert"):
         launches[name] = launches_delta[name]
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += launches_c4[name] + launches_c4_full[name]
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
-                           + launches_scen.get(name, 0) + launches_sweeps.get(name, 0))
+                           + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
+                           + launches_serving.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -6,8 +6,8 @@ in state._asdict().items()}``), become the port's tensors on a device, and
 back.  The state is this system's "weights": with it, both sides run
 from identical inputs.  The fault model's fields cross too: the
 in-flight buffers (``pending``, ``pend_*``), the link rules
-(``link_*``), the period row and the overload state (``ov_*``).  Fields
-the port does not carry yet (the policy plane's ``po_*``, the
+(``link_*``), the period row, the overload state (``ov_*``) and the
+policy carry (``po_*``).  Fields the port does not carry yet (the
 provenance plane's ``pv_*``) must be None.
 """
 

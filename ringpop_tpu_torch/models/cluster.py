@@ -209,9 +209,16 @@ class SimCluster:
         validated before the key is drawn
         (``runner.validate_param_knobs``); not with ``segment_ticks``.
 
-        Not ported yet, and refused: ``traffic`` (the serving plane) and
-        ``policy``; there is no stats sink, so the reference's replay of
-        the trace to one has no counterpart."""
+        ``traffic`` (a ``traffic.WorkloadSpec``, its dict, JSON path or
+        ``kind:M[:pool]`` shorthand, or a ``CompiledTraffic`` lowered for
+        this cluster's size) serves its workload every tick against the
+        views that tick produced; the counters join the trace (and
+        ``spec["traffic"]`` records the workload).  ``policy`` (a name with
+        optional ``:k=v`` knobs, a ``policies.to_dict`` dict or a
+        ``CompiledPolicy``) arms the remediation plane; it needs a
+        workload, and its carry stays on ``self.net`` (``po_*``).  There
+        is no stats sink, so the reference's replay of the trace to one
+        has no counterpart."""
         from ringpop_tpu_torch.scenarios import compile as scompile
         from ringpop_tpu_torch.scenarios import runner as srunner
 
@@ -233,14 +240,17 @@ class SimCluster:
                 "store/checkpoint_path/assemble are streaming options; "
                 "pass segment_ticks to stream the run"
             )
-        srunner.refuse_unported(traffic=traffic, policy=policy)
         spec = srunner.as_spec(spec)
         spec.validate(self.n)
+        if traffic is not None:
+            traffic = self.compile_traffic(traffic)
         compiled = scompile.compile_spec(spec, self.n, base_loss=self.params.loss,
                                          device=self.device)
         params = self.dparams if self.backend == "delta" else self.params
         adj = srunner.precheck(self.state, self.net, compiled, params)
-        srunner.precheck_overload(compiled, None, self.net)
+        srunner.precheck_overload(compiled, traffic, self.net)
+        policy = self._compile_policy(policy, traffic)
+        srunner.precheck_policy(policy, traffic, self.net)
         srunner.precheck_prov(compiled, self.net, params)
         if param_knobs is not None:
             srunner.validate_param_knobs(
@@ -252,7 +262,8 @@ class SimCluster:
         start_tick = int(self.state.tick)
 
         def run(state):
-            return srunner.run_compiled(state, self.net, keys, compiled, params, adj=adj,
+            return srunner.run_compiled(state, self.net, keys, compiled, params,
+                                        traffic=traffic, adj=adj, policy=policy,
                                         param_knobs=param_knobs)
 
         if self.backend == "delta":
@@ -260,10 +271,33 @@ class SimCluster:
         else:
             self.net, ys = self._handed(run)
         self.set_loss(float(compiled.loss[-1]))
-        trace = srunner.make_trace(srunner.telemetry_numpy(ys), self, start_tick, spec.to_dict())
+        trace = srunner.make_trace(srunner.telemetry_numpy(ys), self, start_tick,
+                                   self._spec_dict(spec, traffic, policy))
         self.traces.append(trace)
         self.log_run(trace, spec.ticks)
         return trace
+
+    def _compile_policy(self, policy: Any, traffic: Any) -> Any:
+        """``policy`` resolved at this cluster's scale (a policy without a
+        workload stays as given: ``precheck_policy`` refuses it)."""
+        if policy is None or traffic is None:
+            return policy
+        from ringpop_tpu_torch.policies import core as pol
+
+        return pol.compile_policy(policy, n=self.n, m=traffic.static.m)
+
+    @staticmethod
+    def _spec_dict(spec: Any, traffic: Any, policy: Any) -> dict:
+        """The trace's spec record: the spec, and the workload and policy
+        it ran with."""
+        out = spec.to_dict()
+        if traffic is not None:
+            out["traffic"] = traffic.spec.to_dict()
+        if policy is not None:
+            from ringpop_tpu_torch.policies import core as pol
+
+            out["policy"] = pol.to_dict(policy)
+        return out
 
     def run_sweep(
         self,
@@ -306,8 +340,13 @@ class SimCluster:
         [R, S] slabs drained per segment into ``store``, the same
         replicas; not with ``param_axes``.  ``shard=True`` is a no-op on
         one card and raises on several; ``program_tag`` has no effect
-        until the dispatch ledger is ported.  Not ported yet, and
-        refused: ``traffic``, ``policy`` and ``policy_axes``."""
+        until the dispatch ledger is ported.  ``traffic`` serves one
+        workload stream in every replica (replica r's serving counters are
+        a standalone ``run_scenario(spec_r, traffic=...)``'s; see
+        ``SweepTrace.serving_summary``); ``policy`` arms a policy in every
+        replica and ``policy_axes`` sweeps its knobs (``{"shed_hi": [2,
+        4]}``), replica r equal to ``run_scenario(policy=sweep.replica_policy(
+        policy, policy_axes, r))``."""
         from ringpop_tpu_torch import convert
         from ringpop_tpu_torch.scenarios import runner as srunner
         from ringpop_tpu_torch.scenarios import sweep as ssweep
@@ -333,19 +372,23 @@ class SimCluster:
             )
         spec = srunner.as_spec(spec)
         spec.validate(self.n)
+        if traffic is not None:
+            traffic = self.compile_traffic(traffic)
         cs = ssweep.compile_sweep(
             spec, self.n, replicas=replicas, base_loss=self.params.loss,
             loss_scales=loss_scales, kill_jitter=kill_jitter, flap_jitter=flap_jitter,
             device=self.device,
         )
         params = self.dparams if self.backend == "delta" else self.params
+        policy = self._compile_policy(policy, traffic)
         # every refusal before the replica keys are drawn
         ssweep.prepare(self.state, self.net, cs, params, shard=shard, traffic=traffic,
                        policy=policy, policy_axes=policy_axes, param_axes=param_axes)
         replica_keys = [self._split() for _ in range(replicas)]
         keys = ssweep.sweep_key_schedule(replica_keys, cs)
         states, nets, ys = ssweep.run_sweep_compiled(
-            self.state, self.net, keys, cs, params, shard=shard, param_axes=param_axes,
+            self.state, self.net, keys, cs, params, shard=shard, traffic=traffic,
+            policy=policy, policy_axes=policy_axes, param_axes=param_axes,
             program_tag=program_tag,
         )
         trace = ssweep.sweep_trace(
@@ -490,6 +533,29 @@ class SimCluster:
         if self._traffic_ring is None:
             self._traffic_ring = ring_ops.build_ring(self.book.addresses, device=self.device)
         return self._traffic_ring
+
+    def compile_traffic(self, spec: Any) -> Any:
+        """Lower a ``traffic.WorkloadSpec`` (or its dict, JSON path or
+        shorthand) against this cluster's address book on its device,
+        reusing the cached global ring.  A ``CompiledTraffic`` passes
+        through only if it was lowered for a cluster of this size (foreign
+        viewer ids and ring tables would report bogus counters).  With
+        the latency plane on, the tick-to-ms conversion is this cluster's
+        ``params.period_ms``."""
+        from ringpop_tpu_torch.traffic import workloads as tworkloads
+
+        if isinstance(spec, tworkloads.CompiledTraffic):
+            if spec.n != self.n:
+                raise ValueError(
+                    f"CompiledTraffic was lowered for n={spec.n}, "
+                    f"this cluster has n={self.n}; re-compile the spec"
+                )
+            return spec
+        spec = tworkloads.WorkloadSpec.from_spec(spec)
+        if spec.latency_buckets:
+            spec = spec._replace(period_ms=self.params.period_ms)
+        return tworkloads.compile_traffic(spec, self.n, self.book.addresses,
+                                          ring=self.traffic_ring())
 
     def lookup_batch(self, keys: Sequence[str], viewer: int = 0) -> list[str | None]:
         """Resolve a batch of keys through ``viewer``'s ring in one pass on
@@ -662,6 +728,15 @@ class SimCluster:
         """Drop the overload feedback state (``NetState.ov_cnt``/
         ``ov_gray``) a finished ``overload`` run left on the net."""
         self.net = self.net._replace(ov_cnt=None, ov_gray=None)
+
+    def clear_policy(self) -> None:
+        """Drop the policy state a finished ``policy=`` run left on the net
+        (``NetState.po_*``): needed before a fresh policy-armed run on this
+        cluster (a resume keeps it on purpose)."""
+        self.net = self.net._replace(
+            po_press=None, po_shed=None, po_quar=None,
+            po_sends_w=None, po_deliv_w=None, po_retry_cap=None,
+        )
 
     def set_period(self, period) -> None:
         """Per-node protocol periods (int[N], the gray-failure model):

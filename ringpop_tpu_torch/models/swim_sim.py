@@ -266,7 +266,10 @@ class NetState(NamedTuple):
     ``ClusterState.pending`` installed); ``period``, each node's
     protocol period (it initiates a probe once per ``period[i]`` ticks);
     ``ov_cnt``/``ov_gray``, the overload feedback state a scenario
-    carries, which the step never reads."""
+    carries, and ``po_*``, the remediation policy's carry (pressure,
+    shed and quarantine flags, the amplification window rings and the
+    retry cap), neither of which the step reads: they live on the net
+    so that checkpoints and a streamed resume continue them exactly."""
 
     up: torch.Tensor  # bool[N]
     responsive: torch.Tensor  # bool[N]
@@ -279,6 +282,12 @@ class NetState(NamedTuple):
     period: torch.Tensor | None = None  # int32[N] (int16 in a scenario's carry)
     ov_cnt: torch.Tensor | None = None  # int32[N]
     ov_gray: torch.Tensor | None = None  # bool[N]
+    po_press: torch.Tensor | None = None  # int32[N]
+    po_shed: torch.Tensor | None = None  # bool[N]
+    po_quar: torch.Tensor | None = None  # bool[N]
+    po_sends_w: torch.Tensor | None = None  # int32[W]
+    po_deliv_w: torch.Tensor | None = None  # int32[W]
+    po_retry_cap: torch.Tensor | None = None  # int32 scalar
 
 
 def make_net(

@@ -9,6 +9,7 @@ from ringpop_tpu_torch.parallel.mesh import (
     sharded_delta_run,
     sharded_delta_step,
     sharded_run,
+    sharded_serve,
     sharded_step,
 )
 
@@ -20,5 +21,6 @@ __all__ = [
     "sharded_delta_run",
     "sharded_delta_step",
     "sharded_run",
+    "sharded_serve",
     "sharded_step",
 ]

@@ -140,6 +140,12 @@ NET_FIELD_SPECS: dict[str, str] = {
     "period": _REP,
     "ov_cnt": _REP,
     "ov_gray": _REP,
+    "po_press": _REP,
+    "po_shed": _REP,
+    "po_quar": _REP,
+    "po_sends_w": _REP,
+    "po_deliv_w": _REP,
+    "po_retry_cap": _REP,
 }
 
 DELTA_FIELD_SPECS: dict[str, str] = {
@@ -361,3 +367,29 @@ def sharded_delta_run(
             return delta_run_impl(state, net, key, params, ticks)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# serving (traffic/engine.py) from sharded membership
+# ---------------------------------------------------------------------------
+
+
+def sharded_serve(mesh: Mesh, *, static: Any, gossip: str | None = None) -> Callable:
+    """``traffic.engine.serve_tick`` over the mesh: (view_rows, up,
+    responsive, tensors, t) -> counters.  The [N, N] view table stays
+    row-sharded and each request's viewer row (and each hop's holder
+    row) comes over the gossip ring (``ring_fetch_global``: ring-hop
+    kernel launches) instead of a gather of the whole table; the
+    self-in-ring diagonal is row-local.  The counters are
+    ``serve_once``'s.  ``gossip`` as in ``gossip_mode``; in gather mode
+    the rows are plain gathers."""
+    from ringpop_tpu_torch.traffic import engine as _tengine
+
+    gossip_mode(gossip)
+
+    def serve(view_rows, up, responsive, tensors, t):
+        _check_divisible(view_rows.shape[0], mesh)
+        with mesh_gossip(mesh, gossip):
+            return _tengine.serve_tick(view_rows, up, responsive, tensors, int(t), static=static)
+
+    return serve

@@ -104,10 +104,18 @@ def overload_config(spec: ScenarioSpec) -> OverloadConfig | None:
 
 def overload_update(cfg: OverloadConfig, in_window, pressure, gray, sends):
     """One tick of the feedback state update on numpy arrays or torch
-    tensors (exact integer and bool algebra): ``(pressure', gray')``."""
+    tensors (exact integer and bool algebra): ``(pressure', gray')``.
+    ``in_window`` is a host bool (or a bool array); outside the window
+    both come back zero."""
     if torch.is_tensor(pressure):
         cnt = torch.clamp(pressure + sends - cfg.capacity, min=0)
-        cnt = torch.where(torch.as_tensor(in_window, device=cnt.device), cnt, 0)
+        if isinstance(in_window, (bool, np.bool_)):
+            # a host bool: no host-to-device copy (it would wait for the card)
+            if not in_window:
+                return torch.zeros_like(cnt), torch.zeros_like(gray)
+            in_window = True
+        else:
+            cnt = torch.where(torch.as_tensor(in_window, device=cnt.device), cnt, 0)
     else:
         cnt = np.maximum(pressure + sends - cfg.capacity, 0)
         cnt = np.where(in_window, cnt, 0)

@@ -15,9 +15,17 @@ and ``sim.admin_join`` take host ints) and a few per call.
 Event order within a tick (shared with the host loop): node bit edits,
 then revives, then partition rows.  ``param_knobs`` overrides the
 protocol knobs (``swim_sim.SwimKnobs``) for a run, validated on the
-host before any key is drawn (``validate_param_knobs``).  The serving
-plane (``traffic``), the overload feedback loop, policies and
-provenance are not ported yet: asking for them raises
+host before any key is drawn (``validate_param_knobs``).
+
+``traffic`` (a ``traffic.CompiledTraffic``) serves a key batch after each
+tick's step, against the views that step produced, and adds the serving
+counters and histogram rows to the telemetry; the workload draws from
+its own key, so the protocol's trajectory is the one without traffic.
+An ``overload`` event closes the feedback loop: the serve's per-node
+sends drive a pressure meter whose hysteresis bit degrades a node's
+period the next tick.  ``policy`` (a ``policies.CompiledPolicy``) folds
+the same sends into the remediation planes the next tick's serve
+consults.  Provenance (``track`` events) is not ported yet and raises
 ``NotImplementedError`` before any key is drawn.
 """
 
@@ -33,6 +41,7 @@ from ringpop_tpu_torch.models import swim_delta as sdelta
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_delta import DeltaParams, DeltaState
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
+from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import faults as sfaults
 from ringpop_tpu_torch.scenarios.compile import (
     _OP_RANK,
@@ -45,8 +54,10 @@ from ringpop_tpu_torch.scenarios.compile import (
 )
 from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
 from ringpop_tpu_torch.scenarios.trace import Trace
+from ringpop_tpu_torch.traffic import engine as traffic_engine
 
 _dispatches = 0
+_last_meta: dict[str, Any] = {}
 
 
 def dispatch_count() -> int:
@@ -54,19 +65,11 @@ def dispatch_count() -> int:
     return _dispatches
 
 
-def refuse_unported(*, traffic: Any = None, policy: Any = None) -> None:
-    """The scenario planes this port does not carry yet, refused before
-    any key is drawn."""
-    if traffic is not None:
-        raise NotImplementedError(
-            "traffic= (the serving plane inside a scenario) is not ported yet "
-            "(ROADMAP queue 1 item 7)"
-        )
-    if policy is not None:
-        raise NotImplementedError(
-            "policy= (the remediation policy plane) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
-        )
+def last_meta() -> dict[str, Any]:
+    """What the last ``run_compiled`` ran (backend, n, ticks, replicas,
+    and ``traffic_m``/``policy``/``param_knobs`` where given): the
+    reference's dispatch meta, which its ledger records."""
+    return dict(_last_meta)
 
 
 def as_spec(spec: ScenarioSpec | dict | str) -> ScenarioSpec:
@@ -197,8 +200,9 @@ def precheck_overload(
 ) -> None:
     """Static refusals of the overload feedback loop (the ``precheck``
     contract): it meters the serving plane's sends, so it needs a
-    workload, and the serving plane is not ported yet."""
-    del net, standing_ok
+    workload; and feedback state a previous run left on the net would
+    seed the new run's pressure, so it is refused unless resuming
+    (``standing_ok``: the checkpointed net carries this run's own)."""
     if compiled.overload is None:
         return
     if traffic is None:
@@ -206,7 +210,74 @@ def precheck_overload(
             "overload events meter the serve plane's per-node sends: "
             "pass a traffic workload (run_scenario(spec, traffic=...))"
         )
-    refuse_unported(traffic=traffic)
+    if not standing_ok and net.ov_cnt is not None:
+        if bool(net.ov_cnt.any() | net.ov_gray.any()):
+            raise ValueError(
+                "the cluster carries overload feedback state from a "
+                "previous run (net.ov_cnt/ov_gray): clear_overload() "
+                "first, or resume the run that wrote it"
+            )
+
+
+def overload_traffic(traffic: Any | None, compiled: CompiledScenario) -> Any:
+    """The workload a scenario serves: with an overload event it counts
+    the per-node sends (``track_load``)."""
+    if traffic is None or compiled.overload is None or traffic.static.track_load:
+        return traffic
+    return traffic._replace(static=traffic.static._replace(track_load=1))
+
+
+def precheck_policy(
+    policy: Any | None, traffic: Any | None, net: NetState, *, standing_ok: bool = False
+) -> None:
+    """Static refusals of the remediation policy plane (the ``precheck``
+    contract): a policy meters the serve plane, so it needs a workload,
+    and policy state a previous run left on the net is refused unless
+    resuming."""
+    if policy is None:
+        return
+    if traffic is None:
+        raise ValueError(
+            "policies meter the serve plane (per-node sends + delivered): "
+            "pass a traffic workload (run_scenario(spec, traffic=..., "
+            "policy=...))"
+        )
+    if not standing_ok and net.po_press is not None:
+        leftover = (net.po_press.any() | net.po_shed.any() | net.po_quar.any()
+                    | net.po_sends_w.any() | net.po_deliv_w.any())
+        if bool(leftover):
+            raise ValueError(
+                "the cluster carries policy state from a previous run "
+                "(net.po_*): clear_policy() first, or resume the run "
+                "that wrote it"
+            )
+
+
+def policy_traffic(traffic: Any | None, policy: Any | None) -> Any:
+    """The workload a policy-armed scenario serves: per-node sends
+    (``track_load``) and the policy hooks with the ``policy_shed``
+    counter (``track_policy``)."""
+    if traffic is None or policy is None:
+        return traffic
+    st = traffic.static
+    if st.track_load and st.track_policy:
+        return traffic
+    return traffic._replace(static=st._replace(track_load=1, track_policy=1))
+
+
+def prepare_policy(policy: Any | None, net: NetState, n: int, max_retries: int) -> tuple | None:
+    """The initial policy carry: zeros for a fresh run, or the net's
+    checkpointed mid-window state on resume."""
+    if policy is None:
+        return None
+    cfg = policy.config
+    if net.po_sends_w is not None and net.po_sends_w.shape[-1] != cfg.amp_window:
+        raise ValueError(
+            f"the cluster carries a policy amp window of "
+            f"{net.po_sends_w.shape[-1]} ticks but this policy uses "
+            f"{cfg.amp_window}; clear_policy() or match amp_window"
+        )
+    return pol.init_policy_state(n, cfg, max_retries, net=net)
 
 
 def precheck_prov(
@@ -298,12 +369,13 @@ def period_active(net: NetState, compiled: CompiledScenario) -> bool:
 
 def prepare_faults(
     state: Any, net: NetState, compiled: CompiledScenario, params: Any | None = None
-) -> tuple[Any, torch.Tensor | None]:
+) -> tuple[Any, torch.Tensor | None, tuple[torch.Tensor, torch.Tensor] | None]:
     """Set-up before the first tick: the in-flight buffer when the spec
     delays messages (from tick 0: its presence widens the step's key
-    split, as ``HostPlan.prepare``) and the int16 period carry (the
-    net's row, or ones when the spec brings gray periods to a lockstep
-    cluster).  The overload carry comes with the serving plane."""
+    split, as ``HostPlan.prepare``), the int16 period carry (the net's
+    row, or ones when the spec brings gray periods or overload to a
+    lockstep cluster), and the overload carry ``(pressure int32[N],
+    gray bool[N])``: zeros for a fresh run, the net's on resume."""
     dev = net.up.device
     if compiled.has_delay:
         if isinstance(state, DeltaState):
@@ -322,7 +394,14 @@ def prepare_faults(
         if pmax > np.iinfo(np.int16).max:
             raise ValueError(f"per-node period {pmax} exceeds the int16 carry range")
         period = period.to(torch.int16)
-    return state, period
+    ov = None
+    if compiled.overload is not None:
+        if net.ov_cnt is not None:
+            ov = (net.ov_cnt.to(torch.int32), net.ov_gray.to(torch.bool))
+        else:
+            ov = (torch.zeros(compiled.n, dtype=torch.int32, device=dev),
+                  torch.zeros(compiled.n, dtype=torch.bool, device=dev))
+    return state, period, ov
 
 
 def _link_kw(ft: sfaults.FaultTensors | None, t: int) -> dict[str, torch.Tensor]:
@@ -345,11 +424,27 @@ def final_net(
     adj: torch.Tensor,
     period: torch.Tensor | None,
     compiled: CompiledScenario,
+    ov: tuple | None = None,
+    po: tuple | None = None,
 ) -> NetState:
     """The net after the run, the link rules as they stand at the last
-    tick: what the host loop's last configuration leaves in force."""
+    tick (what the host loop's last configuration leaves in force), and
+    the overload and policy carries, so that checkpoints and a streamed
+    resume continue them exactly."""
     return NetState(up=up, responsive=resp, adj=adj, period=period,
-                    **_link_kw(compiled.faults, compiled.ticks - 1))
+                    **_link_kw(compiled.faults, compiled.ticks - 1),
+                    **carry_fields(ov, po))
+
+
+def carry_fields(ov: tuple | None, po: tuple | None) -> dict[str, torch.Tensor]:
+    """The net fields of the overload and policy carries."""
+    kw = {}
+    if ov is not None:
+        kw.update(ov_cnt=ov[0], ov_gray=ov[1])
+    if po is not None:
+        kw.update(po_press=po[0], po_shed=po[1], po_quar=po[2],
+                  po_sends_w=po[3], po_deliv_w=po[4], po_retry_cap=po[5])
+    return kw
 
 
 def _masked_set(x: torch.Tensor, hit: torch.Tensor, nodes: torch.Tensor, value: bool) -> torch.Tensor:
@@ -417,25 +512,36 @@ def _scenario_scan_impl(
     *,
     params: SwimParams | DeltaParams,
     knobs: sim.SwimKnobs | None = None,
-) -> tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None, dict]:
+    traffic: Any | None = None,
+    ov: tuple | None = None,
+    po: tuple | None = None,
+    policy: Any | None = None,
+) -> tuple:
     """Ticks ``tick0 .. tick0 + len(keys) - 1`` of the scenario on the
     state in ``hand``, which each step takes over.  ``loss`` is the
     schedule's float32 values for these ticks (host copy: the step
     draws against the same float32 as after ``set_loss``); ``knobs``
-    goes to every step.  Returns the state, up, responsive, adjacency,
-    period row (int16) and the telemetry: each metric, ``converged``,
-    ``live`` and ``loss`` as [T] device tensors."""
+    goes to every step.  ``traffic`` (a ``CompiledTraffic``, its statics
+    already through ``overload_traffic``/``policy_traffic``) serves
+    after each step; ``ov`` and ``po`` are the overload and policy
+    carries, ``policy`` the ``CompiledPolicy`` (knobs as host ints).
+
+    Returns the state, up, responsive, adjacency, period row (int16),
+    overload and policy carries, and the telemetry: each metric,
+    ``converged``, ``live`` and ``loss`` as [T] device tensors, each
+    histogram plane as [T, B]."""
     n = compiled.n
     dev = up.device
     is_delta = isinstance(params, DeltaParams)
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     ft = compiled.faults
+    ovc = compiled.overload
     boundaries = set(compiled.boundaries)
     revives = _revive_schedule(compiled)
     u, r, gid, per = up, responsive, adj, period
-    per_eff = None if per is None else per.to(torch.int32)
+    per_base = None if per is None else per.to(torch.int32)
     link_kw: dict[str, torch.Tensor] = {}
-    rows, names = [], None
+    rows, planes, names = [], {}, None
     for i in range(keys.shape[0]):
         t = tick0 + i
         if t == 0 or t in boundaries:
@@ -451,11 +557,16 @@ def _scenario_scan_impl(
                 gid = _switch_row(compiled.p_tick == t, compiled.p_gid, gid)
             if ft is not None and ft.pe_tick.shape[0]:
                 per = _switch_row(ft.pe_tick == t, ft.pe_row, per)
-                per_eff = per.to(torch.int32)
+                per_base = per.to(torch.int32)
         if i == 0 or t in boundaries:
             # every rule window edge is a boundary: the rules in force
             # change nowhere else
             link_kw = _link_kw(ft, t)
+        per_eff = per_base
+        if ovc is not None:
+            # a node the feedback flagged last tick runs this tick (its
+            # step and its serve duty phase) at the degraded period
+            per_eff = torch.where(ov[1], torch.clamp(per_base, min=ovc.factor), per_base)
         net = NetState(up=u, responsive=r, adj=gid, period=per_eff, **link_kw)
         if is_delta:
             sp = params._replace(swim=params.swim._replace(loss=float(loss[i])))
@@ -469,31 +580,68 @@ def _scenario_scan_impl(
             conv = sim.converged_impl(hand.state, net)
             own = torch.diagonal(hand.state.view_key) & 7
         live = (u & r & ((own == sim.ALIVE) | (own == sim.SUSPECT))).sum(dtype=torch.int32)
+        y = dict(metrics)
+        if traffic is not None:
+            # the serve reads the views this tick's step produced (the
+            # delta backend's from its tables, on serving ticks only)
+            st = hand.state
+            views = traffic_engine.DeltaRows(st) if is_delta else st.view_key
+            y.update(traffic_engine.serve_tick(
+                views, u, r, traffic.tensors, t, static=traffic.static,
+                damped=getattr(st, "damped", None), net=net, period=per_eff,
+                policy=(po[1], po[2], po[5]) if policy is not None else None,
+            ))
+        # the overload meter and the policy fold read the same sends
+        sends = y.pop("node_sends") if (ovc is not None or policy is not None) else None
+        if ovc is not None:
+            in_win = ovc.start <= t < ovc.end
+            ov = sfaults.overload_update(ovc, in_win, ov[0], ov[1], sends)
+            y["ov_gray_nodes"] = ov[1].sum(dtype=torch.int32)
+            y["ov_pressure_max"] = ov[0].amax()
+        if policy is not None:
+            press, shed, quar, sends_w, deliv_w, cap, amp_x16 = pol.policy_update(
+                policy.config, policy.knobs, po[0], po[1], po[2], po[3], po[4], sends,
+                sends.sum(dtype=torch.int32), y["delivered"], t, traffic.static.max_retries)
+            po = (press, shed, quar, sends_w, deliv_w, cap)
+            y["policy_shed_nodes"] = shed.sum(dtype=torch.int32)
+            y["policy_quarantined"] = quar.sum(dtype=torch.int32)
+            y["policy_pressure_max"] = press.amax()
+            y["policy_retry_cap"] = cap
+            y["policy_amp_x16"] = amp_x16
         if names is None:
-            names = sorted(metrics)
-        rows.append(torch.stack([*(metrics[k].to(torch.int32) for k in names),
+            names = sorted(k for k, v in y.items() if v.dim() == 0)
+        for k, v in y.items():
+            if v.dim() == 1:
+                planes.setdefault(k, []).append(v)
+        rows.append(torch.stack([*(y[k].to(torch.int32) for k in names),
                                  conv.to(torch.int32), live]))
     block = torch.stack(rows)
     ys = {k: block[:, j] for j, k in enumerate(names)}
+    ys.update({k: torch.stack(v) for k, v in planes.items()})
     ys["converged"] = block[:, -2].to(torch.bool)
     ys["live"] = block[:, -1]
     ys["loss"] = compiled.loss[tick0:tick0 + keys.shape[0]]
-    return hand.take(), u, r, gid, per, dict(sorted(ys.items()))
+    return hand.take(), u, r, gid, per, ov, po, dict(sorted(ys.items()))
 
 
 def stack_telemetry(ys: dict[str, torch.Tensor]) -> torch.Tensor:
-    """The telemetry as one int32 [K, T] block on its device (bool as
-    0/1, float32 by its bits): what one copy reads back."""
-    return torch.stack([
-        v.view(torch.int32) if v.dtype == torch.float32 else v.to(torch.int32)
+    """The telemetry as one flat int32 block on its device (bool as 0/1,
+    float32 by its bits, histogram planes flattened): what one copy
+    reads back."""
+    return torch.cat([
+        (v.view(torch.int32) if v.dtype == torch.float32 else v.to(torch.int32)).reshape(-1)
         for v in ys.values()
     ])
 
 
 def unstack_telemetry(ys: dict[str, torch.Tensor], block: np.ndarray) -> dict[str, np.ndarray]:
-    """Host arrays of ``stack_telemetry``'s block, in the dtypes of ``ys``."""
+    """Host arrays of ``stack_telemetry``'s block, in the shapes and
+    dtypes of ``ys``."""
     out = {}
-    for (k, v), row in zip(ys.items(), block):
+    at = 0
+    for k, v in ys.items():
+        row = block[at:at + v.numel()].reshape(tuple(v.shape))
+        at += v.numel()
         if v.dtype == torch.bool:
             out[k] = row.astype(bool)
         elif v.dtype == torch.float32:
@@ -520,7 +668,7 @@ def run_compiled(
     param_knobs: dict[str, float | int] | None = None,
 ) -> tuple[Any, NetState, dict[str, torch.Tensor]]:
     """The whole scenario in one call: (state, net, per-tick telemetry,
-    each a [ticks] tensor on the device).
+    each a [ticks] tensor on the device, a histogram plane [ticks, B]).
 
     ``params`` is ``SwimParams`` for a dense ``ClusterState`` and
     ``DeltaParams`` for a ``DeltaState``; its loss is the compiled
@@ -528,19 +676,24 @@ def run_compiled(
     ``adj`` is the normalized adjacency from a ``precheck`` the caller
     already ran.  A dense ``state`` may come as ``sim._Handoff`` holding
     the caller's only reference, so that no entry state stays alive
-    through the run.  ``param_knobs`` overrides protocol knobs
-    (``swim_sim.SwimKnobs`` names, host numbers) for this run, checked
-    by ``validate_param_knobs`` first.  ``traffic`` and ``policy`` are
-    not ported yet and raise."""
-    global _dispatches
-    refuse_unported(traffic=traffic, policy=policy)
+    through the run.  ``traffic`` (a ``traffic.CompiledTraffic``) serves
+    its workload every tick against the views that tick produced, adding
+    the serving counters (``traffic.engine.counter_names``) without
+    touching the protocol key schedule.  ``policy`` (a
+    ``policies.CompiledPolicy``) arms the remediation plane; its carry
+    comes back on the net (``net.po_*``).  ``param_knobs`` overrides
+    protocol knobs (``swim_sim.SwimKnobs`` names, host numbers) for this
+    run, checked by ``validate_param_knobs`` first."""
+    global _dispatches, _last_meta
     hand = state if isinstance(state, sim._Handoff) else sim._Handoff(state)
     if keys.shape[0] != compiled.ticks:
         raise ValueError(f"key schedule has {keys.shape[0]} rows for {compiled.ticks} ticks")
     if adj is None:
         adj = precheck(hand.state, net, compiled, params)
         precheck_overload(compiled, traffic, net)
+        precheck_policy(policy, traffic, net)
         precheck_prov(compiled, net, params)
+    traffic = policy_traffic(overload_traffic(traffic, compiled), policy)
     knobs = None
     if param_knobs is not None:
         swp = getattr(params, "swim", params)
@@ -551,13 +704,28 @@ def run_compiled(
             damping=getattr(hand.state, "damp", None) is not None,
         )
         knobs = sim.swim_knob_arrays(swp, param_knobs)
-    hand.state, period = prepare_faults(hand.take(), net, compiled, params)
+    hand.state, period, ov = prepare_faults(hand.take(), net, compiled, params)
+    po = None
+    if policy is not None:
+        po = prepare_policy(policy, net, compiled.n, traffic.static.max_retries)
     _dispatches += 1
-    st, up, resp, adj, period, ys = _scenario_scan_impl(
+    meta: dict[str, Any] = {
+        "backend": "delta" if isinstance(params, DeltaParams) else "dense",
+        "n": compiled.n, "ticks": compiled.ticks, "replicas": 1,
+    }
+    if traffic is not None:
+        meta["traffic_m"] = traffic.static.m
+    if policy is not None:
+        meta["policy"] = policy.name
+    if param_knobs is not None:
+        meta["param_knobs"] = sorted(param_knobs)
+    _last_meta = meta
+    st, up, resp, adj, period, ov, po, ys = _scenario_scan_impl(
         hand, net.up, net.responsive, adj, period, compiled, keys,
         compiled.loss.cpu().numpy(), params=params, knobs=knobs,
+        traffic=traffic, ov=ov, po=po, policy=policy,
     )
-    return st, final_net(up, resp, adj, period, compiled), ys
+    return st, final_net(up, resp, adj, period, compiled, ov=ov, po=po), ys
 
 
 def run_host_loop(cluster, spec: ScenarioSpec):
@@ -574,7 +742,8 @@ def run_host_loop(cluster, spec: ScenarioSpec):
     if any(e.op == "overload" for e in spec.events):
         raise NotImplementedError(
             "run_host_loop does not serve traffic, so it cannot drive "
-            "the overload feedback loop"
+            "the overload feedback loop; run_scenario with traffic= is "
+            "the compiled path"
         )
     plan = sfaults.HostPlan(spec, cluster.n)
     plan.prepare(cluster)

@@ -26,8 +26,11 @@ over the state the one before left:
   ``"sweep"``); the same replicas as the unsegmented ``run_sweep``.
   Sweeps do not checkpoint.
 
+A served run (``traffic``, ``policy``) records its workload and policy
+in the cursor, and carries the overload and policy state from segment
+to segment (and through checkpoints, on the net's ``ov_*``/``po_*``).
 The per-segment dispatch ledger rows and the stats-bridge replays of the
-reference wait for the operator planes (ROADMAP queue 1 item 6).
+reference wait for the observability planes.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from ringpop_tpu_torch import prng
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState
+from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import compile as scompile
 from ringpop_tpu_torch.scenarios import runner as srunner
 from ringpop_tpu_torch.scenarios import sweep as ssweep
@@ -232,17 +236,20 @@ def run_streamed(
     ``checkpoint_path + ".segments"``) so that ``resume`` can finish the
     trace.  ``interrupt_after=k`` stops the run as a kill right after
     the k-th checkpoint would (``StreamInterrupted``).  ``traffic`` and
-    ``policy`` are not ported yet and raise."""
-    srunner.refuse_unported(traffic=traffic, policy=policy)
+    ``policy`` are ``run_scenario``'s."""
     spec = srunner.as_spec(spec)
     spec.validate(cluster.n)
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1 (got {checkpoint_every})")
+    if traffic is not None:
+        traffic = cluster.compile_traffic(traffic)
     compiled = scompile.compile_spec(spec, cluster.n, base_loss=cluster.params.loss,
                                      device=cluster.device)
     params = cluster.dparams if cluster.backend == "delta" else cluster.params
     adj = srunner.precheck(cluster.state, cluster.net, compiled, params)
-    srunner.precheck_overload(compiled, None, cluster.net)
+    srunner.precheck_overload(compiled, traffic, cluster.net)
+    policy = cluster._compile_policy(policy, traffic)
+    srunner.precheck_policy(policy, traffic, cluster.net)
     srunner.precheck_prov(compiled, cluster.net, params)
     if checkpoint_path and store is None:
         # a resume reassembles the whole trace from the slabs
@@ -253,14 +260,16 @@ def run_streamed(
             "(pass store=... or checkpoint_path=...)"
         )
     spec_dict = spec.to_dict()
+    if traffic is not None:
+        spec_dict["traffic"] = traffic.spec.to_dict()
     # everything that can raise comes before the key draw
     segment_bounds(compiled.ticks, int(segment_ticks))
     cursor = {
         "version": CURSOR_VERSION,
         "run_id": uuid.uuid4().hex[:12],
         "spec": spec.to_dict(),
-        "traffic": None,
-        "policy": None,
+        "traffic": traffic.spec.to_dict() if traffic is not None else None,
+        "policy": pol.to_dict(policy) if policy is not None else None,
         "segment_ticks": int(segment_ticks),
         "ticks": compiled.ticks,
         "ticks_done": 0,
@@ -280,9 +289,9 @@ def run_streamed(
             "ticks": compiled.ticks, "start_tick": cursor["start_tick"], "spec": spec_dict,
         })
     keys = scompile.key_schedule(cluster._split, compiled)
-    return _drive(cluster, compiled, keys, adj, cursor, store_obj, spec_dict,
+    return _drive(cluster, compiled, keys, traffic, adj, cursor, store_obj, spec_dict,
                   checkpoint_path=checkpoint_path, assemble=assemble, pipeline=pipeline,
-                  interrupt_after=interrupt_after)
+                  interrupt_after=interrupt_after, policy=policy)
 
 
 def resume(
@@ -311,27 +320,32 @@ def resume(
         )
     if cur.get("store") is None:
         raise ValueError("stream cursor has no segment store to resume into")
-    srunner.refuse_unported(traffic=cur.get("traffic"), policy=cur.get("policy"))
     store_obj = SegmentStore.open(cur["store"])
     spec = ScenarioSpec.from_dict(cur["spec"])
     if cur["ticks_done"] >= cur["ticks"]:
         return cluster, (store_obj.assemble() if assemble else store_obj)
     store_obj.truncate(cur["ticks_done"])
+    traffic = (cluster.compile_traffic(cur["traffic"]) if cur.get("traffic") is not None
+               else None)
     compiled = scompile.compile_spec(spec, cluster.n, base_loss=cur["base_loss"],
                                      device=cluster.device)
     params = cluster.dparams if cluster.backend == "delta" else cluster.params
-    # the checkpointed net carries this spec's own mirrored rules and
-    # mid-window period row: the standing-config refusals are for fresh runs
+    # the checkpointed net carries this spec's own mirrored rules,
+    # mid-window period row, overload and policy carries: the refusals of
+    # standing state are for fresh runs
     adj = srunner.precheck(cluster.state, cluster.net, compiled, params, standing_ok=True)
-    srunner.precheck_overload(compiled, None, cluster.net, standing_ok=True)
+    srunner.precheck_overload(compiled, traffic, cluster.net, standing_ok=True)
+    # the cursor's exact knobs (never derived again from scale)
+    policy = pol.from_dict(cur["policy"]) if cur.get("policy") is not None else None
+    srunner.precheck_policy(policy, traffic, cluster.net, standing_ok=True)
     srunner.precheck_prov(compiled, cluster.net, params, standing_ok=True)
     # cluster.key is already past the whole schedule; derive it again
     # from the start key without touching it
     keys = _schedule_from_start_key(cur["start_key"], compiled)
     spec_dict = dict(store_obj.meta.get("spec") or spec.to_dict())
-    result = _drive(cluster, compiled, keys, adj, dict(cur), store_obj, spec_dict,
+    result = _drive(cluster, compiled, keys, traffic, adj, dict(cur), store_obj, spec_dict,
                     checkpoint_path=checkpoint_path, assemble=assemble, pipeline=pipeline,
-                    interrupt_after=interrupt_after)
+                    interrupt_after=interrupt_after, policy=policy)
     return cluster, result
 
 
@@ -365,6 +379,7 @@ def _drive(
     cluster: Any,
     compiled: scompile.CompiledScenario,
     keys: torch.Tensor,
+    traffic: Any | None,
     adj: torch.Tensor,
     cursor: dict[str, Any],
     store_obj: SegmentStore | None,
@@ -374,6 +389,7 @@ def _drive(
     assemble: bool,
     pipeline: bool,
     interrupt_after: int | None,
+    policy: Any | None = None,
 ) -> Any:
     """The segment loop shared by fresh runs and resumes."""
     from ringpop_tpu_torch import checkpoint as ckpt
@@ -387,7 +403,10 @@ def _drive(
         )
     start_seg = cursor["ticks_done"] // S
     params = cluster.dparams if cluster.backend == "delta" else cluster.params
-    f_state, period = srunner.prepare_faults(cluster.state, cluster.net, compiled, params)
+    traffic = srunner.policy_traffic(srunner.overload_traffic(traffic, compiled), policy)
+    f_state, period, ov = srunner.prepare_faults(cluster.state, cluster.net, compiled, params)
+    po = (srunner.prepare_policy(policy, cluster.net, cluster.n, traffic.static.max_retries)
+          if policy is not None else None)
     # the segments take the state over: the cluster keeps no reference
     # (a kill mid-run leaves it without one, as StreamInterrupted says)
     hand = sim._Handoff(f_state)
@@ -414,12 +433,14 @@ def _drive(
         snap = None
         if due_prev:
             # the state at the boundary, copied before the segment takes it
+            carries = {k: v.cpu() for k, v in srunner.carry_fields(ov, po).items()}
             snap = (_to_host(hand.state),
                     NetState(up=up.cpu(), responsive=resp.cpu(), adj=adj.cpu(),
-                             period=None if period is None else period.cpu()))
+                             period=None if period is None else period.cpu(), **carries))
         srunner._dispatches += 1
-        st, up, resp, adj, period, ys = srunner._scenario_scan_impl(
-            hand, up, resp, adj, period, compiled, keys[a:b], loss[a:b], a, params=params)
+        st, up, resp, adj, period, ov, po, ys = srunner._scenario_scan_impl(
+            hand, up, resp, adj, period, compiled, keys[a:b], loss[a:b], a, params=params,
+            traffic=traffic, ov=ov, po=po, policy=policy)
         hand = sim._Handoff(st)
         del st
         launched = _Pending(seg, a, ys)
@@ -444,7 +465,7 @@ def _drive(
         drain(pending)
 
     cluster.state = hand.take()
-    cluster.net = srunner.final_net(up, resp, adj, period, compiled)
+    cluster.net = srunner.final_net(up, resp, adj, period, compiled, ov=ov, po=po)
     cluster.set_loss(float(loss[-1]))
     if checkpoint_path is not None:
         # the final checkpoint: the cursor complete, written before the
@@ -491,18 +512,21 @@ def run_sweep_streamed(
     replica before segment k's slab is copied to pinned host memory;
     ``pipeline=False`` drains each segment first.  As with ``run_sweep``
     the cluster does not advance (only its key moves), and sweeps do not
-    checkpoint.  ``traffic``, ``policy`` and ``policy_axes`` are not
-    ported yet and raise."""
+    checkpoint.  ``traffic``, ``policy`` and ``policy_axes`` are
+    ``run_sweep``'s."""
     spec = srunner.as_spec(spec)
     spec.validate(cluster.n)
     if not assemble and store is None:
         raise ValueError("assemble=False discards nothing only with a segment store")
+    if traffic is not None:
+        traffic = cluster.compile_traffic(traffic)
     cs = ssweep.compile_sweep(
         spec, cluster.n, replicas=replicas, base_loss=cluster.params.loss,
         loss_scales=loss_scales, kill_jitter=kill_jitter, flap_jitter=flap_jitter,
         device=cluster.device,
     )
     params = cluster.dparams if cluster.backend == "delta" else cluster.params
+    policy = cluster._compile_policy(policy, traffic)
     adj, _ = ssweep.prepare(cluster.state, cluster.net, cs, params, shard=shard,
                             traffic=traffic, policy=policy, policy_axes=policy_axes)
     # everything that can raise comes before the replica keys are drawn
@@ -520,7 +544,8 @@ def run_sweep_streamed(
     replica_keys = [cluster._split() for _ in range(replicas)]
     keys = ssweep.sweep_key_schedule(replica_keys, cs)
     rkeys_np = np.stack([k.numpy().astype(np.uint32) for k in replica_keys])
-    reps = ssweep.Replicas(cluster.state, cluster.net, adj, cs, keys, params, None)
+    reps = ssweep.Replicas(cluster.state, cluster.net, adj, cs, keys, params, None,
+                           traffic=traffic, policy=policy, policy_axes=policy_axes)
     slabs: list[Any] = []
     pending: _Pending | None = None
 

@@ -13,10 +13,14 @@ replicas of one compiled scenario; they may differ in
 * a **flap jitter**: replica r's ``flap`` windows (start and end) shift
   by ``flap_jitter[r]`` ticks;
 * a **protocol knob** (``param_axes``, ``swim_sim.SwimKnobs`` names):
-  replica r runs with ``replica_param_knobs(param_axes, r)``.
+  replica r runs with ``replica_param_knobs(param_axes, r)``;
+* a **policy knob** (``policy_axes``, ``policies.PolicyKnobs`` names):
+  replica r runs with ``replica_policy(policy, policy_axes, r)``.
 
 Everything else (tick count, partitions, the other events, the cluster
-size and the static params) is shared.
+size, the static params and the traffic workload: one key stream, so
+every replica serves the same key batches against its own trajectory)
+is shared.
 
 **A replica loop, not a batched step.**  The reference ``vmap``s its
 scan body over a leading replica axis and jits it once.  The port's
@@ -36,12 +40,10 @@ apart (``SweepTrace.final_states[r]``), which saves a copy of them all.
 Sharing a step across replicas (R replicas a launch) is later speed
 work.
 
-Not here: policies (``policy``/``policy_axes`` raise
-``NotImplementedError``, ROADMAP queue 1 item 6), the serving plane
-(``traffic``, item 7), the dispatch ledger (``program_tag`` has no
-effect until it is ported, as in the reference with its ledger off)
-and the replica axis over several cards (``shard=True`` is the
-reference's no-op on one card and raises on several, item 11).  The
+Not here: the dispatch ledger (``program_tag`` has no effect until it
+is ported, as in the reference with its ledger off) and the replica
+axis over several cards (``shard=True`` is the reference's no-op on one
+card and raises on several, item 11).  The
 reference's compile-once test of a knob grid checks XLA's compile cache
 and has no counterpart: the port compiles nothing per run.
 """
@@ -268,15 +270,46 @@ def precheck_shard(replicas: int) -> None:
 
 
 def policy_knob_axes(policy: Any, policy_axes: dict[str, Sequence[int]] | None, replicas: int):
-    """The policy knob axes: None without a policy (``policy_axes``
-    alone is the reference's ``ValueError``); a policy raises, since
-    the policy plane is not ported."""
-    del replicas
+    """Each replica's ``PolicyKnobs`` (host ints): the swept knobs from
+    ``policy_axes`` (one int per replica), the rest the compiled
+    policy's operating point; None without a policy (``policy_axes``
+    alone is refused)."""
+    from ringpop_tpu_torch.policies import core as pol
+
     if policy is None:
         if policy_axes:
             raise ValueError("policy_axes requires policy=")
         return None
-    runner.refuse_unported(policy=policy)
+    axes = dict(policy_axes or {})
+    cols: dict[str, list[int]] = {}
+    for field in pol.PolicyKnobs._fields:
+        if field in axes:
+            v = np.asarray(axes.pop(field), np.int32)
+            if v.shape != (replicas,):
+                raise ValueError(
+                    f"policy axis {field!r} must have one value per "
+                    f"replica (got shape {v.shape} for {replicas})"
+                )
+            cols[field] = [int(x) for x in v]
+        else:
+            cols[field] = [int(getattr(policy.knobs, field))] * replicas
+    if axes:
+        raise ValueError(
+            f"unknown policy axes {sorted(axes)} "
+            f"(knobs: {', '.join(pol.PolicyKnobs._fields)})"
+        )
+    return [pol.PolicyKnobs(**{f: cols[f][r] for f in cols}) for r in range(replicas)]
+
+
+def replica_policy(policy: Any, policy_axes: dict[str, Sequence[int]] | None, r: int):
+    """Replica r's effective policy: the one a standalone
+    ``run_scenario(policy=...)`` takes to reproduce replica r."""
+    if policy is None:
+        return None
+    knobs = policy.knobs._asdict()
+    for key, vals in (policy_axes or {}).items():
+        knobs[key] = int(vals[r])
+    return policy._replace(knobs=type(policy.knobs)(**knobs))
 
 
 def param_knob_axes(
@@ -350,15 +383,21 @@ def _clone(state: Any) -> Any:
 
 class Replicas:
     """The running replicas of one sweep.  Replica r's carry (state, up,
-    responsive, adjacency, period row) is made when its run begins, from
-    a copy of the start state; ``segment`` runs every replica over one
-    tick range and returns the telemetry as [R, ticks] tensors."""
+    responsive, adjacency, period row, overload and policy carries) is
+    made when its run begins, from a copy of the start state; ``segment``
+    runs every replica over one tick range and returns the telemetry as
+    [R, ticks] tensors ([R, ticks, B] for a histogram plane).  Replica
+    r's policy is ``replica_policy(policy, policy_axes, r)``."""
 
     def __init__(self, state: Any, net: sim.NetState, adj: torch.Tensor, cs: CompiledSweep,
-                 keys: torch.Tensor, params: Any, knobs: list[sim.SwimKnobs] | None):
+                 keys: torch.Tensor, params: Any, knobs: list[sim.SwimKnobs] | None,
+                 *, traffic: Any | None = None, policy: Any | None = None,
+                 policy_axes: dict[str, Sequence[int]] | None = None):
         self.start, self.net, self.adj, self.cs = state, net, adj, cs
         self.keys, self.params = keys, params
         self.knobs = knobs
+        self.traffic = runner.policy_traffic(runner.overload_traffic(traffic, cs.base), policy)
+        self.policies = [replica_policy(policy, policy_axes, r) for r in range(cs.replicas)]
         self.loss = cs.loss.cpu().numpy()  # one readback for every replica
         self.carries: list[tuple | None] = [None] * cs.replicas
 
@@ -369,27 +408,35 @@ class Replicas:
         for r in range(self.cs.replicas):
             comp = self.cs.replica(r)
             if self.carries[r] is None:
-                st, period = runner.prepare_faults(_clone(self.start), self.net, comp,
-                                                   self.params)
-                self.carries[r] = (st, self.net.up, self.net.responsive, self.adj, period)
-            st, up, resp, adj, period = self.carries[r]
+                st, period, ov = runner.prepare_faults(_clone(self.start), self.net, comp,
+                                                       self.params)
+                po = None
+                if self.policies[r] is not None:
+                    po = runner.prepare_policy(self.policies[r], self.net, comp.n,
+                                               self.traffic.static.max_retries)
+                self.carries[r] = (st, self.net.up, self.net.responsive, self.adj, period,
+                                   ov, po)
+            st, up, resp, adj, period, ov, po = self.carries[r]
             hand = sim._Handoff(st)
             self.carries[r] = None
             del st
-            st, up, resp, adj, period, ys = runner._scenario_scan_impl(
+            st, up, resp, adj, period, ov, po, ys = runner._scenario_scan_impl(
                 hand, up, resp, adj, period, comp, self.keys[r, a:b], self.loss[r, a:b], a,
-                params=self.params, knobs=None if self.knobs is None else self.knobs[r])
-            self.carries[r] = (st, up, resp, adj, period)
+                params=self.params, knobs=None if self.knobs is None else self.knobs[r],
+                traffic=self.traffic, ov=ov, po=po, policy=self.policies[r])
+            self.carries[r] = (st, up, resp, adj, period, ov, po)
             rows.append(ys)
         return {k: torch.stack([y[k] for y in rows]) for k in rows[0]}
 
     def finish(self) -> tuple[list[Any], list[sim.NetState]]:
         """The final states and nets, replica by replica.  As in the
         reference's sweep, a final net carries the up and responsive
-        bits, the adjacency and the period row, not the link rules."""
-        states = [st for st, *_ in self.carries]
-        nets = [sim.NetState(up=up, responsive=resp, adj=adj, period=period)
-                for _, up, resp, adj, period in self.carries]
+        bits, the adjacency, the period row and the overload and policy
+        carries, not the link rules."""
+        states = [c[0] for c in self.carries]
+        nets = [sim.NetState(up=up, responsive=resp, adj=adj, period=period,
+                             **runner.carry_fields(ov, po))
+                for _, up, resp, adj, period, ov, po in self.carries]
         self.carries = [None] * self.cs.replicas
         return states, nets
 
@@ -408,11 +455,12 @@ def prepare(
 ) -> tuple[torch.Tensor, list[sim.SwimKnobs] | None]:
     """Every static refusal of a sweep, in the reference's order, before
     any key is drawn; returns the normalized adjacency and each
-    replica's knobs."""
-    runner.refuse_unported(traffic=traffic, policy=policy)
-    policy_knob_axes(policy, policy_axes, cs.replicas)
+    replica's knobs.  ``traffic`` is lowered and ``policy`` compiled
+    (``SimCluster.compile_traffic``, ``policies.compile_policy``)."""
     adj = runner.precheck(state, net, cs.base, params)
     runner.precheck_overload(cs.base, traffic, net)
+    runner.precheck_policy(policy, traffic, net)
+    policy_knob_axes(policy, policy_axes, cs.replicas)
     runner.precheck_prov(cs.base, net, params)
     if shard:
         precheck_shard(cs.replicas)
@@ -444,8 +492,10 @@ def run_sweep_compiled(
     ``net`` are the shared start, left as they are; ``keys`` is
     ``sweep_key_schedule``'s.  Replica r with ``param_axes`` equals a
     standalone ``run_scenario(param_knobs=replica_param_knobs(param_axes,
-    r))``.  ``program_tag`` names a ledger program in the reference and
-    has no effect here until the ledger is ported."""
+    r))``, and with ``policy_axes`` ``run_scenario(policy=replica_policy(
+    policy, policy_axes, r))``; ``traffic`` (a ``CompiledTraffic``)
+    serves in every replica.  ``program_tag`` names a ledger program in
+    the reference and has no effect here until the ledger is ported."""
     del program_tag
     if tuple(keys.shape[:2]) != (cs.replicas, cs.base.ticks):
         raise ValueError(
@@ -454,7 +504,8 @@ def run_sweep_compiled(
         )
     adj, knobs = prepare(state, net, cs, params, shard=shard, traffic=traffic, policy=policy,
                          policy_axes=policy_axes, param_axes=param_axes)
-    reps = Replicas(state, net, adj, cs, keys, params, knobs)
+    reps = Replicas(state, net, adj, cs, keys, params, knobs, traffic=traffic, policy=policy,
+                    policy_axes=policy_axes)
     ys = reps.segment(0, cs.base.ticks)
     states, nets = reps.finish()
     return states, nets, ys
@@ -673,15 +724,45 @@ class SweepTrace:
         return out
 
     def serving_summary(self) -> list[dict[str, Any]] | None:
-        """Per-replica serving scorecards: None for a sweep that served
-        no workload.  The serving plane is not ported, so a loaded trace
-        that carries its series raises."""
+        """Per-replica serving scorecards (None for a sweep that served
+        no workload): goodput, retry amplification, the latency
+        percentiles of the replica's histogram plane when the latency
+        plane ran, and the overload and policy peaks when they ran."""
         if "lookups" not in self.metrics:
             return None
-        raise NotImplementedError(
-            "serving scorecards need the serving plane, which is not ported "
-            "yet (ROADMAP queue 1 item 7)"
-        )
+        from ringpop_tpu_torch.traffic.engine import total_sends
+        from ringpop_tpu_torch.traffic.latency import hist_stats
+
+        rows = []
+        for r in range(self.replicas):
+            m = {k: v[r] for k, v in self.metrics.items()}
+            lookups = int(m["lookups"].sum())
+            delivered = int(m["delivered"].sum())
+            sends = total_sends(m)
+            row: dict[str, Any] = {
+                "replica": r,
+                "lookups": lookups,
+                "delivered": delivered,
+                "goodput": delivered / lookups if lookups else 0.0,
+                "misroutes": int(m["misroutes"].sum()),
+                "amplification": sends / delivered if delivered else 0.0,
+            }
+            if "gray_timeouts" in m:
+                row["gray_timeouts"] = int(m["gray_timeouts"].sum())
+            if "ov_gray_nodes" in m:
+                row["ov_gray_peak"] = int(m["ov_gray_nodes"].max())
+                row["ov_pressure_peak"] = int(m["ov_pressure_max"].max())
+            if "policy_shed" in m:
+                row["policy_shed"] = int(m["policy_shed"].sum())
+                row["policy_quarantine_peak"] = int(m["policy_quarantined"].max())
+                row["policy_retry_cap_min"] = int(m["policy_retry_cap"].min())
+            if "lat_hist_ms" in self.planes:
+                agg = hist_stats(self.planes["lat_hist_ms"][r].sum(axis=0))
+                row["lat_p50_ms"] = agg["median"]
+                row["lat_p95_ms"] = agg["p95"]
+                row["lat_p99_ms"] = agg["p99"]
+            rows.append(row)
+        return rows
 
     # -- npz round trip ---------------------------------------------------------
 

@@ -287,15 +287,19 @@ def test_empty_slot_matures_to_nothing():
 
 
 def test_convert_carries_the_fault_fields():
-    """The buffers, link rules, period row and overload state cross to
-    the port and back unchanged; the policy plane's fields still raise."""
+    """The buffers, link rules, period row, overload state and policy
+    carry cross to the port and back unchanged; the provenance plane's
+    fields still raise."""
     rng = np.random.default_rng(2)
     n = 6
     net = {"up": np.ones(n, bool), "responsive": np.ones(n, bool), "adj": None,
            "link_src": rng.random((2, n)) < 0.5, "link_dst": rng.random((2, n)) < 0.5,
            "link_p": np.array([0.3, 0.7], np.float32), "link_d": np.array([1, 0], np.int32),
            "link_j": np.array([0, 2], np.int32), "period": np.array([1, 2, 3, 1, 1, 6], np.int32),
-           "ov_cnt": np.arange(n, dtype=np.int32), "ov_gray": np.arange(n) % 2 == 0}
+           "ov_cnt": np.arange(n, dtype=np.int32), "ov_gray": np.arange(n) % 2 == 0,
+           "po_press": np.arange(n, dtype=np.int32), "po_shed": np.arange(n) % 3 == 0,
+           "po_quar": np.arange(n) % 2 == 1, "po_sends_w": np.arange(8, dtype=np.int32),
+           "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(1, np.int32)}
     back = convert.net_to_numpy(convert.net_from_numpy(net, device="cpu"))
     for f, v in net.items():
         if v is None:
@@ -312,4 +316,4 @@ def test_convert_carries_the_fault_fields():
     for f in ("pend_subj", "pend_key", "pend_recv"):
         assert got[f].shape == delta[f].shape and (got[f] == delta[f]).all(), f
     with pytest.raises(NotImplementedError):
-        convert.net_from_numpy({**net, "po_press": np.zeros(n, np.int32)}, device="cpu")
+        convert.net_from_numpy({**net, "pv_slot": np.zeros((1, 4), np.int32)}, device="cpu")

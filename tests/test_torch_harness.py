@@ -603,6 +603,19 @@ def run_sharded_references(cases: list[dict], tmp_dir: str) -> dict[str, np.ndar
     return results
 
 
+@pytest.fixture(scope="module")
+def one_thread():
+    """One torch intra-op thread for a module's port runs: under the
+    suite's parallel workers (and their reference children) the default
+    pool of one thread a core oversubscribes the host and a CPU run of
+    the serving plane's draws slows many times over.  The count in force
+    before comes back after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def port_cluster(case: dict):
     from ringpop_tpu_torch.models import swim_sim as tsim
     from ringpop_tpu_torch.models.cluster import SimCluster
@@ -913,6 +926,9 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.traffic",
     "ringpop_tpu_torch.traffic.workloads",
     "ringpop_tpu_torch.traffic.engine",
+    "ringpop_tpu_torch.traffic.latency",
+    "ringpop_tpu_torch.policies",
+    "ringpop_tpu_torch.policies.core",
     "ringpop_tpu_torch.ring_rebalance",
     "ringpop_tpu_torch.scenarios",
     "ringpop_tpu_torch.scenarios.spec",
@@ -987,5 +1003,14 @@ def test_convert_round_trip():
     assert torch.equal(net.adj, net2.adj)
     key = np.array([1, 4294967295], dtype=np.uint32)
     assert (convert.key_to_numpy(convert.key_from_numpy(key)) == key).all()
+    # the policy carry crosses both ways; the provenance
+    # plane's fields are still refused
+    po = {"po_press": np.arange(6, dtype=np.int32), "po_shed": np.ones(6, bool),
+          "po_quar": np.zeros(6, bool), "po_sends_w": np.arange(8, dtype=np.int32),
+          "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(2, np.int32)}
+    net3 = convert.net_from_numpy({**convert.net_to_numpy(net), **po}, "cpu")
+    back = convert.net_to_numpy(net3)
+    for f, v in po.items():
+        assert back[f].dtype == v.dtype and (back[f] == v).all(), f
     with pytest.raises(NotImplementedError):
-        convert.net_from_numpy({**convert.net_to_numpy(net), "po_press": np.zeros(6)}, "cpu")
+        convert.net_from_numpy({**convert.net_to_numpy(net), "pv_slot": np.zeros((1, 4))}, "cpu")

@@ -188,22 +188,26 @@ def test_single_call_counts_and_logs():
 
 
 def test_unported_planes_refused_before_the_key():
-    """Traffic, policies and tracked rumors raise ``NotImplementedError``
-    naming their queue item, the streaming options without
-    ``segment_ticks`` and knobs the plane cannot take the reference's
-    ``ValueError``; none draws a key."""
+    """Tracked rumors (the provenance plane, not ported) raise
+    ``NotImplementedError``; a bad workload, a policy without one, the
+    streaming options without ``segment_ticks`` and knobs the plane
+    cannot take raise the reference's errors; none draws a key."""
     c = SimCluster(6, SwimParams(suspicion_ticks=5), seed=1, device="cpu")
     before = c.key.clone()
     track = {"ticks": 4, "trace_rumors": 1, "events": [{"at": 1, "op": "track", "node": 2}]}
-    for kwargs, spec, match in (
-        ({"traffic": {"keys": 8}}, PLAIN, "item 7"),
-        ({"policy": "admission"}, PLAIN, "item 6"),
-        ({}, track, "provenance plane"),
-        ({"traffic": {"keys": 8}, "segment_ticks": 2}, PLAIN, "item 7"),
+    with pytest.raises(NotImplementedError, match="provenance plane"):
+        c.run_scenario(track)
+    assert torch.equal(c.key, before)
+    for kwargs, exc, match in (
+        ({"traffic": {"keys": 8}}, TypeError, "keys"),
+        ({"traffic": {"kind": "bogus"}}, ValueError, "unknown workload kind"),
+        ({"policy": "admission"}, ValueError, "policies meter"),
+        ({"traffic": {"kind": "zipf"}, "policy": "nope"}, ValueError, "unknown policy"),
     ):
-        with pytest.raises(NotImplementedError, match=match):
-            c.run_scenario(spec, **kwargs)
-        assert torch.equal(c.key, before)
+        for seg in (None, 2):
+            with pytest.raises(exc, match=match):
+                c.run_scenario(PLAIN, segment_ticks=seg, **kwargs)
+            assert torch.equal(c.key, before)
     with pytest.raises(ValueError, match="streaming options"):
         c.run_scenario(PLAIN, store="unused")
     with pytest.raises(ValueError, match="not wired through the streamed"):

@@ -9,8 +9,8 @@ keys, the cluster key after the sweep and the cluster left as it was
 must be equal.  The streamed sweep must equal the whole one, with and
 without a segment store.  Refusals raise the reference's exception
 (type and message) with the key unchanged: bad axes and jitter, the
-delta backend's in-scan revive; the port's unported planes (policy,
-traffic) raise ``NotImplementedError`` before any key.
+delta backend's in-scan revive; bad policy and traffic arguments raise
+before any key.
 """
 
 from __future__ import annotations
@@ -195,18 +195,19 @@ def test_replica_equals_standalone_run(whole_storm):
 
 
 def test_unported_planes_refused_before_the_key():
-    """Policies, policy axes and traffic raise ``NotImplementedError``
-    naming their queue item (``policy_axes`` alone the reference's
-    ``ValueError``), streamed or not; no key is drawn and the cluster
-    logs nothing."""
+    """A policy without a workload, policy axes without a policy or of
+    the wrong length, and a bad workload raise the reference's errors,
+    streamed or not; no key is drawn and the cluster logs nothing."""
     c = port_cluster(BY_NAME["seed"])
     before = c.key.clone()
     for kwargs, exc, match in (
-        ({"policy": "admission"}, NotImplementedError, "item 6"),
+        ({"policy": "admission"}, ValueError, "policies meter"),
         ({"policy": "admission", "policy_axes": {"admit_capacity": [2, 4]}},
-         NotImplementedError, "item 6"),
+         ValueError, "policies meter"),
         ({"policy_axes": {"admit_capacity": [2, 4]}}, ValueError, "requires policy"),
-        ({"traffic": {"keys": 8}}, NotImplementedError, "item 7"),
+        ({"traffic": {"kind": "zipf"}, "policy": "admission",
+          "policy_axes": {"admit_capacity": [2]}}, ValueError, "one value per replica"),
+        ({"traffic": {"keys": 8}}, TypeError, "keys"),
         ({"shard": True}, None, None),
     ):
         for seg in (None, 5):
@@ -222,8 +223,10 @@ def test_unported_planes_refused_before_the_key():
     assert c.metrics_log == [] and c.traces == []
     with pytest.raises(ValueError, match="streaming options"):
         c.run_sweep(SPEC, 2, store="unused")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tsweep.policy_knob_axes("admission", None, 2)
+    from ringpop_tpu_torch.policies import core as pol
+
+    cp = pol.compile_policy("admission", n=16, m=24)
+    assert tsweep.policy_knob_axes(cp, None, 2) == [cp.knobs, cp.knobs]
     assert tsweep.policy_knob_axes(None, None, 2) is None
 
 

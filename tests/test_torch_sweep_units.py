@@ -305,13 +305,24 @@ def test_npz_files_cross_both_ways(both):
 
 
 def test_serving_series_refused(tmp_path):
-    """A loaded trace with serving series has no scorecard without the
-    serving plane."""
+    """A loaded trace with serving series has a scorecard per replica
+    (a trace without them has none): goodput, amplification and the
+    latency percentiles from its histogram plane."""
     arrays = _trace_arrays()
-    arrays["m.lookups"] = np.ones((R, T), np.int32)
+    assert _port_trace(arrays, META).serving_summary() is None
+    for name in ("lookups", "delivered", "handled_local", "proxy_sends", "proxy_retries",
+                 "misroutes", "gray_timeouts"):
+        arrays[f"m.{name}"] = np.ones((R, T), np.int32)
+    arrays["m.lookups"] = np.full((R, T), 4, np.int32)
+    arrays["p.lat_hist_ms"] = np.zeros((R, T, 4), np.int32)
+    arrays["p.lat_hist_ms"][:, :, 2] = 1
     tr = _port_trace(arrays, META)
     path = str(tmp_path / "serving.npz")
     tr.save(path)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsweep.SweepTrace.load(path).serving_summary()
+    rows = tsweep.SweepTrace.load(path).serving_summary()
     assert os.path.exists(path)
+    assert [r["replica"] for r in rows] == list(range(R))
+    for r in rows:
+        assert r["lookups"] == 4 * T and r["delivered"] == T
+        assert r["goodput"] == 0.25 and r["amplification"] == 3.0
+        assert r["gray_timeouts"] == T and r["lat_p99_ms"] == 2.0
