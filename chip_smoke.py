@@ -219,7 +219,33 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     ``parallel.sharded_serve`` over D = 4 shards equal to ``serve_once``
     at n = 10,000, with ring-hop launches.  The CPU side of l1 and l2
     runs in a child process (``--serving-cpu``) started after phase a;
-20. print the ``kernels`` JSON line (each kernel's launches summed over
+20. (phase m) the gossip provenance plane and the stats bridge: m1, at
+    n = 256 (dense, and delta at phase 4's caps) a 30-tick traced
+    ``run_scenario`` (8 slots; reservations for the node killed at tick
+    5 and for one that stays up; 5% loss; a delay rule) with a
+    ``CaptureEmitter`` sink on the card and on the CPU: every ``pv_*``
+    plane, ``pv_heard``, series, state and net field, the key,
+    ``provenance_report()``, ``summary_block``, the spans file and the
+    stat calls equal; on the card the untraced run has the same
+    protocol trajectory, the run streamed in 10-tick segments the same
+    result and stat calls, and killed after its first checkpoint and
+    resumed the same result, and a traced ``run_sweep`` (R = 2) equals
+    the CPU's; m2, ``benchmarks/bench_dissemination.py``'s rung at
+    n = 10,000 dense (a kill at tick 4, suspicion 8, seed 7, 48 ticks, or
+    96 if the rumor has not reached every live node), untraced and with
+    4 slots; m3, the same at n = 65,536 delta (default caps) untraced and
+    with 4 and 64 slots (the plane at its cap: the fold's [N, 256] x
+    [N, 64] lookup is a kernel-3 launch a tick, checked); each prints
+    the rumor's infected, depth, p50/p95/p99 and p99 / ceil(log2 n), and
+    each arm's ms and host syncs a tick and peak; a traced arm must
+    have the untraced arm's protocol series, state and key and may take
+    no more host syncs a tick; m4, ``SimCluster(stats_emitter=
+    CaptureEmitter())`` at config 3 (n = 10,000): a ``tick`` loop, a
+    ``run_scenario`` and the same run streamed: every key in the
+    bridge's tables or ``sim.*``, each increment total equal to its
+    trace series, a closing checksum gauge, the streamed run's calls
+    equal to the whole run's;
+21. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -230,8 +256,10 @@ and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
-only phase j, ``--sweeps`` only phase k and ``--serving`` only phase l;
-none prints a result line.
+only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l and
+``--provenance`` only phase m; none prints a result line.  The CPU sides
+of phases k1, l and m1 run in child processes (``--sweeps-cpu``,
+``--serving-cpu``, ``--provenance-cpu``), started after phase a.
 """
 
 from __future__ import annotations
@@ -3257,10 +3285,8 @@ def _sweep_on(torch, device: str, n: int, params, spec: dict, replicas: int, kwa
     return trace, c.key.clone()
 
 
-def check_sweeps_cuda_equals_cpu(torch) -> None:
-    """Phase k1: ``run_sweep`` on the card and on the CPU from one seed
-    (every series, final state and net field, replica key and the
-    cluster key equal): a dense sweep with loss scales, kill and flap
+def sweep_cases_small() -> list:
+    """Phase k1's sweeps: a dense sweep with loss scales, kill and flap
     jitter; a dense knob sweep (``ping_req_size`` below capacity,
     ``relay_full_sync`` 0/1); the damp thresholds on a damping cluster;
     ``tune.py``'s boundary arm; a delta knob sweep at phase 4's caps."""
@@ -3290,10 +3316,39 @@ def check_sweeps_cuda_equals_cpu(torch) -> None:
          {"param_axes": {"suspicion_ticks": [5, 10], "piggyback_factor": [3, 5]}},
          {"backend": "delta", **FAULT_CAPS_SMALL}),
     ]
-    for label, nn, params, spec, reps, kwargs, ckw in cases:
+    return cases
+
+
+def sweeps_cpu_reference(path: str) -> None:
+    """The CPU side of phase k1, run in a child process while the card
+    works (``--sweeps-cpu``): each sweep's trace and the cluster key
+    after it, saved to ``path`` with ``torch.save``."""
+    import torch
+
+    torch.set_num_threads(EARLY_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = {"runs": [_sweep_on(torch, "cpu", nn, params, spec, reps, kwargs, **ckw)
+                    for _, nn, params, spec, reps, kwargs, ckw in sweep_cases_small()]}
+    out["total_s"] = time.perf_counter() - t0
+    log(f"k1 cpu sweeps {out['total_s']:.1f} s")
+    torch.save(out, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def check_sweeps_cuda_equals_cpu(torch, cpu_ref: "CpuReference") -> None:
+    """Phase k1: ``run_sweep`` on the card and on the CPU (the CPU's in the
+    child process ``cpu_ref``) from one seed: every series, final state
+    and net field, replica key and the cluster key equal, for each of
+    ``sweep_cases_small``."""
+    cases = sweep_cases_small()
+    t_wait = time.perf_counter()
+    cpu = cpu_ref.result(torch)
+    log(f"sweeps (phase k1): the CPU side took {cpu['total_s']:.1f} s in its child process "
+        f"({EARLY_CPU_THREADS} threads, started {time.perf_counter() - cpu_ref.t0:.1f} s ago; "
+        f"waited {time.perf_counter() - t_wait:.1f} s for it)")
+    for (label, nn, params, spec, reps, kwargs, ckw), (tw, kw) in zip(cases, cpu["runs"]):
         t0 = time.perf_counter()
-        (tw, kw), (tg, kg) = (_sweep_on(torch, d, nn, params, spec, reps, kwargs, **ckw)
-                              for d in ("cpu", "cuda"))
+        tg, kg = _sweep_on(torch, "cuda", nn, params, spec, reps, kwargs, **ckw)
         _same_sweep(torch, tg, tw, f"sweeps (phase k1) {label}")
         if not torch.equal(kg, kw):
             raise AssertionError(f"sweeps (phase k1) {label}: cluster keys differ")
@@ -3305,7 +3360,8 @@ def check_sweeps_cuda_equals_cpu(torch) -> None:
                      f"{min(evading) if evading else None}")
         log(f"sweeps (phase k1): {label} R={reps} n={nn} {spec['ticks']} ticks: cuda == cpu "
             f"on every series, final state and net field, replica key and the cluster key; "
-            f"heal ticks {tg.heal_ticks().tolist()}{extra}; {time.perf_counter() - t0:.1f} s")
+            f"heal ticks {tg.heal_ticks().tolist()}{extra}; the card's run "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def _sweep_arm(torch, label: str, make, run) -> tuple:
@@ -3443,15 +3499,15 @@ def sweep_compare(torch, label: str, make, spec: dict, replicas: int, kwargs: di
     return launches
 
 
-def sweeps_phase(torch) -> dict:
-    """Phase k: k1 the lockstep at small n, k2 dense at n = 10 000, k3
-    delta at n = 65 536; returns the kernels' launches summed over k2
-    and k3."""
+def sweeps_phase(torch, cpu_ref: "CpuReference") -> dict:
+    """Phase k: k1 the lockstep at small n (the CPU side from
+    ``cpu_ref``), k2 dense at n = 10 000, k3 delta at n = 65 536; returns
+    the kernels' launches summed over k2 and k3."""
     from ringpop_tpu_torch.models.cluster import SimCluster
     from ringpop_tpu_torch.models.swim_sim import SwimParams
 
     t0 = time.perf_counter()
-    check_sweeps_cuda_equals_cpu(torch)
+    check_sweeps_cuda_equals_cpu(torch, cpu_ref)
     log(f"sweeps (phase k1): {time.perf_counter() - t0:.1f} s")
     launches: dict[str, int] = {}
 
@@ -3696,23 +3752,29 @@ def serving_cpu_reference(path: str) -> None:
 
 
 SERVE_CPU_THREADS = 4  # of the machine's 8 cores; the card's host loop keeps the rest
+EARLY_CPU_THREADS = 1  # each of phases k1's and m1's children, done before phase k
 SERVE_CPU_TIMEOUT = 1000
 
 
 class CpuReference:
-    """The child process computing phase l's CPU side (started early so
-    that it overlaps the card's phases; stopped at exit either way)."""
+    """A child process computing a phase's CPU side, started early so that
+    it overlaps the card's phases (stopped at exit either way): phase
+    k1's (``--sweeps-cpu``), phase l's (``--serving-cpu``) or phase m1's
+    (``--provenance-cpu``)."""
 
-    def __init__(self):
-        self.dir = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_l")
+    def __init__(self, phase: str = "l"):
+        self.what = {"k": "sweeps (phase k1)", "l": "serving (phase l)",
+                     "m": "provenance (phase m1)"}[phase]
+        self.dir = os.path.join(REPO, "ringpop_tpu_torch", "_build", f"phase_{phase}")
         os.makedirs(self.dir, exist_ok=True)
         self.path = os.path.join(self.dir, "cpu_reference.pt")
         if os.path.exists(self.path):
             os.remove(self.path)
         self.log = open(os.path.join(self.dir, "cpu_reference.log"), "w")
         self.t0 = time.perf_counter()
+        flag = {"k": "--sweeps-cpu", "l": "--serving-cpu", "m": "--provenance-cpu"}[phase]
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--serving-cpu", self.path],
+            [sys.executable, os.path.abspath(__file__), flag, self.path],
             cwd=REPO, stdout=self.log, stderr=subprocess.STDOUT)
 
     def result(self, torch) -> dict:
@@ -3721,12 +3783,12 @@ class CpuReference:
             rc = self.proc.wait(timeout=max(left, 1))
         except subprocess.TimeoutExpired:
             self.stop()
-            raise AssertionError("serving (phase l): the CPU reference child timed out")
+            raise AssertionError(f"{self.what}: the CPU reference child timed out")
         self.log.flush()
         if rc != 0:
             with open(self.log.name) as f:
                 tail = f.read()[-3000:]
-            raise AssertionError(f"serving (phase l): the CPU reference child failed:\n{tail}")
+            raise AssertionError(f"{self.what}: the CPU reference child failed:\n{tail}")
         return torch.load(self.path, weights_only=False)
 
     def stop(self) -> None:
@@ -4041,6 +4103,438 @@ def serving_phase(torch, cpu_ref: "CpuReference") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase m: the gossip provenance plane (trace_rumors, track) and the stats
+# bridge (SimCluster(stats_emitter=))
+# ---------------------------------------------------------------------------
+
+N_PROV_SMALL = 256
+PROV_TICKS_SMALL = 30
+PROV_SEGMENT_SMALL = 10
+PROV_SLOTS_SMALL = 8
+RUNG_TICKS = 48  # benchmarks/bench_dissemination.py's ladder horizon
+RUNG_SEED = 7  # bench_dissemination.py's run_ladder seed
+RUNG_SLOTS = 4  # bench_dissemination.py's run_ladder rumors
+PROV_CAP_SLOTS = 64  # obs.provenance.MAX_RUMORS: the plane at its cap
+BRIDGE_TICKS = 24
+BRIDGE_SEGMENT = 8
+
+
+def prov_spec_small(n: int, ticks: int, slots: int = PROV_SLOTS_SMALL) -> dict:
+    """m1's scenario: a reservation for the node killed at tick 5 (it
+    fires) and one for a node that stays up (it never does), 5% loss so
+    that suspicions are refuted, and a delay rule, so that nodes hear a
+    rumor with no in-tick edge to explain it."""
+    q = n // 4
+    return {"ticks": ticks, "trace_rumors": slots, "events": [
+        {"at": 0, "op": "track", "node": n - 1},
+        {"at": 0, "op": "track", "node": 1},
+        {"at": 0, "op": "loss", "p": 0.05},
+        {"at": 2, "op": "delay", "src": list(range(q)), "dst": list(range(q, 2 * q)),
+         "delay": 1, "jitter": 1, "until": ticks - 8},
+        {"at": 5, "op": "kill", "node": n - 1},
+    ]}
+
+
+def untraced(spec: dict) -> dict:
+    """The spec without the plane: no slots, no ``track`` events."""
+    return {"ticks": spec["ticks"],
+            "events": [e for e in spec["events"] if e["op"] != "track"]}
+
+
+def rung_spec(n: int, ticks: int, k: int) -> dict:
+    """``benchmarks/bench_dissemination.py``'s ``_rung_spec`` (copied here:
+    this script imports nothing of the JAX package): one kill at tick 4,
+    whose suspect rumor auto-arms a slot."""
+    return {"ticks": ticks, "trace_rumors": k,
+            "events": [{"at": 4, "op": "kill", "node": n - 1}]}
+
+
+def _same_protocol(torch, a: tuple, b: tuple, what: str) -> None:
+    """Two runs' protocol trajectories equal: every trace series but the
+    plane's, the state and the key (the plane only observes).  ``a`` and
+    ``b`` are (trace, state fields, key)."""
+    import numpy as np
+
+    ta = {k: v for k, v in a[0].to_arrays().items() if "pv_" not in k}
+    tb = {k: v for k, v in b[0].to_arrays().items() if "pv_" not in k}
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{what}: series differ ({sorted(ta)} vs {sorted(tb)})")
+    for k, v in ta.items():
+        if v.dtype != tb[k].dtype or not np.array_equal(v, tb[k]):
+            raise AssertionError(f"{what}: series {k} differs")
+    for f, x in a[1].items():
+        y = b[1][f]
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: state {f} differs")
+    if not torch.equal(a[2], b[2]):
+        raise AssertionError(f"{what}: keys differ")
+
+
+def _prov_record(c, trace, cap, path: str) -> dict:
+    """What m1 compares of a traced run: the trace, host copies of the
+    cluster (every ``pv_*`` plane on the net), ``provenance_report()``,
+    its summary block, the ``write_spans`` file and the stat calls."""
+    from ringpop_tpu_torch.obs import provenance as pvn
+    from ringpop_tpu_torch.obs import spans
+
+    rep = c.provenance_report()
+    spans.write_spans(rep, path)
+    with open(path) as f:
+        text = f.read()
+    return {"trace": trace, "host": _host_copy(c), "report": rep,
+            "summary": pvn.summary_block(rep), "spans": text,
+            "stats": None if cap is None else list(cap.calls)}
+
+
+def _same_prov(torch, a: dict, b: dict, what: str) -> None:
+    _same_trace(a["trace"], b["trace"], what)
+    _same_run(torch, a["host"], b["host"], what)
+    for k in ("report", "summary", "spans", "stats"):
+        if a[k] != b[k]:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def _prov_small(device: str, backend: str, cap=None):
+    """m1's cluster: n = 256, suspicion 4, seed 3 (delta at phase 4's caps)."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+
+    caps = FAULT_CAPS_SMALL if backend == "delta" else {}
+    return SimCluster(N_PROV_SMALL, SwimParams(suspicion_ticks=4), seed=3, device=device,
+                      backend=backend, stats_emitter=cap, **caps)
+
+
+def provenance_small_runs(device: str, tmp: str) -> dict:
+    """m1's runs compared across devices, per backend: the traced run's
+    record (``_prov_record``, with a ``CaptureEmitter`` sink) and a traced
+    ``run_sweep`` of two replicas."""
+    from ringpop_tpu_torch.obs import CaptureEmitter
+
+    spec = prov_spec_small(N_PROV_SMALL, PROV_TICKS_SMALL)
+    out = {}
+    for backend in ("dense", "delta"):
+        cap = CaptureEmitter()
+        c = _prov_small(device, backend, cap)
+        out[backend] = {
+            "run": _prov_record(c, c.run_scenario(spec), cap,
+                                os.path.join(tmp, f"{backend}-{device}.json")),
+            "sweep": _prov_small(device, backend).run_sweep(spec, 2),
+        }
+    return out
+
+
+def provenance_cpu_reference(path: str) -> None:
+    """The CPU side of phase m1, run in a child process while the card
+    works (``--provenance-cpu``): saved to ``path`` with ``torch.save``."""
+    import torch
+
+    torch.set_num_threads(EARLY_CPU_THREADS)
+    t0 = time.perf_counter()
+    tmp = os.path.dirname(path)
+    out = provenance_small_runs("cpu", tmp)
+    out["total_s"] = time.perf_counter() - t0
+    log(f"m1 cpu runs {out['total_s']:.1f} s")
+    torch.save(out, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+
+
+def check_provenance_cuda_equals_cpu(torch, cpu_ref: "CpuReference") -> dict:
+    """Phase m1: a traced ``run_scenario`` at n = 256 (dense, and delta at
+    phase 4's caps) on the card and on the CPU (the CPU's in the child
+    process ``cpu_ref``) with a ``CaptureEmitter`` sink: every ``pv_*``
+    plane, ``pv_heard``, every series, the state, the key, the report,
+    its summary block, the spans file and the stat calls equal, and a
+    traced ``run_sweep`` (R = 2) equal too.  On the card also: the
+    untraced run from the seed has the same protocol trajectory; the run
+    streamed in 10-tick segments has the whole run's result and stat
+    calls; killed after its first checkpoint and resumed, it ends where
+    the whole run does."""
+    import shutil
+
+    from ringpop_tpu_torch.obs import CaptureEmitter
+    from ringpop_tpu_torch.scenarios import stream
+
+    t0 = time.perf_counter()
+    tmp = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_m", "card")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    spec = prov_spec_small(N_PROV_SMALL, PROV_TICKS_SMALL)
+    out = {}
+    try:
+        card_runs = provenance_small_runs("cuda", tmp)
+        t_wait = time.perf_counter()
+        cpu_runs = cpu_ref.result(torch)
+        log(f"provenance (phase m1): the CPU side took {cpu_runs['total_s']:.1f} s in its child "
+            f"process ({EARLY_CPU_THREADS} threads, started {time.perf_counter() - cpu_ref.t0:.1f} "
+            f"s ago; waited {time.perf_counter() - t_wait:.1f} s for it)")
+        for backend in ("dense", "delta"):
+            what = f"provenance (phase m1) {backend}"
+            card, cpu = card_runs[backend]["run"], cpu_runs[backend]["run"]
+            _same_prov(torch, card, cpu, f"{what} cuda vs cpu")
+            sweeps = card_runs[backend]["sweep"], cpu_runs[backend]["sweep"]
+            _same_sweep(torch, sweeps[0], sweeps[1], f"{what} run_sweep cuda vs cpu")
+            off = _prov_small("cuda", backend)
+            t_off = off.run_scenario(untraced(spec))
+            h_off = _host_copy(off)
+            _same_protocol(torch, (card["trace"], card["host"]["state"], card["host"]["key"]),
+                           (t_off, h_off["state"], h_off["key"]), f"{what} traced vs untraced")
+            if off.net.pv_slot is not None:
+                raise AssertionError(f"{what}: the untraced run left planes on the net")
+            cap = CaptureEmitter()
+            s = _prov_small("cuda", backend, cap)
+            seg = _prov_record(s, s.run_scenario(spec, segment_ticks=PROV_SEGMENT_SMALL), cap,
+                               os.path.join(tmp, f"{backend}-seg.json"))
+            _same_prov(torch, seg, card, f"{what} streamed vs whole")
+            ck = os.path.join(tmp, f"{backend}.npz")
+            try:
+                stream.run_streamed(_prov_small("cuda", backend), spec,
+                                    segment_ticks=PROV_SEGMENT_SMALL, checkpoint_path=ck,
+                                    interrupt_after=1)
+                raise AssertionError(f"{what}: the streamed run was not killed")
+            except stream.StreamInterrupted:
+                pass
+            r, tr = stream.resume(ck, device="cuda")
+            res = _prov_record(r, tr, None, os.path.join(tmp, f"{backend}-res.json"))
+            _same_prov(torch, res, {**card, "stats": None}, f"{what} resumed vs whole")
+            by_slot = {x["slot"]: x for x in card["report"]["rumors"]}
+            if by_slot.get(0, {}).get("subject") != N_PROV_SMALL - 1 or 1 in by_slot:
+                raise AssertionError(f"{what}: the reservations did not behave ({sorted(by_slot)})")
+            out[backend] = card["summary"]
+            caps = FAULT_CAPS_SMALL if backend == "delta" else {}
+            log(f"provenance (phase m1): {backend} run_scenario with trace_rumors="
+                f"{spec['trace_rumors']} at n={N_PROV_SMALL} ({spec['ticks']} ticks: "
+                f"reservations for node {N_PROV_SMALL - 1}, killed at 5, and node 1, 5% loss, a "
+                f"delay rule{', caps ' + str(caps) if caps else ''}) cuda == cpu on every pv_* "
+                f"plane, pv_heard, series, state, net field, the key, provenance_report(), "
+                f"summary_block, the spans file ({len(card['spans'])} bytes) and "
+                f"{len(card['stats'])} stat calls; run_sweep R=2 cuda == cpu (pv_heard "
+                f"{tuple(sweeps[0].planes['pv_heard'].shape)}); on the card the untraced run the "
+                f"same trajectory, streamed ({PROV_SEGMENT_SMALL}-tick segments) == whole with "
+                f"its stat calls, killed after the first checkpoint and resumed == whole; "
+                f"summary {card['summary']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"provenance (phase m1): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _check_planes(torch, c, trace, rep: dict, what: str) -> None:
+    """The full-width planes on the card against what the report and the
+    trace say of them: the knows bits are exactly ``first >= 0`` (the
+    run revives no node, so no view falls back below a rumor); every
+    parent >= 0 heard strictly earlier than its child (it knew at the
+    start of the child's tick); each slot's last ``pv_heard`` equals the
+    knows count and the report's ``infected`` of it."""
+    from ringpop_tpu_torch.ops import bitpack
+
+    net = c.net
+    first, parent = net.pv_first, net.pv_parent
+    k, n = first.shape
+    if first.dtype != torch.int16 or parent.dtype != torch.int32 or not first.is_cuda:
+        raise AssertionError(f"{what}: planes {first.dtype}/{parent.dtype} on {first.device}")
+    knows = bitpack.unpack_bits(net.pv_knows, n)
+    if not torch.equal(knows, first >= 0):
+        bad = int((knows != (first >= 0)).sum())
+        raise AssertionError(f"{what}: {bad} knows bits differ from first_heard >= 0")
+    has = parent >= 0
+    pf = torch.gather(first, 1, parent.clamp(0, n - 1).long())
+    late = int((has & ((pf < 0) | (pf >= first))).sum())
+    if late:
+        raise AssertionError(f"{what}: {late} parents did not hear before their child")
+    heard = knows.sum(dim=1).cpu().tolist()
+    last = [int(x) for x in trace.planes["pv_heard"][-1]]
+    if last != heard:
+        raise AssertionError(f"{what}: pv_heard[-1] {last} != knows counts {heard}")
+    for x in rep["rumors"]:
+        if x["infected"] != last[x["slot"]]:
+            raise AssertionError(f"{what}: slot {x['slot']} infected {x['infected']} != "
+                                 f"pv_heard[-1] {last[x['slot']]}")
+    log(f"{what}: on the card, the [{k}, {n}] planes: knows == (first >= 0), "
+        f"{int(has.sum())} parent edges each heard earlier than its child, pv_heard[-1] == "
+        f"each rumor's infected")
+
+
+def dissemination(torch, backend: str, n: int, caps: dict, slots: tuple, label: str) -> dict:
+    """Phases m2 and m3: the dissemination ladder's rung at full width
+    (``rung_spec(n, 48, k)``, ``SwimParams(suspicion_ticks=8)``, seed 7)
+    untraced and with each slot count in ``slots``, from one seed: the
+    kill's rumor (infected, depth, p50/p95/p99, p99 / ceil(log2 n)),
+    each arm's ms and host syncs a tick and peak; the protocol series,
+    state and key equal to the untraced run's, and no more host syncs a
+    tick.  If the rumor has not reached every live node by tick 48 the
+    rung runs again to 96.  Returns the kernels' launches summed over the
+    arms and kernel 3's launches by (C, K) in each."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    t0 = time.perf_counter()
+    params = SwimParams(suspicion_ticks=8)
+
+    def make():
+        return SimCluster(n, params, seed=RUNG_SEED, device="cuda", backend=backend, **caps)
+
+    ticks = RUNG_TICKS
+    while True:
+        arms = {}
+        first = None  # the untraced run's (trace, state, key), on the card
+        for k in (0, *slots):
+            c, trace, r = _scenario_arm(torch, "run_scenario", make, rung_spec(n, ticks, k))
+            r["shapes"] = dict(row_searchsorted.shapes)
+            run = (trace, c.state._asdict(), c.key)
+            if k:
+                _same_protocol(torch, run, first, f"provenance {label} k={k} vs untraced")
+            else:
+                first = run
+            arms[k] = (r, c.provenance_report() if k else None)
+            if k:
+                _check_planes(torch, c, trace, arms[k][1], f"provenance {label} k={k}")
+            del c, run
+        del first
+        rumor = [x for x in arms[slots[0]][1]["rumors"] if x["subject"] == n - 1]
+        if (rumor and rumor[0]["infected"] == n - 1) or ticks > RUNG_TICKS:
+            break
+        log(f"provenance {label}: the kill's rumor reached "
+            f"{rumor[0]['infected'] if rumor else 0} of {n - 1} live nodes by tick {ticks}; "
+            f"running the rung to {2 * RUNG_TICKS} ticks")
+        ticks = 2 * RUNG_TICKS
+    if not rumor:
+        raise AssertionError(f"provenance {label}: the kill armed no slot")
+    bound = max(1, math.ceil(math.log2(n)))
+    x = rumor[0]
+    log(f"provenance {label}: rung n={n} {backend}{' ' + str(caps) if caps else ''}, "
+        f"{ticks} ticks, seed {RUNG_SEED}, suspicion 8: the kill of node {n - 1} at tick 4 "
+        f"armed slot {x['slot']} at tick {x['origin_tick']} (origin node {x['origin']}, "
+        f"resolution {x['resolution']} at tick {x['resolution_tick']}); infected "
+        f"{x['infected']}/{n}, depth {x['depth_max']}, infect p50/p95/p99 "
+        f"{x['infection_p50']}/{x['infection_p95']}/{x['infection_p99']} ticks, log2(n) "
+        f"{bound}, p99/bound {x['infection_p99'] / bound:.2f}, stragglers {x['stragglers']}, "
+        f"unattributed {x['unattributed']}")
+    launches: dict[str, int] = {}
+    base = arms[0][0]
+    for k, (r, rep) in arms.items():
+        what = "untraced" if not k else f"trace_rumors={k}"
+        log(f"provenance {label} {what}: {r['ms_per_tick']:.3f} ms per tick over {ticks} "
+            f"ticks, host syncs {r['syncs']} ({r['syncs_per_tick']:.2f} per tick), peak "
+            f"{r['peak_gib']:.2f} GiB over the start, launches {r['launches']}"
+            + (f", rumors {len(rep['rumors'])}" if rep else "")
+            + (f", row_searchsorted by (C, K) {dict(sorted(r['shapes'].items()))}"
+               if backend == "delta" else ""))
+        if r["syncs_per_tick"] > base["syncs_per_tick"]:
+            raise AssertionError(f"provenance {label}: {what} takes {r['syncs_per_tick']:.2f} "
+                                 f"host syncs a tick, the untraced run "
+                                 f"{base['syncs_per_tick']:.2f}")
+        for name, v in r["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    if backend == "delta":
+        c_cap = caps["capacity"]
+        for k in slots:
+            if k <= 4:
+                continue  # at most 4 queries a row take the fused compare, not kernel 3
+            extra = arms[k][0]["shapes"].get((c_cap, k), 0) - base["shapes"].get((c_cap, k), 0)
+            if extra != ticks:
+                raise AssertionError(f"provenance {label}: trace_rumors={k} launched kernel 3 "
+                                     f"at ({c_cap}, {k}) {extra} more times than the untraced "
+                                     f"run, not once a tick ({ticks})")
+            log(f"provenance {label}: trace_rumors={k}: the fold's [N, {c_cap}] x [N, {k}] "
+                f"lookup launched kernel 3 once a tick ({extra} over {ticks} ticks beyond the "
+                f"untraced run's)")
+    log(f"provenance {label}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def stats_bridge(torch, n: int = N_MAIN) -> dict:
+    """Phase m4: ``SimCluster(stats_emitter=CaptureEmitter())`` at BASELINE
+    config 3's protocol: a ``tick`` loop, a ``run_scenario`` and the same
+    run streamed.  Every key is in ``obs.bridge``'s tables or carries the
+    ``sim.`` prefix; each increment's total equals the trace series it
+    replays (``membership-update.alive``: the bootstrap live count and
+    the rises); the run closes with the checksum gauge of the first live
+    node; the streamed run emits the whole run's calls.  Returns the
+    kernels' launches."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.models.swim_sim import SwimParams
+    from ringpop_tpu_torch.obs import CaptureEmitter, bridge
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    _counted_recv_merge_reset()
+    params = SwimParams(loss=0.01)
+    known = (set(bridge.REFERENCE_KEYS) | set(bridge.TRAFFIC_COUNTER_KEYS.values())
+             | set(bridge.TRAFFIC_TIMING_KEYS.values()))
+    pre = bridge.DEFAULT_PREFIX + "."
+
+    def check_keys(cap, what):
+        bad = {k for k in cap.suffixes(bridge.DEFAULT_PREFIX)
+               if k not in known and not k.startswith("sim.")}
+        if bad:
+            raise AssertionError(f"stats bridge (phase m4) {what}: keys outside the tables {bad}")
+
+    cap = CaptureEmitter()
+    c = SimCluster(n, params, seed=0, device="cuda", stats_emitter=cap)
+    logged = [c.tick() for _ in range(5)]
+    check_keys(cap, "tick loop")
+    for series, key in bridge.PROTOCOL_COUNTER_KEYS.items():
+        if cap.counters[pre + key] != sum(m[series] for m in logged):
+            raise AssertionError(f"stats bridge (phase m4) tick loop: {key} total differs")
+    if cap.gauges[pre + "num-members"] != len(c.live_indices()):
+        raise AssertionError("stats bridge (phase m4) tick loop: num-members differs")
+    n_tick = len(cap.calls)
+    runs = []
+    for seg in (None, BRIDGE_SEGMENT):
+        cap = CaptureEmitter()
+        c = SimCluster(n, params, seed=0, device="cuda", stats_emitter=cap)
+        trace = c.run_scenario(rung_spec(n, BRIDGE_TICKS, 0), segment_ticks=seg)
+        what = "run_scenario" if seg is None else f"streamed ({seg}-tick segments)"
+        check_keys(cap, what)
+        for series, key in bridge.PROTOCOL_COUNTER_KEYS.items():
+            if cap.counters[pre + key] != int(trace.metrics[series].sum()):
+                raise AssertionError(f"stats bridge (phase m4) {what}: {key} total differs")
+        ups = np.diff(trace.live.astype(np.int64), prepend=0)
+        if cap.counters[pre + "membership-update.alive"] != int(ups[ups > 0].sum()):
+            raise AssertionError(f"stats bridge (phase m4) {what}: alive total differs")
+        if cap.calls[-1] != ("gauge", pre + "checksum", c.first_live_checksum()):
+            raise AssertionError(f"stats bridge (phase m4) {what}: no closing checksum gauge")
+        runs.append(cap)
+    if runs[0].calls != runs[1].calls:
+        raise AssertionError("stats bridge (phase m4): the streamed run's stat calls differ")
+    launches = {**_kernel_counts()}
+    log(f"stats bridge (phase m4): n={n} dense loss 0.01 with a CaptureEmitter sink: 5 tick() "
+        f"calls ({n_tick} stat calls), run_scenario of {BRIDGE_TICKS} ticks (a kill at 4; "
+        f"{len(runs[0].calls)} calls) and the same in {BRIDGE_SEGMENT}-tick segments (the same "
+        f"calls): every key in the bridge's tables or sim.*, each increment total == its trace "
+        f"series, the closing checksum gauge {runs[0].calls[-1][2]}; "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def provenance_phase(torch, cpu_ref: "CpuReference") -> dict:
+    """Phase m: m1 cuda == cpu at n = 256 (the CPU side from ``cpu_ref``),
+    m2 the dissemination rung at n = 10 000 dense, m3 at n = 65 536 delta
+    (the plane at its cap too), m4 the stats bridge; returns the
+    kernels' launches summed over m2-m4."""
+    t0 = time.perf_counter()
+    check_provenance_cuda_equals_cpu(torch, cpu_ref)
+    launches: dict[str, int] = {}
+    for more in (dissemination(torch, "dense", N_MAIN, {}, (RUNG_SLOTS,), "(phase m2)"),
+                 dissemination(torch, "delta", N_DELTA, DELTA_CAPS,
+                               (RUNG_SLOTS, PROV_CAP_SLOTS), "(phase m3)"),
+                 stats_bridge(torch)):
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("recv_merge", "row_searchsorted", "merge_insert", "farmhash32"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"provenance (phase m): kernel {k} was not launched")
+    log(f"provenance (phase m): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -4065,15 +4559,31 @@ def main() -> int:
                          "policies: cuda == cpu at small n, the policy headline, n = 10 000 "
                          "dense, n = 65 536 delta, sharded serving); print no result line")
     ap.add_argument("--serving-cpu", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--provenance", action="store_true",
+                    help="only run phase m (the provenance plane: cuda == cpu at n = 256, the "
+                         "dissemination rung at n = 10 000 dense and n = 65 536 delta, the stats "
+                         "bridge); print no result line")
     ap.add_argument("--scenarios", action="store_true",
                     help="only run phase j (run_scenario against the host loop at n = 10 000 "
                          "dense and n = 65 536 delta, streamed soaks and checkpoints); print no "
                          "result line")
+    ap.add_argument("--provenance-cpu", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--sweeps-cpu", metavar="PATH", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.serving_cpu:
         # the child of phase l: its CPU side, written to the given path
         sys.path.insert(0, REPO)
         serving_cpu_reference(args.serving_cpu)
+        return 0
+    if args.provenance_cpu:
+        # the child of phase m: m1's CPU side, written to the given path
+        sys.path.insert(0, REPO)
+        provenance_cpu_reference(args.provenance_cpu)
+        return 0
+    if args.sweeps_cpu:
+        # the child of phase k: k1's CPU side, written to the given path
+        sys.path.insert(0, REPO)
+        sweeps_cpu_reference(args.sweeps_cpu)
         return 0
     root = os.path.abspath(args.split_of) if args.split_of else REPO
     try:
@@ -4135,7 +4645,13 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.sweeps:
-        sweeps_phase(torch)
+        refs.append(CpuReference("k"))
+        sweeps_phase(torch, refs[0])
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.provenance:
+        refs.append(CpuReference("m"))
+        provenance_phase(torch, refs[0])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.split_of:
@@ -4151,9 +4667,11 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
     check_sided_cuda_equals_cpu(torch)
-    # phase l's CPU side runs in a child process from here on, after the
-    # lockstep phases that run on the CPU themselves
-    refs.append(CpuReference())
+    # the CPU sides of phases l and m run in child processes from here on,
+    # after the lockstep phases that run on the CPU themselves
+    refs.append(CpuReference("l"))
+    refs.append(CpuReference("k"))
+    refs.append(CpuReference("m"))
     launches, converged_dense, c = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
@@ -4172,16 +4690,17 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches_faults = faults_phase(torch)
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
     launches_scen = scenarios_phase(torch)
-    launches_sweeps = sweeps_phase(torch)
+    launches_sweeps = sweeps_phase(torch, refs[1])
     launches_serving = serving_phase(torch, refs[0])
+    launches_prov = provenance_phase(torch, refs[2])
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
-    # runs of phases h, i, j and k for the receiver merge; FarmHash's warp
-    # kernel on the dense path, both config-4 paths, phases h-k, its
-    # short-row kernel on both lookup surfaces and config 5; the delta
+    # runs of phases h-m for the receiver merge; FarmHash's warp kernel on
+    # the dense path, both config-4 paths, phases h-m, its short-row
+    # kernel on both lookup surfaces, config 5 and phase l; the delta
     # kernels on the delta path, both config-4 paths and the delta runs of
-    # phases h, i, j and k (kernel 3 also at phase i's block search); the
-    # hop on the three ring paths
+    # phases h-m (kernel 3 also at phase i's block search and phase m's
+    # fold); the hop on the three ring paths and phase l5
     launches["farmhash32_short"] = (short_launches + config5_launches
                                     + launches_serving["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
@@ -4193,7 +4712,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
-                           + launches_serving.get(name, 0))
+                           + launches_serving.get(name, 0) + launches_prov.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -99,8 +99,8 @@ def _fields(data: Any, cls: type, prefix: str) -> dict[str, np.ndarray | None]:
             out[name] = None
         else:
             raise KeyError(f"checkpoint missing required array {key}")
-    # fields of the reference this port does not carry (the policy and
-    # provenance planes) reach the converter, which refuses them
+    # a field neither package's state type has reaches the converter,
+    # which refuses it
     for key in data.files:
         if key.startswith(prefix + ".") and key[len(prefix) + 1:] not in out:
             out[key[len(prefix) + 1:]] = data[key]

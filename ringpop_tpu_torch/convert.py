@@ -6,9 +6,10 @@ in state._asdict().items()}``), become the port's tensors on a device, and
 back.  The state is this system's "weights": with it, both sides run
 from identical inputs.  The fault model's fields cross too: the
 in-flight buffers (``pending``, ``pend_*``), the link rules
-(``link_*``), the period row, the overload state (``ov_*``) and the
-policy carry (``po_*``).  Fields the port does not carry yet (the
-provenance plane's ``pv_*``) must be None.
+(``link_*``), the period row, the overload state (``ov_*``), the
+policy carry (``po_*``) and the provenance plane (``pv_*``).  Packed
+words, uint32 in the reference, are int64 holding the same bits in the
+port.  A field that neither side's state type has raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from ringpop_tpu_torch.models.swim_sim import ClusterState, NetState
 # DeltaState planes that are uint32 in the reference and int64 holding
 # the same 32-bit values in the port
 _UINT32_FIELDS = ("bp_mask", "digest", "d_bpmask")
+# and the NetState plane that is
+_UINT32_NET_FIELDS = ("pv_knows",)
 
 
 def _to_tensors(
@@ -33,7 +36,7 @@ def _to_tensors(
     dev = resolve_device(device)
     extra = sorted(k for k, v in fields.items() if k not in cls._fields and v is not None)
     if extra:
-        raise NotImplementedError(f"{cls.__name__} fields not ported yet: {extra}")
+        raise NotImplementedError(f"{cls.__name__} has no fields {extra}")
     return cls(
         **{
             name: None if fields.get(name) is None
@@ -57,11 +60,27 @@ def state_from_numpy(
     return _to_tensors(ClusterState, fields, device)
 
 
+def _widen(fields: Mapping[str, Any], names: tuple[str, ...]) -> dict[str, Any]:
+    """``fields`` with the uint32 planes ``names`` as int64 (same bits)."""
+    return {
+        k: np.asarray(v).astype(np.int64) if k in names and v is not None else v
+        for k, v in fields.items()
+    }
+
+
+def _narrow(out: dict[str, np.ndarray | None], names: tuple[str, ...]) -> dict:
+    """``out`` with the int64 planes ``names`` as the reference's uint32."""
+    for k in names:
+        if out[k] is not None:
+            out[k] = out[k].astype(np.uint32)
+    return out
+
+
 def net_from_numpy(
     fields: Mapping[str, Any], device: torch.device | str | None = None
 ) -> NetState:
     """A JAX ``NetState`` (as a mapping of numpy arrays) on ``device``."""
-    return _to_tensors(NetState, fields, device)
+    return _to_tensors(NetState, _widen(fields, _UINT32_NET_FIELDS), device)
 
 
 def state_to_numpy(state: ClusterState) -> dict[str, np.ndarray | None]:
@@ -70,7 +89,9 @@ def state_to_numpy(state: ClusterState) -> dict[str, np.ndarray | None]:
 
 
 def net_to_numpy(net: NetState) -> dict[str, np.ndarray | None]:
-    return _to_numpy(net)
+    """The port's net as numpy arrays under the reference's field names
+    and dtypes."""
+    return _narrow(_to_numpy(net), _UINT32_NET_FIELDS)
 
 
 def delta_state_from_numpy(
@@ -79,21 +100,13 @@ def delta_state_from_numpy(
     """A JAX ``DeltaState`` (as a mapping of numpy arrays) on ``device``;
     None fields stay None and uint32 planes become int64 holding the
     same bits."""
-    fields = {
-        k: np.asarray(v).astype(np.int64) if k in _UINT32_FIELDS and v is not None else v
-        for k, v in fields.items()
-    }
-    return _to_tensors(DeltaState, fields, device)
+    return _to_tensors(DeltaState, _widen(fields, _UINT32_FIELDS), device)
 
 
 def delta_state_to_numpy(state: DeltaState) -> dict[str, np.ndarray | None]:
     """The port's delta state as numpy arrays under the reference's field
     names and dtypes (uint32 planes as uint32)."""
-    out = _to_numpy(state)
-    for k in _UINT32_FIELDS:
-        if out[k] is not None:
-            out[k] = out[k].astype(np.uint32)
-    return out
+    return _narrow(_to_numpy(state), _UINT32_FIELDS)
 
 
 def key_from_numpy(key: Any) -> torch.Tensor:

@@ -27,6 +27,8 @@ from ringpop_tpu_torch.models import checksum as cksum
 from ringpop_tpu_torch.models import swim_delta as sdelta
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
+from ringpop_tpu_torch.obs import bridge as obs_bridge
+from ringpop_tpu_torch.obs import provenance as pvn
 from ringpop_tpu_torch.ops import checksum_device as ckdev
 from ringpop_tpu_torch.ops import ring_ops
 from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
@@ -68,6 +70,8 @@ class SimCluster:
         capacity: int = 256,
         wire_cap: int = 16,
         claim_grid: int = 64,
+        stats_emitter: Any | None = None,
+        stats_prefix: str = obs_bridge.DEFAULT_PREFIX,
     ):
         """A cluster of ``n`` simulated nodes on ``device`` (``cuda``
         unless the caller names another; raises when no card is visible
@@ -75,7 +79,11 @@ class SimCluster:
         ``backend='delta'``: the O(N * C) delta-from-base state, whose
         resource caps are ``capacity``/``wire_cap``/``claim_grid``.
         ``damping=True`` (dense only) carries the flap-damping planes:
-        damped members are quarantined from the viewer's ring."""
+        damped members are quarantined from the viewer's ring.
+        ``stats_emitter`` (any ``increment/gauge/timing`` sink,
+        ``obs.emitters``) receives every tick's protocol counters and
+        every scenario trace under the reference's statsd key names
+        (``obs.bridge``), prefixed with ``stats_prefix``."""
         if backend not in ("dense", "delta"):
             raise ValueError(f"unknown backend: {backend!r}")
         if backend == "delta" and damping:
@@ -111,6 +119,8 @@ class SimCluster:
         self.stream_cursor: dict[str, Any] | None = None
         self._device_book: ckdev.DeviceBook | None = None
         self._traffic_ring: ring_ops.DeviceRing | None = None  # lazy global ring
+        self.stats_sink = (obs_bridge.StatSink(stats_emitter, stats_prefix)
+                           if stats_emitter is not None else None)
 
     @property
     def n(self) -> int:
@@ -124,7 +134,8 @@ class SimCluster:
 
     def tick(self, ticks: int = 1) -> dict[str, int]:
         """Advance every node ``ticks`` protocol periods; returns the last
-        tick's counters (plus ``ticks``)."""
+        tick's counters (plus ``ticks``), which also go to the stats sink
+        (``obs.bridge.emit_counters``) when there is one."""
         if self.backend == "delta":
             if ticks == 1:
                 self.state, metrics = sdelta.delta_step_impl(
@@ -143,9 +154,13 @@ class SimCluster:
                 lambda hand: sim._swim_run_handed(hand, self.net, self._split(), self.params, ticks)
             )
         values = torch.stack(list(metrics.values())).tolist()
-        out = dict(zip(metrics.keys(), (int(v) for v in values)))
+        # sorted by name, as the reference's jitted steps return them (the
+        # order the stats sink sees)
+        out = dict(sorted(zip(metrics.keys(), (int(v) for v in values))))
         out["ticks"] = int(ticks)
         self.metrics_log.append(out)
+        if self.stats_sink is not None:
+            obs_bridge.emit_counters(out, self.stats_sink, live=len(self.live_indices()))
         return out
 
     def _handed(self, call: Callable[[sim._Handoff], tuple]) -> tuple:
@@ -216,9 +231,14 @@ class SimCluster:
         ``spec["traffic"]`` records the workload).  ``policy`` (a name with
         optional ``:k=v`` knobs, a ``policies.to_dict`` dict or a
         ``CompiledPolicy``) arms the remediation plane; it needs a
-        workload, and its carry stays on ``self.net`` (``po_*``).  There
-        is no stats sink, so the reference's replay of the trace to one
-        has no counterpart."""
+        workload, and its carry stays on ``self.net`` (``po_*``).  A spec
+        with ``trace_rumors`` traces that many rumors (``track`` events
+        reserve slots): the planes stay on ``self.net`` (``pv_*``,
+        ``provenance_report()``; ``clear_provenance()`` before the next
+        traced run) and the heard counts join the trace as ``pv_heard``.
+        With a stats sink the trace is replayed into it
+        (``obs.bridge.replay_trace``), closing with the membership
+        checksum of the first live node."""
         from ringpop_tpu_torch.scenarios import compile as scompile
         from ringpop_tpu_torch.scenarios import runner as srunner
 
@@ -275,7 +295,20 @@ class SimCluster:
                                    self._spec_dict(spec, traffic, policy))
         self.traces.append(trace)
         self.log_run(trace, spec.ticks)
+        if self.stats_sink is not None:
+            obs_bridge.replay_trace(trace, self.stats_sink.emitter,
+                                    prefix=self.stats_sink.prefix,
+                                    checksum=self.first_live_checksum())
         return trace
+
+    def first_live_checksum(self) -> int | None:
+        """The membership checksum of the first live node (None with every
+        node dead): the stats bridge's closing gauge."""
+        live = self.live_indices()
+        if not live.size:
+            return None
+        first = int(live[0])
+        return self.checksums(indices=[first])[self.book.addresses[first]]
 
     def _compile_policy(self, policy: Any, traffic: Any) -> Any:
         """``policy`` resolved at this cluster's scale (a policy without a
@@ -737,6 +770,26 @@ class SimCluster:
             po_press=None, po_shed=None, po_quar=None,
             po_sends_w=None, po_deliv_w=None, po_retry_cap=None,
         )
+
+    def clear_provenance(self) -> None:
+        """Drop the tracked-rumor state a finished ``trace_rumors`` run
+        left on the net (``NetState.pv_*``): needed before a fresh traced
+        run on this cluster (a resume keeps it on purpose)."""
+        self.net = self.net._replace(**{f"pv_{f}": None for f in pvn.ProvCarry._fields})
+
+    def provenance_report(self) -> dict:
+        """The host-side provenance report of the last traced run's planes
+        on the net (``obs.provenance.build_report``): per tracked rumor,
+        the propagation tree (first_heard, parent), the detection-
+        causality chain and the infection-time percentiles against the
+        log2(N) bound."""
+        if self.net.pv_slot is None:
+            raise ValueError(
+                "no provenance state on the net: run a scenario with "
+                "trace_rumors > 0 first"
+            )
+        return pvn.build_report(
+            *(getattr(self.net, f"pv_{f}") for f in pvn.ProvCarry._fields), self.n)
 
     def set_period(self, period) -> None:
         """Per-node protocol periods (int[N], the gray-failure model):

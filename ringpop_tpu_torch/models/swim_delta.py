@@ -42,7 +42,8 @@ under ``RINGPOP_CARRY_SLOTBASE=1`` as in the reference) and the
 truncated profiling steps (``upto`` < 7) are ported too, and so are
 the knobs (``swim_sim.SwimKnobs``: the countdown start, the piggyback
 factor, a knob ``phase_mod`` and the capacity-padded ``ping_req_size``).
-Arms outside this port raise ``NotImplementedError``: ``prov=True``.
+``prov=True`` adds the delivery-evidence bundle of the provenance plane
+(``obs.provenance.EVIDENCE_KEYS``) to a full step's metrics.
 The maintenance and admin operations
 (``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
 host numpy, as in the reference.
@@ -1031,9 +1032,13 @@ def _stage_issue_delta(
 def _check_supported(
     state: DeltaState, net: NetState, params: DeltaParams, upto: int, knobs: Any, prov: bool
 ) -> None:
-    """The reference step's own refusals, then every arm this port does
-    not carry."""
+    """The reference step's own refusals."""
     sw = params.swim
+    if prov and upto != 7:
+        raise ValueError(
+            "provenance evidence spans every phase; prov requires the "
+            "full step (upto=7)"
+        )
     if net.adj is not None and net.adj.dim() != 1:
         raise NotImplementedError(
             "delta backend partitions take the int32[N] group-id form of "
@@ -1064,8 +1069,6 @@ def _check_supported(
             "per-node periods (NetState.period) do not compose with the "
             "static phase_mod stagger: a row of P subsumes phase_mod=P"
         )
-    if prov:
-        raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
 
 
 def _cut(state: DeltaState, t: torch.Tensor) -> tuple[DeltaState, dict[str, torch.Tensor]]:
@@ -1346,6 +1349,28 @@ def delta_step_impl(
     if has_delay:
         metrics["delayed_claims"] = delayed_claims
         metrics["matured_applied"] = mat_applied
+    if prov:
+        metrics.update(
+            pv_tgt=t_safe,
+            pv_send=sends,
+            # in-tick payload deliveries only (delayed claims park in the
+            # lanes; their arrival has no in-tick edge)
+            pv_ping=fwd_ok & ~dly3 if has_delay else fwd_ok,
+            # a full sync's flip lands in-tick even over a delayed link,
+            # so fs_apply joins the ack edges (the reference's one
+            # deviation from the dense bundle)
+            pv_ack=(ack & ~dly4) | fs_apply if has_delay else ack,
+            pv_wit=wit_safe,
+            pv_witv=wit_valid,
+            pv_req=req_del,
+            pv_rping=ping_del,
+            pv_rack=ack_del,
+            pv_resp=resp_del,
+            # the attempted declarations (the dense bundle has the applied
+            # ones); the fold's post-view status gate filters the ones the
+            # lattice refused alike on both backends
+            pv_decl=dec_valid,
+        )
     return state, metrics
 
 

@@ -38,9 +38,10 @@ True)``: the ``damp``/``damped`` planes) and the relay's full rows
 reference's dtypes applied, taking the reference's knob path at each
 site where it differs from ``params._replace`` (``ping_req_size``
 capacity-padded).
-Arms of the reference that are not ported yet raise
-``NotImplementedError``: ``prov`` and the sparse step under a gossip
-ring.
+``prov=True`` adds the delivery-evidence bundle of the provenance plane
+(``obs.provenance.EVIDENCE_KEYS``) to the metrics.  The one arm of the
+reference that is not ported raises ``NotImplementedError``: the sparse
+step under a gossip ring.
 """
 
 from __future__ import annotations
@@ -266,10 +267,14 @@ class NetState(NamedTuple):
     ``ClusterState.pending`` installed); ``period``, each node's
     protocol period (it initiates a probe once per ``period[i]`` ticks);
     ``ov_cnt``/``ov_gray``, the overload feedback state a scenario
-    carries, and ``po_*``, the remediation policy's carry (pressure,
+    carries, ``po_*``, the remediation policy's carry (pressure,
     shed and quarantine flags, the amplification window rings and the
-    retry cap), neither of which the step reads: they live on the net
-    so that checkpoints and a streamed resume continue them exactly."""
+    retry cap), and ``pv_*``, the provenance plane's (``obs.provenance``:
+    the K tracked-rumor slots, their origin and resolution ticks, the
+    origin's witness sets, the first_heard and parent planes and the
+    packed knows words), none of which the step reads: they live on the
+    net so that checkpoints and a streamed resume continue them
+    exactly."""
 
     up: torch.Tensor  # bool[N]
     responsive: torch.Tensor  # bool[N]
@@ -288,6 +293,12 @@ class NetState(NamedTuple):
     po_sends_w: torch.Tensor | None = None  # int32[W]
     po_deliv_w: torch.Tensor | None = None  # int32[W]
     po_retry_cap: torch.Tensor | None = None  # int32 scalar
+    pv_slot: torch.Tensor | None = None  # int32[K, 4]
+    pv_tickv: torch.Tensor | None = None  # int16[K, 2]
+    pv_wits: torch.Tensor | None = None  # int32[K, ping_req_size]
+    pv_first: torch.Tensor | None = None  # int16[K, N]
+    pv_parent: torch.Tensor | None = None  # int32[K, N]
+    pv_knows: torch.Tensor | None = None  # int64[K, ceil(N/32)] packed words
 
 
 def make_net(
@@ -841,8 +852,6 @@ def _check_supported(
             "do not compose with the static phase_mod stagger: a row of "
             "P in the period tensor subsumes phase_mod=P exactly"
         )
-    if prov:
-        raise NotImplementedError("prov=True (delivery evidence) is not ported yet")
     if params.probe not in ("sweep", "uniform"):
         raise ValueError(f"unknown probe policy: {params.probe!r}")
 
@@ -971,6 +980,7 @@ class _PingReq(NamedTuple):
     changes_applied: torch.Tensor  # int32[]
     flapped: torch.Tensor | None  # bool[N, N] exchange flaps (damping), else None
     relay_full_syncs: torch.Tensor  # int32[] 5c full rows (relay_full_sync)
+    hops: tuple  # bool[N, kk] x 4: the 5a-5d hop deliveries (req, ping, ack, resp)
 
 
 @_scoped("swim.pingreq")
@@ -1184,7 +1194,7 @@ def _phase5_pingreq(
     state, declared = _declare(state, declare_suspect, t_safe, SUSPECT, sl_start)
     return _PingReq(
         state, failed, declare_suspect, declared, was_alive_at_target, applied,
-        flaps[0], relay_fs,
+        flaps[0], relay_fs, (req_del, ping_del, ack_del, resp_del),
     )
 
 
@@ -1393,6 +1403,30 @@ def _swim_step_handed(
     if has_delay:
         metrics["delayed_claims"] = dly3.sum(dtype=torch.int32) + dly4.sum(dtype=torch.int32)
         metrics["matured_applied"] = mat_applied
+    if prov:
+        # The delivery evidence of the provenance plane.  The reference
+        # draws the four relay hop masks again from the same k_loss3
+        # stream (they depend on the net, the selection, the ack and the
+        # key only), which gives phase 5's own masks: those are exported.
+        req_del, ping_del, ack_del, resp_del = pr.hops
+        metrics.update(
+            # the reference's int32 node ids (the dense step indexes in int64)
+            pv_tgt=t_safe.to(torch.int32),
+            pv_send=sends,
+            # in-tick payload deliveries only: a delayed claim (and a
+            # delayed reply, full syncs included) parks in the in-flight
+            # buffer, and its arrival has no in-tick edge
+            pv_ping=fwd_ok & ~dly3 if has_delay else fwd_ok,
+            pv_ack=ack & ~dly4 if has_delay else ack,
+            pv_wit=torch.clamp(sel.wit, 0, n - 1).to(torch.int32),
+            pv_witv=sel.wit_valid,
+            pv_req=req_del,
+            pv_rping=ping_del,
+            pv_rack=ack_del,
+            pv_resp=resp_del,
+            # the applied suspect declarations (the lattice took them)
+            pv_decl=pr.declared,
+        )
     return state, metrics
 
 

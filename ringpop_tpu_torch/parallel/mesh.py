@@ -146,6 +146,15 @@ NET_FIELD_SPECS: dict[str, str] = {
     "po_sends_w": _REP,
     "po_deliv_w": _REP,
     "po_retry_cap": _REP,
+    # the provenance plane's report tensors, read on the host only: the
+    # sharded step never updates them (the fold runs in the scenario
+    # runner)
+    "pv_slot": _REP,
+    "pv_tickv": _REP,
+    "pv_wits": _REP,
+    "pv_first": _REP,
+    "pv_parent": _REP,
+    "pv_knows": _REP,
 }
 
 DELTA_FIELD_SPECS: dict[str, str] = {

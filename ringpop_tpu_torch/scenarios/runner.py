@@ -25,8 +25,12 @@ An ``overload`` event closes the feedback loop: the serve's per-node
 sends drive a pressure meter whose hysteresis bit degrades a node's
 period the next tick.  ``policy`` (a ``policies.CompiledPolicy``) folds
 the same sends into the remediation planes the next tick's serve
-consults.  Provenance (``track`` events) is not ported yet and raises
-``NotImplementedError`` before any key is drawn.
+consults.  A spec with ``trace_rumors = K`` (and ``track`` events) folds
+each step's delivery evidence into the provenance plane
+(``obs.provenance``): K tracked rumors, their per-node first_heard and
+parent planes and their resolutions, carried on the device and left on
+the net (``pv_*``), with the per-slot heard count as the [T, K]
+``pv_heard`` plane of the telemetry.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ringpop_tpu_torch.models import swim_delta as sdelta
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_delta import DeltaParams, DeltaState
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
+from ringpop_tpu_torch.obs import provenance as pvn
 from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import faults as sfaults
 from ringpop_tpu_torch.scenarios.compile import (
@@ -284,10 +289,12 @@ def precheck_prov(
     compiled: CompiledScenario, net: NetState, params: Any | None = None,
     *, standing_ok: bool = False,
 ) -> None:
-    """Static refusals of the provenance plane (``track`` events): the
-    reference's sparse-step refusal, then the plane itself, which this
-    port does not carry yet."""
-    del net, standing_ok
+    """Static refusals of the provenance plane (the ``precheck``
+    contract): the fold reads the dense delivery evidence, which the
+    sparse step never builds; and tracked-rumor state a finished run left
+    on the net would silently extend the old wavefronts, so it is refused
+    unless resuming (``standing_ok``: the checkpointed net carries this
+    very run's planes)."""
     if not compiled.trace_rumors:
         return
     sw = getattr(params, "swim", params)
@@ -296,10 +303,38 @@ def precheck_prov(
             "trace_rumors needs the dense delivery evidence; run traced "
             "scenarios with sparse_cap=0"
         )
-    raise NotImplementedError(
-        "track events (trace_rumors) need the provenance plane, which is "
-        "not ported yet (ROADMAP queue 1 item 6)"
-    )
+    if not standing_ok and net.pv_slot is not None:
+        if bool((net.pv_slot[:, 0] >= 0).any()):
+            raise ValueError(
+                "the cluster carries tracked-rumor state from a previous "
+                "run (net.pv_*): clear_provenance() first, or resume the "
+                "run that wrote it"
+            )
+
+
+def prepare_prov(
+    compiled: CompiledScenario, net: NetState, params: Any | None = None
+) -> tuple[pvn.ProvCarry | None, torch.Tensor | None, torch.Tensor | None]:
+    """The initial provenance carry and the track reservations: all slots
+    unarmed for a fresh run, or the net's checkpointed planes on resume.
+    Returns ``(ProvCarry | None, pv_at, pv_node)``."""
+    if not compiled.trace_rumors:
+        return None, None, None
+    k = compiled.trace_rumors
+    dev = net.up.device
+    if net.pv_slot is not None:
+        if net.pv_slot.shape[0] != k:
+            raise ValueError(
+                f"the cluster carries {net.pv_slot.shape[0]} tracked-rumor "
+                f"slots but this scenario compiles {k}; clear_provenance() "
+                "or match trace_rumors"
+            )
+        pvc = pvn.ProvCarry(*(getattr(net, f"pv_{f}").to(dev) for f in pvn.ProvCarry._fields))
+    else:
+        sw = getattr(params, "swim", params)
+        pvc = pvn.init_carry(compiled.n, k, int(getattr(sw, "ping_req_size", 3)), device=dev)
+    pv_at, pv_node = pvn.track_tensors(compiled.tracks, k, device=dev)
+    return pvc, pv_at, pv_node
 
 
 _DAMP_KNOBS = ("damp_penalty", "damp_decay_per_tick", "damp_suppress", "damp_reuse")
@@ -426,24 +461,30 @@ def final_net(
     compiled: CompiledScenario,
     ov: tuple | None = None,
     po: tuple | None = None,
+    pv: pvn.ProvCarry | None = None,
 ) -> NetState:
     """The net after the run, the link rules as they stand at the last
     tick (what the host loop's last configuration leaves in force), and
-    the overload and policy carries, so that checkpoints and a streamed
-    resume continue them exactly."""
+    the overload, policy and provenance carries, so that checkpoints and
+    a streamed resume continue them exactly."""
     return NetState(up=up, responsive=resp, adj=adj, period=period,
                     **_link_kw(compiled.faults, compiled.ticks - 1),
-                    **carry_fields(ov, po))
+                    **carry_fields(ov, po, pv))
 
 
-def carry_fields(ov: tuple | None, po: tuple | None) -> dict[str, torch.Tensor]:
-    """The net fields of the overload and policy carries."""
+def carry_fields(
+    ov: tuple | None, po: tuple | None, pv: pvn.ProvCarry | None = None
+) -> dict[str, torch.Tensor]:
+    """The net fields of the overload, policy and provenance carries (the
+    knows plane stays packed)."""
     kw = {}
     if ov is not None:
         kw.update(ov_cnt=ov[0], ov_gray=ov[1])
     if po is not None:
         kw.update(po_press=po[0], po_shed=po[1], po_quar=po[2],
                   po_sends_w=po[3], po_deliv_w=po[4], po_retry_cap=po[5])
+    if pv is not None:
+        kw.update({f"pv_{f}": v for f, v in pv._asdict().items()})
     return kw
 
 
@@ -516,6 +557,9 @@ def _scenario_scan_impl(
     ov: tuple | None = None,
     po: tuple | None = None,
     policy: Any | None = None,
+    pv: pvn.ProvCarry | None = None,
+    pv_at: torch.Tensor | None = None,
+    pv_node: torch.Tensor | None = None,
 ) -> tuple:
     """Ticks ``tick0 .. tick0 + len(keys) - 1`` of the scenario on the
     state in ``hand``, which each step takes over.  ``loss`` is the
@@ -525,11 +569,16 @@ def _scenario_scan_impl(
     already through ``overload_traffic``/``policy_traffic``) serves
     after each step; ``ov`` and ``po`` are the overload and policy
     carries, ``policy`` the ``CompiledPolicy`` (knobs as host ints).
+    ``pv`` is the provenance carry (``prepare_prov``, with the track
+    reservations ``pv_at``/``pv_node``): each step then exports its
+    delivery evidence, which the fold consumes (it never enters the
+    telemetry), and the per-slot heard count joins the telemetry as the
+    [T, K] plane ``pv_heard``.
 
     Returns the state, up, responsive, adjacency, period row (int16),
-    overload and policy carries, and the telemetry: each metric,
-    ``converged``, ``live`` and ``loss`` as [T] device tensors, each
-    histogram plane as [T, B]."""
+    overload, policy and provenance carries, and the telemetry: each
+    metric, ``converged``, ``live`` and ``loss`` as [T] device tensors,
+    each histogram plane as [T, B]."""
     n = compiled.n
     dev = up.device
     is_delta = isinstance(params, DeltaParams)
@@ -571,16 +620,23 @@ def _scenario_scan_impl(
         if is_delta:
             sp = params._replace(swim=params.swim._replace(loss=float(loss[i])))
             hand.state, metrics = sdelta.delta_step_impl(hand.state, net, keys[i], sp,
-                                                         knobs=knobs)
+                                                         knobs=knobs, prov=pv is not None)
             conv = sdelta._converged_impl(hand.state, u, r)
             own = sdelta.view_lookup(hand.state, ids) & 7
         else:
             sp = params._replace(loss=float(loss[i]))
-            hand.state, metrics = sim._swim_step_handed(hand, net, keys[i], sp, knobs)
+            hand.state, metrics = sim._swim_step_handed(hand, net, keys[i], sp, knobs,
+                                                        pv is not None)
             conv = sim.converged_impl(hand.state, net)
             own = torch.diagonal(hand.state.view_key) & 7
         live = (u & r & ((own == sim.ALIVE) | (own == sim.SUSPECT))).sum(dtype=torch.int32)
         y = dict(metrics)
+        if pv is not None:
+            # the fold consumes the step's evidence bundle in place and
+            # adds the per-slot heard count as its one [K] plane
+            ev = {k: y.pop(k) for k in pvn.EVIDENCE_KEYS}
+            pv, y["pv_heard"] = pvn.prov_update(
+                pv, ev, t, _view_post(hand.state, is_delta), pv_at, pv_node, n)
         if traffic is not None:
             # the serve reads the views this tick's step produced (the
             # delta backend's from its tables, on serving ticks only)
@@ -621,7 +677,15 @@ def _scenario_scan_impl(
     ys["converged"] = block[:, -2].to(torch.bool)
     ys["live"] = block[:, -1]
     ys["loss"] = compiled.loss[tick0:tick0 + keys.shape[0]]
-    return hand.take(), u, r, gid, per, ov, po, dict(sorted(ys.items()))
+    return hand.take(), u, r, gid, per, ov, po, pv, dict(sorted(ys.items()))
+
+
+def _view_post(state: Any, is_delta: bool):
+    """The post-tick view keys of viewer-major subject queries [N, M]:
+    the delta backend's ``view_lookup``, or a gather of the dense rows."""
+    if is_delta:
+        return lambda q: sdelta.view_lookup(state, q)
+    return lambda q: torch.gather(state.view_key, 1, q.long())
 
 
 def stack_telemetry(ys: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -704,6 +768,7 @@ def run_compiled(
             damping=getattr(hand.state, "damp", None) is not None,
         )
         knobs = sim.swim_knob_arrays(swp, param_knobs)
+    pv, pv_at, pv_node = prepare_prov(compiled, net, params)
     hand.state, period, ov = prepare_faults(hand.take(), net, compiled, params)
     po = None
     if policy is not None:
@@ -719,13 +784,15 @@ def run_compiled(
         meta["policy"] = policy.name
     if param_knobs is not None:
         meta["param_knobs"] = sorted(param_knobs)
+    if compiled.trace_rumors:
+        meta["trace_rumors"] = compiled.trace_rumors
     _last_meta = meta
-    st, up, resp, adj, period, ov, po, ys = _scenario_scan_impl(
+    st, up, resp, adj, period, ov, po, pv, ys = _scenario_scan_impl(
         hand, net.up, net.responsive, adj, period, compiled, keys,
         compiled.loss.cpu().numpy(), params=params, knobs=knobs,
-        traffic=traffic, ov=ov, po=po, policy=policy,
+        traffic=traffic, ov=ov, po=po, policy=policy, pv=pv, pv_at=pv_at, pv_node=pv_node,
     )
-    return st, final_net(up, resp, adj, period, compiled, ov=ov, po=po), ys
+    return st, final_net(up, resp, adj, period, compiled, ov=ov, po=po, pv=pv), ys
 
 
 def run_host_loop(cluster, spec: ScenarioSpec):

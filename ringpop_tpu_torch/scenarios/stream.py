@@ -28,9 +28,13 @@ over the state the one before left:
 
 A served run (``traffic``, ``policy``) records its workload and policy
 in the cursor, and carries the overload and policy state from segment
-to segment (and through checkpoints, on the net's ``ov_*``/``po_*``).
-The per-segment dispatch ledger rows and the stats-bridge replays of the
-reference wait for the observability planes.
+to segment (and through checkpoints, on the net's ``ov_*``/``po_*``);
+a traced run (``trace_rumors``) carries its provenance planes the same
+way (``pv_*``).  With a stats sink on the cluster
+(``SimCluster(stats_emitter=)``) each segment's slab is replayed
+through the Trace->stats bridge as it drains, and the run closes with
+the checksum gauge: the stat stream of the unsegmented run.  The
+reference's per-segment dispatch ledger rows wait for the ledger.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 from ringpop_tpu_torch import prng
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState
+from ringpop_tpu_torch.obs import bridge as obs_bridge
 from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import compile as scompile
 from ringpop_tpu_torch.scenarios import runner as srunner
@@ -407,6 +412,8 @@ def _drive(
     f_state, period, ov = srunner.prepare_faults(cluster.state, cluster.net, compiled, params)
     po = (srunner.prepare_policy(policy, cluster.net, cluster.n, traffic.static.max_retries)
           if policy is not None else None)
+    pv, pv_at, pv_node = srunner.prepare_prov(compiled, cluster.net, params)
+    sink = cluster.stats_sink
     # the segments take the state over: the cluster keeps no reference
     # (a kill mid-run leaves it without one, as StreamInterrupted says)
     hand = sim._Handoff(f_state)
@@ -424,6 +431,15 @@ def _drive(
             store_obj.append(slab, segment=p.seg, tick0=p.a)
         else:
             slabs.append(slab)
+        if sink is not None:
+            # the slab continues the stream: the namespace is declared by
+            # the first segment this call runs, the checksum comes at the
+            # end
+            obs_bridge.replay_trace(
+                slab, sink.emitter, prefix=sink.prefix, checksum=None,
+                declare_namespace=(p.seg == start_seg), prev_live=last["prev_live"],
+                checksum_pending=True,
+            )
         last["slab"], last["prev_live"] = slab, int(stacks["live"][-1])
 
     for seg in range(start_seg, len(bounds)):
@@ -433,14 +449,14 @@ def _drive(
         snap = None
         if due_prev:
             # the state at the boundary, copied before the segment takes it
-            carries = {k: v.cpu() for k, v in srunner.carry_fields(ov, po).items()}
+            carries = {k: v.cpu() for k, v in srunner.carry_fields(ov, po, pv).items()}
             snap = (_to_host(hand.state),
                     NetState(up=up.cpu(), responsive=resp.cpu(), adj=adj.cpu(),
                              period=None if period is None else period.cpu(), **carries))
         srunner._dispatches += 1
-        st, up, resp, adj, period, ov, po, ys = srunner._scenario_scan_impl(
+        st, up, resp, adj, period, ov, po, pv, ys = srunner._scenario_scan_impl(
             hand, up, resp, adj, period, compiled, keys[a:b], loss[a:b], a, params=params,
-            traffic=traffic, ov=ov, po=po, policy=policy)
+            traffic=traffic, ov=ov, po=po, policy=policy, pv=pv, pv_at=pv_at, pv_node=pv_node)
         hand = sim._Handoff(st)
         del st
         launched = _Pending(seg, a, ys)
@@ -465,21 +481,26 @@ def _drive(
         drain(pending)
 
     cluster.state = hand.take()
-    cluster.net = srunner.final_net(up, resp, adj, period, compiled, ov=ov, po=po)
+    cluster.net = srunner.final_net(up, resp, adj, period, compiled, ov=ov, po=po, pv=pv)
     cluster.set_loss(float(loss[-1]))
     if checkpoint_path is not None:
         # the final checkpoint: the cursor complete, written before the
         # whole trace is attached (the trace lives in the store)
         ckpt.save(cluster, checkpoint_path,
                   stream=dict(cursor, ticks_done=T, prev_live=last["prev_live"]))
+    result: Any = store_obj
     if assemble:
-        trace = (store_obj.assemble() if store_obj is not None
-                 else Trace.concat(slabs, spec=spec_dict)).validate()
-        cluster.traces.append(trace)
-        cluster.log_run(trace, T)
-        return trace
-    cluster.log_run(last["slab"], T)
-    return store_obj
+        result = (store_obj.assemble() if store_obj is not None
+                  else Trace.concat(slabs, spec=spec_dict)).validate()
+        cluster.traces.append(result)
+        cluster.log_run(result, T)
+    else:
+        cluster.log_run(last["slab"], T)
+    if sink is not None:
+        # the slabs streamed the series; close with the checksum gauge
+        # as run_scenario does (0 with every node dead)
+        sink.gauge("checksum", cluster.first_live_checksum() or 0)
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,9 @@ own state, which a sweep leaves as it was).  The reference returns the
 final states stacked on a leading replica axis; the port keeps them
 apart (``SweepTrace.final_states[r]``), which saves a copy of them all.
 Sharing a step across replicas (R replicas a launch) is later speed
-work.
+work.  A traced spec (``trace_rumors``) gives each replica a fresh
+provenance carry: its planes land on ``final_nets[r]`` (``pv_*``) and
+its heard counts in the [R, T, K] plane ``pv_heard``.
 
 Not here: the dispatch ledger (``program_tag`` has no effect until it
 is ported, as in the reference with its ledger off) and the replica
@@ -383,11 +385,14 @@ def _clone(state: Any) -> Any:
 
 class Replicas:
     """The running replicas of one sweep.  Replica r's carry (state, up,
-    responsive, adjacency, period row, overload and policy carries) is
-    made when its run begins, from a copy of the start state; ``segment``
-    runs every replica over one tick range and returns the telemetry as
-    [R, ticks] tensors ([R, ticks, B] for a histogram plane).  Replica
-    r's policy is ``replica_policy(policy, policy_axes, r)``."""
+    responsive, adjacency, period row, overload, policy and provenance
+    carries) is made when its run begins, from a copy of the start state;
+    ``segment`` runs every replica over one tick range and returns the
+    telemetry as [R, ticks] tensors ([R, ticks, B] for a histogram plane,
+    ``pv_heard`` among them).  Replica r's policy is
+    ``replica_policy(policy, policy_axes, r)``; the track reservations
+    are the spec's, shared by every replica, each of which traces its own
+    wavefronts."""
 
     def __init__(self, state: Any, net: sim.NetState, adj: torch.Tensor, cs: CompiledSweep,
                  keys: torch.Tensor, params: Any, knobs: list[sim.SwimKnobs] | None,
@@ -400,6 +405,7 @@ class Replicas:
         self.policies = [replica_policy(policy, policy_axes, r) for r in range(cs.replicas)]
         self.loss = cs.loss.cpu().numpy()  # one readback for every replica
         self.carries: list[tuple | None] = [None] * cs.replicas
+        self.pv_at = self.pv_node = None  # the track reservations, set with the carries
 
     def segment(self, a: int, b: int) -> dict[str, torch.Tensor]:
         global _dispatches
@@ -414,29 +420,31 @@ class Replicas:
                 if self.policies[r] is not None:
                     po = runner.prepare_policy(self.policies[r], self.net, comp.n,
                                                self.traffic.static.max_retries)
+                pv, self.pv_at, self.pv_node = runner.prepare_prov(comp, self.net, self.params)
                 self.carries[r] = (st, self.net.up, self.net.responsive, self.adj, period,
-                                   ov, po)
-            st, up, resp, adj, period, ov, po = self.carries[r]
+                                   ov, po, pv)
+            st, up, resp, adj, period, ov, po, pv = self.carries[r]
             hand = sim._Handoff(st)
             self.carries[r] = None
             del st
-            st, up, resp, adj, period, ov, po, ys = runner._scenario_scan_impl(
+            st, up, resp, adj, period, ov, po, pv, ys = runner._scenario_scan_impl(
                 hand, up, resp, adj, period, comp, self.keys[r, a:b], self.loss[r, a:b], a,
                 params=self.params, knobs=None if self.knobs is None else self.knobs[r],
-                traffic=self.traffic, ov=ov, po=po, policy=self.policies[r])
-            self.carries[r] = (st, up, resp, adj, period, ov, po)
+                traffic=self.traffic, ov=ov, po=po, policy=self.policies[r], pv=pv,
+                pv_at=self.pv_at, pv_node=self.pv_node)
+            self.carries[r] = (st, up, resp, adj, period, ov, po, pv)
             rows.append(ys)
         return {k: torch.stack([y[k] for y in rows]) for k in rows[0]}
 
     def finish(self) -> tuple[list[Any], list[sim.NetState]]:
         """The final states and nets, replica by replica.  As in the
         reference's sweep, a final net carries the up and responsive
-        bits, the adjacency, the period row and the overload and policy
-        carries, not the link rules."""
+        bits, the adjacency, the period row and the overload, policy and
+        provenance carries, not the link rules."""
         states = [c[0] for c in self.carries]
         nets = [sim.NetState(up=up, responsive=resp, adj=adj, period=period,
-                             **runner.carry_fields(ov, po))
-                for _, up, resp, adj, period, ov, po in self.carries]
+                             **runner.carry_fields(ov, po, pv))
+                for _, up, resp, adj, period, ov, po, pv in self.carries]
         self.carries = [None] * self.cs.replicas
         return states, nets
 

@@ -140,9 +140,10 @@ def test_step_runs_on_small_state():
     "pend", "link_d", "knobs", "prov", "upto", "slot_base", "period", "phase_mod",
 ])
 def test_unported_arms_raise(arm):
-    """``prov`` still raises NotImplementedError.  The other arms are
-    ported: the knobs (at ``params``' own values: the plain step's
-    result), the in-flight lanes, a period row, ``phase_mod``, a
+    """Every arm is ported: the knobs (at ``params``' own values: the
+    plain step's result), ``prov`` (the plain step's state, its metrics
+    plus the evidence bundle; with a truncated step the reference's
+    ValueError), the in-flight lanes, a period row, ``phase_mod``, a
     truncated step (``upto``: partial metrics) and the carried slot-base
     planes step; a delay rule without lanes raises the reference's
     ValueError, and so do planes carried one without the other."""
@@ -166,7 +167,17 @@ def test_unported_arms_raise(arm):
                    for f, x in want._asdict().items())
         runs = True
     elif arm == "prov":
-        kwargs["prov"] = True
+        from ringpop_tpu_torch.obs.provenance import EVIDENCE_KEYS
+
+        want, wm = tdelta.delta_step_impl(state, net, key, params)
+        got, gm = tdelta.delta_step_impl(state, net, key, params, prov=True)
+        assert all(x is None or torch.equal(x, getattr(got, f))
+                   for f, x in want._asdict().items())
+        assert set(gm) == set(wm) | set(EVIDENCE_KEYS)
+        assert all(torch.equal(wm[k], gm[k]) for k in wm)
+        with pytest.raises(ValueError, match="upto=7"):
+            tdelta.delta_step_impl(state, net, key, params, upto=5, prov=True)
+        return
     elif arm == "upto":
         _, m = tdelta.delta_step_impl(state, net, key, params, upto=3)
         assert set(m) == {"pings_sent", "_t"} and int(m["pings_sent"]) == 0

@@ -287,9 +287,9 @@ def test_empty_slot_matures_to_nothing():
 
 
 def test_convert_carries_the_fault_fields():
-    """The buffers, link rules, period row, overload state and policy
-    carry cross to the port and back unchanged; the provenance plane's
-    fields still raise."""
+    """The buffers, link rules, period row, overload state, policy carry
+    and provenance planes cross to the port and back unchanged (the
+    packed knows words as uint32); a field no NetState has raises."""
     rng = np.random.default_rng(2)
     n = 6
     net = {"up": np.ones(n, bool), "responsive": np.ones(n, bool), "adj": None,
@@ -299,7 +299,12 @@ def test_convert_carries_the_fault_fields():
            "ov_cnt": np.arange(n, dtype=np.int32), "ov_gray": np.arange(n) % 2 == 0,
            "po_press": np.arange(n, dtype=np.int32), "po_shed": np.arange(n) % 3 == 0,
            "po_quar": np.arange(n) % 2 == 1, "po_sends_w": np.arange(8, dtype=np.int32),
-           "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(1, np.int32)}
+           "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(1, np.int32),
+           "pv_slot": np.array([[2, 18, 0, 1]], np.int32), "pv_tickv": np.array([[1, 4]], np.int16),
+           "pv_wits": np.array([[3, -1]], np.int32),
+           "pv_first": np.array([[-1, 2, 1, 3, 2, 2]], np.int16),
+           "pv_parent": np.array([[-3, -1, 1, 2, -2, 1]], np.int32),
+           "pv_knows": np.array([[0b111110]], np.uint32)}
     back = convert.net_to_numpy(convert.net_from_numpy(net, device="cpu"))
     for f, v in net.items():
         if v is None:
@@ -316,4 +321,4 @@ def test_convert_carries_the_fault_fields():
     for f in ("pend_subj", "pend_key", "pend_recv"):
         assert got[f].shape == delta[f].shape and (got[f] == delta[f]).all(), f
     with pytest.raises(NotImplementedError):
-        convert.net_from_numpy({**net, "pv_slot": np.zeros((1, 4), np.int32)}, device="cpu")
+        convert.net_from_numpy({**net, "pv_bogus": np.zeros((1, 4), np.int32)}, device="cpu")

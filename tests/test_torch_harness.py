@@ -35,7 +35,9 @@ kwargs]`` runs ``scenarios.stream.run_streamed``, with a checkpoint in
 the case's ``tmp_dir`` where ``kwargs`` has ``"checkpoint": True``, and
 after an ``interrupt_after`` kill finishes through ``stream.resume``
 (the resumed cluster carries on) unless ``"resume": False`` (the
-checkpoint's path is then recorded under ``{name}/ckpt{i}``).  Each
+checkpoint's path is then recorded under ``{name}/ckpt{i}``);
+``["resume_checkpoint", path]`` finishes the streamed run a checkpoint at ``path``
+left (``stream.resume``; the resumed cluster carries on).  Each
 records, under ``{name}/sc{i}/``, the trace's arrays (``trace/...``) and
 meta (``trace_meta``), the state, net, key, loss and last
 ``metrics_log`` entry after it.  ``["run_sweep", spec, replicas,
@@ -45,7 +47,13 @@ the sweep trace's arrays and meta, each replica's final state and net
 stacked on a leading replica axis (``states/...``, ``nets/...``), and
 the cluster's state, key and log length after it (``sweep_record``,
 ``assert_same_sweep``).  In a ``try`` op a trailing ``{"kwargs": {...}}``
-passes keyword arguments.  Before every tick the net's fault
+passes keyword arguments.  A case with ``"stats": True`` gives the
+cluster a ``CaptureEmitter`` stats sink; a ``["stats"]`` op records its
+calls so far (``{name}/stats{i}``, JSON), and a ``["provenance"]`` op
+the cluster's ``provenance_report()``, its ``summary_block``, the
+``write_spans`` file and the ``emit_provenance`` calls
+(``{name}/pv{i}``, JSON; ``assert_same_provenance``,
+``assert_same_stats``).  Before every tick the net's fault
 fields (``NET_FAULT_FIELDS``) and the loss are recorded
 (``{name}/net{t}/{field}``, ``{name}/loss{t}``).  A case with
 ``"lookups": {"keys": [...], "viewers": [...]}``
@@ -75,6 +83,12 @@ import numpy as np
 import pytest
 import torch
 
+# The port's CPU runs in the tests are small: one torch thread a worker,
+# so that the suite's workers and their reference children do not
+# oversubscribe the host (``one_thread`` still pins a module that
+# changes it).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STATE_FIELDS = ("view_key", "pb", "suspect_left", "tick")
@@ -90,6 +104,19 @@ DELTA_FIELDS = (
 NET_FAULT_FIELDS = (
     "link_src", "link_dst", "link_p", "link_d", "link_j", "period", "ov_cnt", "ov_gray",
 )
+
+
+def child_env(**extra: str) -> dict[str, str]:
+    """The environment of a reference child: the CPU platform, the repo on
+    the path, and XLA:CPU on one thread.  The suite runs six workers on
+    the host, each with its reference children, so an intra-op pool a
+    child per core only oversubscribes the cores (its small programs gain
+    nothing from it)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
+    env["XLA_FLAGS"] = " ".join(filter(None, (
+        env.get("XLA_FLAGS", ""),
+        "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")))
+    return env
 
 
 def case_fields(case: dict) -> tuple[str, ...]:
@@ -126,9 +153,11 @@ for case in cases:
         import jax
         jax.clear_caches()
         sim._SPARSE_SMALL_N = want_small_n
+    from ringpop_tpu.obs.emitters import CaptureEmitter
     c = SimCluster(case["n"], sim.SwimParams(**case.get("params", {})),
                    seed=case.get("seed", 0), init=case.get("init", "converged"),
                    backend=case.get("backend", "dense"), damping=case.get("damping", False),
+                   stats_emitter=CaptureEmitter() if case.get("stats") else None,
                    **case.get("caps", {}))
     snaps = []
     def snap():
@@ -222,11 +251,29 @@ for case in cases:
                 real_tick = c.tick
                 c.tick = tick
             record_scenario(f"{name}/sc{i}", tr)
+        elif op[0] == "resume_checkpoint":
+            c, tr = stream.resume(op[1])
+            real_tick = c.tick
+            c.tick = tick
+            record_scenario(f"{name}/sc{i}", tr)
         elif op[0] == "run_sweep":
             kw = dict(op[3])
             if kw.pop("store", False):
                 kw["store"] = os.path.join(case["tmp_dir"], f"{name}-sweep-{i}")
             record_sweep(f"{name}/sw{i}", c.run_sweep(op[1], op[2], **kw))
+        elif op[0] == "provenance":
+            from ringpop_tpu.obs import bridge, provenance, spans
+            rep = c.provenance_report()
+            path = os.path.join(case["tmp_dir"], f"{name}-spans-{i}.json")
+            spans.write_spans(rep, path)
+            cap = CaptureEmitter()
+            bridge.emit_provenance(rep, cap)
+            with open(path) as f:
+                out[f"{name}/pv{i}"] = np.array(json.dumps({
+                    "report": rep, "summary": provenance.summary_block(rep),
+                    "spans": f.read(), "emit": cap.calls}))
+        elif op[0] == "stats":
+            out[f"{name}/stats{i}"] = np.array(json.dumps(c.stats_sink.emitter.calls))
         elif op[0] == "try":
             try:
                 call(op[1:])
@@ -293,7 +340,7 @@ def run_references(
                         "net_fields": list(NET_FAULT_FIELDS), "tmp_dir": tmp_dir}
                        for c in cases if name in c.get("lowerings", envs)], f)
         out = os.path.join(tmp_dir, f"reference-{name}.npz")
-        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
+        env = child_env(**extra)
         procs[name] = (out, subprocess.Popen(
             [sys.executable, "-c", _REFERENCE, spec, out],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -411,8 +458,7 @@ def run_reference_script(code: str, tmp_dir: str) -> object:
     out = os.path.join(tmp_dir, "script-output.json")
     proc = subprocess.run(
         [sys.executable, "-c", _PATCHES + code, out],
-        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO),
-        capture_output=True, text=True, timeout=600,
+        cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"reference script failed:\n{proc.stderr[-4000:]}")
@@ -454,7 +500,7 @@ def run_reference_calls(
     np.savez(inputs, **arrays)
     proc = subprocess.run(
         [sys.executable, "-c", _CALLS, spec, inputs, out],
-        cwd=REPO, env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **(env or {})),
+        cwd=REPO, env=child_env(**(env or {})),
         capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
@@ -582,7 +628,7 @@ def run_sharded_references(cases: list[dict], tmp_dir: str) -> dict[str, np.ndar
         out = os.path.join(tmp_dir, f"sharded-{case['name']}.npz")
         with open(spec, "w") as f:
             json.dump([case], f)
-        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+        env = child_env()
         procs.append((case["name"], out, subprocess.Popen(
             [sys.executable, "-c", _SHARDED, spec, out],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -619,13 +665,31 @@ def one_thread():
 def port_cluster(case: dict):
     from ringpop_tpu_torch.models import swim_sim as tsim
     from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.obs.emitters import CaptureEmitter
 
     return SimCluster(
         case["n"], tsim.SwimParams(**case.get("params", {})),
         seed=case.get("seed", 0), init=case.get("init", "converged"), device="cpu",
         backend=case.get("backend", "dense"), damping=case.get("damping", False),
+        stats_emitter=CaptureEmitter() if case.get("stats") else None,
         **case.get("caps", {}),
     )
+
+
+def provenance_record(c, path: str) -> dict:
+    """What a ``["provenance"]`` op leaves: the cluster's
+    ``provenance_report()``, its ``summary_block``, the ``write_spans``
+    file (written to ``path``) and the ``emit_provenance`` stat calls."""
+    from ringpop_tpu_torch.obs import bridge, provenance, spans
+    from ringpop_tpu_torch.obs.emitters import CaptureEmitter
+
+    rep = c.provenance_report()
+    spans.write_spans(rep, path)
+    cap = CaptureEmitter()
+    bridge.emit_provenance(rep, cap)
+    with open(path) as f:
+        return {"report": rep, "summary": provenance.summary_block(rep), "spans": f.read(),
+                "emit": [list(x) for x in cap.calls]}
 
 
 def run_port(case: dict, on_tick=None, tries: dict | None = None,
@@ -690,11 +754,21 @@ def run_port(case: dict, on_tick=None, tries: dict | None = None,
                 real_tick = c.tick
                 c.tick = tick
             scenarios[i] = scenario_record(c, case, tr)
+        elif op[0] == "resume_checkpoint":
+            c, tr = stream.resume(op[1], device="cpu")
+            real_tick = c.tick
+            c.tick = tick
+            scenarios[i] = scenario_record(c, case, tr)
         elif op[0] == "run_sweep":
             kw = dict(op[3])
             if kw.pop("store", False):
                 kw["store"] = os.path.join(tmp_dir, f"{case['name']}-sweep-{i}")
             scenarios[i] = sweep_record(c, case, c.run_sweep(op[1], op[2], **kw))
+        elif op[0] == "provenance":
+            scenarios[i] = provenance_record(
+                c, os.path.join(tmp_dir, f"{case['name']}-port-spans-{i}.json"))
+        elif op[0] == "stats":
+            scenarios[i] = {"stats": [list(x) for x in c.stats_sink.emitter.calls]}
         elif op[0] == "try":
             try:
                 call(op[1:])
@@ -784,6 +858,22 @@ def assert_same_scenario(ref: dict[str, np.ndarray], case: dict, i: int, got: di
     assert_same_field(got["key"], ref[key + "/key"], f"{key}: key")
     assert got["loss"] == float(ref[key + "/loss"]), key
     assert got["log"] == json.loads(str(ref[key + "/log"])), key
+
+
+def assert_same_provenance(ref: dict[str, np.ndarray], case: dict, i: int, got: dict) -> None:
+    """The port's record of provenance op ``i`` equal to the reference's:
+    the report, the summary block, the stat calls and the spans file,
+    byte for byte."""
+    want = json.loads(str(ref[f"{case['name']}/pv{i}"]))
+    assert got["spans"] == want["spans"], case["name"]
+    assert json.loads(json.dumps(got)) == want, case["name"]
+
+
+def assert_same_stats(ref: dict[str, np.ndarray], case: dict, i: int, got: dict) -> None:
+    """The stat calls the port's sink captured up to op ``i`` equal to
+    the reference's, in order, keys, types and values."""
+    want = json.loads(str(ref[f"{case['name']}/stats{i}"]))
+    assert got["stats"] == want, case["name"]
 
 
 def split_heal(n: int, split: int, heal: int, split_every: int = 4) -> list:
@@ -940,6 +1030,11 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.scenarios.sweep",
     "ringpop_tpu_torch.stats",
     "ringpop_tpu_torch.checkpoint",
+    "ringpop_tpu_torch.obs",
+    "ringpop_tpu_torch.obs.emitters",
+    "ringpop_tpu_torch.obs.bridge",
+    "ringpop_tpu_torch.obs.provenance",
+    "ringpop_tpu_torch.obs.spans",
 )
 
 
@@ -1003,14 +1098,22 @@ def test_convert_round_trip():
     assert torch.equal(net.adj, net2.adj)
     key = np.array([1, 4294967295], dtype=np.uint32)
     assert (convert.key_to_numpy(convert.key_from_numpy(key)) == key).all()
-    # the policy carry crosses both ways; the provenance
-    # plane's fields are still refused
+    # the policy carry and the provenance planes cross both ways, the
+    # packed knows words as the reference's uint32 (all 32 bits); a field
+    # no NetState has is refused
     po = {"po_press": np.arange(6, dtype=np.int32), "po_shed": np.ones(6, bool),
           "po_quar": np.zeros(6, bool), "po_sends_w": np.arange(8, dtype=np.int32),
-          "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(2, np.int32)}
+          "po_deliv_w": np.ones(8, np.int32), "po_retry_cap": np.array(2, np.int32),
+          "pv_slot": np.array([[3, 10, 1, 0], [-1, -1, -1, 0]], np.int32),
+          "pv_tickv": np.array([[2, -1], [-1, -1]], np.int16),
+          "pv_wits": np.array([[4], [-1]], np.int32),
+          "pv_first": np.arange(12, dtype=np.int16).reshape(2, 6) - 1,
+          "pv_parent": np.arange(12, dtype=np.int32).reshape(2, 6) - 3,
+          "pv_knows": np.array([[0xFFFFFFFF], [5]], np.uint32)}
     net3 = convert.net_from_numpy({**convert.net_to_numpy(net), **po}, "cpu")
+    assert net3.pv_knows.dtype == torch.int64 and int(net3.pv_knows[0, 0]) == 0xFFFFFFFF
     back = convert.net_to_numpy(net3)
     for f, v in po.items():
         assert back[f].dtype == v.dtype and (back[f] == v).all(), f
     with pytest.raises(NotImplementedError):
-        convert.net_from_numpy({**convert.net_to_numpy(net), "pv_slot": np.zeros((1, 4))}, "cpu")
+        convert.net_from_numpy({**convert.net_to_numpy(net), "pv_bogus": np.zeros((1, 4))}, "cpu")

@@ -188,16 +188,26 @@ def test_single_call_counts_and_logs():
 
 
 def test_unported_planes_refused_before_the_key():
-    """Tracked rumors (the provenance plane, not ported) raise
-    ``NotImplementedError``; a bad workload, a policy without one, the
-    streaming options without ``segment_ticks`` and knobs the plane
-    cannot take raise the reference's errors; none draws a key."""
+    """Tracked rumors on the sparse step and over the planes a finished
+    traced run left, a bad workload, a policy without one, the streaming
+    options without ``segment_ticks`` and knobs the plane cannot take
+    raise the reference's errors; none draws a key."""
+    track = {"ticks": 4, "trace_rumors": 1, "events": [{"at": 1, "op": "kill", "node": 2}]}
+    sparse = SimCluster(6, SwimParams(suspicion_ticks=5, sparse_cap=4), seed=1, device="cpu")
+    before = sparse.key.clone()
+    for seg in (None, 2):
+        with pytest.raises(NotImplementedError, match="dense delivery evidence"):
+            sparse.run_scenario(track, segment_ticks=seg)
+        assert torch.equal(sparse.key, before)
     c = SimCluster(6, SwimParams(suspicion_ticks=5), seed=1, device="cpu")
+    c.run_scenario({**track, "ticks": 12})
+    assert c.provenance_report()["rumors"]
     before = c.key.clone()
-    track = {"ticks": 4, "trace_rumors": 1, "events": [{"at": 1, "op": "track", "node": 2}]}
-    with pytest.raises(NotImplementedError, match="provenance plane"):
-        c.run_scenario(track)
-    assert torch.equal(c.key, before)
+    for seg in (None, 2):
+        with pytest.raises(ValueError, match="clear_provenance"):
+            c.run_scenario(track, segment_ticks=seg)
+        assert torch.equal(c.key, before)
+    c.clear_provenance()
     for kwargs, exc, match in (
         ({"traffic": {"keys": 8}}, TypeError, "keys"),
         ({"traffic": {"kind": "bogus"}}, ValueError, "unknown workload kind"),

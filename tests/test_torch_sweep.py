@@ -196,8 +196,22 @@ def test_replica_equals_standalone_run(whole_storm):
 
 def test_unported_planes_refused_before_the_key():
     """A policy without a workload, policy axes without a policy or of
-    the wrong length, and a bad workload raise the reference's errors,
-    streamed or not; no key is drawn and the cluster logs nothing."""
+    the wrong length, a bad workload, tracked rumors on the sparse step
+    and over a finished traced run's planes raise the reference's
+    errors, streamed or not; no key is drawn and the cluster logs
+    nothing."""
+    traced = {**SPEC, "trace_rumors": 2}
+    sparse = port_cluster({**BY_NAME["seed"], "params": {**FAST, "sparse_cap": 4}})
+    left = port_cluster(BY_NAME["seed"])
+    left.run_scenario(traced)
+    assert left.provenance_report()["rumors"]
+    for d, exc, match in ((sparse, NotImplementedError, "dense delivery evidence"),
+                          (left, ValueError, "clear_provenance")):
+        key = d.key.clone()
+        for seg in (None, 5):
+            with pytest.raises(exc, match=match):
+                d.run_sweep(traced, 2, segment_ticks=seg)
+            assert torch.equal(d.key, key)
     c = port_cluster(BY_NAME["seed"])
     before = c.key.clone()
     for kwargs, exc, match in (

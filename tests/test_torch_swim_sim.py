@@ -164,9 +164,11 @@ def test_unported_net_fields_raise(field):
 
 
 def test_unported_state_and_options_raise():
-    """``prov`` still raises; the knobs (at ``params``' own values: the
-    plain step's result), the in-flight buffer (``pending``) and the
-    damping planes are ported and report their metrics."""
+    """The knobs (at ``params``' own values: the plain step's result),
+    the in-flight buffer (``pending``), the damping planes and ``prov``
+    (the plain step's state and metrics plus the evidence bundle) are
+    ported; ``prov`` on the sparse step raises the reference's
+    NotImplementedError."""
     state, net, key = _small()
     p = tsim.SwimParams()
     _, m = tsim.swim_step_impl(state._replace(pending=torch.zeros(2, 8, 8, dtype=torch.int32)),
@@ -180,8 +182,14 @@ def test_unported_state_and_options_raise():
     got, gm = tsim.swim_step_impl(state, net, key, p, knobs=tsim.swim_knob_arrays(p))
     assert all(x is None or torch.equal(x, getattr(got, f)) for f, x in want._asdict().items())
     assert {k: int(v) for k, v in wm.items()} == {k: int(v) for k, v in gm.items()}
-    with pytest.raises(NotImplementedError):
-        tsim.swim_step_impl(state, net, key, p, prov=True)
+    from ringpop_tpu_torch.obs.provenance import EVIDENCE_KEYS
+
+    got, gm = tsim.swim_step_impl(state, net, key, p, prov=True)
+    assert all(x is None or torch.equal(x, getattr(got, f)) for f, x in want._asdict().items())
+    assert set(gm) == set(wm) | set(EVIDENCE_KEYS)
+    assert all(torch.equal(wm[k], gm[k]) for k in wm)
+    with pytest.raises(NotImplementedError, match="dense delivery evidence"):
+        tsim.swim_step_impl(state, net, key, p._replace(sparse_cap=4), prov=True)
 
 
 def test_block_prefix_size_raises():
