@@ -165,13 +165,14 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     from two clusters of one seed (states, net values, keys, loss and
     the checksums of every live row equal), and a ``tick(1)`` loop over
     the same scenario; j3, the same on the delta main path (n = 65,536,
-    default caps) with the delay and gray families (80 ticks); each
+    default caps) with the delay and gray families (cut from 80 ticks to
+    40); each
     arm's ms per tick, host syncs per tick and peak memory printed, and
     ``run_scenario`` may take no more syncs a tick outside its revives
     than the ``tick(1)`` loop inside its ticks; the receiver merge
     (dense) and the row-searchsorted and merge-insert kernels (delta)
     must launch; j4, j2's first spec in two 60-tick segments and j3's
-    delay family in 40-tick segments, each with a checkpoint under the
+    delay family in 20-tick segments, each with a checkpoint under the
     git-ignored build directory, killed after the first checkpoint and
     resumed: trace and final state equal to the unsegmented run, each
     checkpoint's bytes and save and load seconds printed;
@@ -188,7 +189,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     equal to their standalone ``run_scenario(replica_spec(...),
     param_knobs=...)`` runs on every series, state field and the
     checksums of every live row; k3, delta n = 65,536 (default caps,
-    the same spec, R = 2), the whole sweep, the same streamed in 20-tick
+    the same spec cut to 40 ticks, R = 2), the whole sweep, the same
+    streamed in 20-tick
     segments pipelined and not (equal to it), and replica 1 against its
     standalone run; then the whole sweep again with knobs
     (``suspicion_ticks``, ``piggyback_factor``, ``ping_req_size`` below
@@ -210,8 +212,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     uniforms; l2, ``benchmarks/bench_policies.py``'s headline (n = 64,
     120 ticks, eight arms) equal on the card and the CPU, printed beside
     ``BASELINE.md:810-819``; l3, ``cascading_overload`` at BASELINE
-    config 3's protocol (n = 10,000, 120 ticks; the workload cut to
-    2,048 keys a tick over a 16,384-key pool): a traffic-free control,
+    config 3's protocol (n = 10,000, cut from 120 ticks to 60; the
+    workload cut to 2,048 keys a tick over a 16,384-key pool): a traffic-free control,
     the feedback arm, ``combined`` whole and in 40-tick segments (equal);
     l4, the same at n = 65,536 delta (60 ticks, 20-tick segments) with
     one serve's own peak; each arm's ms and host syncs a tick (a served
@@ -245,7 +247,29 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     bridge's tables or ``sim.*``, each increment total equal to its
     trace series, a closing checksum gauge, the streamed run's calls
     equal to the whole run's;
-21. print the ``kernels`` JSON line (each kernel's launches summed over
+21. (phase n) the incident library and the ``tick-cluster`` CLI: n1,
+    the 29 golden runs of ``tests/golden/incidents/`` (n = 16, seed 3,
+    segments of 32, in the threefry mode they were pinned in) on the card,
+    in four processes (``--incidents-card``; a served tick at n = 16 is
+    host-bound), equal to the CPU's, summary for summary (the CPU side
+    in a child process, ``--incidents-cpu``, started after phase a), and
+    to the pinned files; n2, in three more processes, ``tick_cluster
+    .main`` on ``--backend tpu-sim --incident NAME -n 64 --seed 3
+    --segment-ticks 32`` for each incident on each backend it runs on,
+    and cascading_overload's ``--policy combined`` A/B, each summary with
+    ms (contended) and host syncs a tick and peak, printed beside
+    ``BASELINE.md:767-772`` and ``:853-860`` (recorded, not asserted:
+    measured in the other threefry mode); n3, in one more process with
+    ``RINGPOP_LEDGER`` set, ``tick_cluster.main`` at BASELINE config 3
+    (n = 10,000, 1% loss) on the script with ``--profile-dir``
+    (converged at 9,999 after the kill and at 10,000 after the revive,
+    one checksum group, the receiver merge and FarmHash launched, a
+    non-empty trace directory), then on the script compiled to a
+    scenario in three 27-tick segments (converged before the revive and
+    at the end, one cold ledger row and two warm) and ``obs-ledger`` on
+    the file; then cascading_overload dense and delta again in one
+    process alone on the card, for their ms a tick uncontended;
+22. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -256,10 +280,11 @@ and prints no result line.  ``python3 chip_smoke.py --config4-65k`` runs
 only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
-only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l and
-``--provenance`` only phase m; none prints a result line.  The CPU sides
-of phases k1, l and m1 run in child processes (``--sweeps-cpu``,
-``--serving-cpu``, ``--provenance-cpu``), started after phase a.
+only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
+``--provenance`` only phase m and ``--incidents`` only phase n; none
+prints a result line.  The CPU sides of phases k1, l, m1 and n1 run in
+child processes (``--sweeps-cpu``, ``--serving-cpu``,
+``--provenance-cpu``, ``--incidents-cpu``), started after phase a.
 """
 
 from __future__ import annotations
@@ -2882,7 +2907,11 @@ def arms_phase(torch, dense_ticks: int = 34, delta_ticks: int = 36) -> dict:
 
 N_SCEN_SMALL = 256
 SCEN_TICKS = 120  # benchmarks/bench_scenario.py's horizon
-SCEN_SEGMENT = 40
+# j3's delta families cut from bench_faults.py's 80 ticks to 40 (the
+# window [8, 28), the kill at 12), and j4's delta soak in two segments of
+# them: room for phase n within the script's time limit
+SCEN_TICKS_DELTA = 40
+SCEN_SEGMENT = 20
 # the dense soak in two segments: one checkpoint mid-run (each dense
 # checkpoint write takes 14-32 s on one host core), the kill and the resume
 SCEN_SEGMENT_DENSE = SCEN_TICKS // 2
@@ -3205,9 +3234,9 @@ def scenarios_phase(torch) -> dict:
              scenario_spec(N_MAIN, SCEN_TICKS), False),
             (f"(phase j2) dense n={N_MAIN} mixed", dense, mixed_spec(N_MAIN), False),
             (f"(phase j3) delta n={N_DELTA} delay", delta,
-             fam_specs(N_DELTA, FAULT_TICKS)["delay"], True),
+             fam_specs(N_DELTA, SCEN_TICKS_DELTA)["delay"], True),
             (f"(phase j3) delta n={N_DELTA} gray", delta,
-             fam_specs(N_DELTA, FAULT_TICKS)["gray"], True)):
+             fam_specs(N_DELTA, SCEN_TICKS_DELTA)["gray"], True)):
         got, trace, runs_launches, _ = scenario_compare(torch, label, make, spec, sample)
         add(runs_launches)
         want = ("recv_merge",) if make is dense else ("row_searchsorted", "merge_insert")
@@ -3230,6 +3259,9 @@ def scenarios_phase(torch) -> dict:
 
 N_SWEEP_SMALL = 256
 SWEEP_TICKS = 60  # benchmarks/bench_sweep.py's horizon
+# k3's delta sweeps cut to 40 ticks (the kill at 5, the loss at 10, the
+# ramp from 20 to 30): room for phase n within the script's time limit
+SWEEP_TICKS_DELTA = 40
 SWEEP_SEGMENT = 20  # k3's streamed segments
 TUNE_SEED = 3  # benchmarks/tune.py:60
 TUNE_SUSPICION = [1, 2, 3, 4, 6, 8, 10, 12]  # tune.py's full boundary axis
@@ -3522,13 +3554,14 @@ def sweeps_phase(torch, cpu_ref: "CpuReference") -> dict:
             (f"(phase k2) dense n={N_MAIN}", dense, sweep_spec(N_MAIN, SWEEP_TICKS), 4,
              {"kill_jitter": [0, 1, 2, 3], "param_axes": {"suspicion_ticks": [3, 5, 8, 12]}},
              [0, 3], False, False),
-            (f"(phase k3) delta n={N_DELTA}", delta, sweep_spec(N_DELTA, SWEEP_TICKS), 2,
+            (f"(phase k3) delta n={N_DELTA}", delta, sweep_spec(N_DELTA, SWEEP_TICKS_DELTA), 2,
              {"kill_jitter": [0, 3]}, [1], True, True),
             # every delta knob site at full width (streamed sweeps take no
             # knobs): replica 1 carries a later countdown, a smaller
             # piggyback factor, ping_req_size below capacity and a
             # dividing phase_mod
-            (f"(phase k3) delta n={N_DELTA} knobs", delta, sweep_spec(N_DELTA, SWEEP_TICKS), 2,
+            (f"(phase k3) delta n={N_DELTA} knobs", delta,
+             sweep_spec(N_DELTA, SWEEP_TICKS_DELTA), 2,
              {"kill_jitter": [0, 3], "param_axes": {
                  "suspicion_ticks": [5, 8], "piggyback_factor": [15, 5],
                  "ping_req_size": [3, 2], "phase_mod": [1, 2]}}, [1], False, True)):
@@ -3563,9 +3596,10 @@ HEADLINE_N = 64  # benchmarks/bench_policies.py:30-32
 HEADLINE_SEED = 3
 HEADLINE_TICKS = 120
 HEADLINE_SEGMENT = 32
-INCIDENT_BUCKETS = 16  # scenarios/library.py LATENCY_BUCKETS
 SERVE_TICKS = 120  # the cascading_overload incident's horizon
-SERVE_TICKS_DELTA = 60  # cut to 60 ticks at n = 65 536
+# l3 (n = 10 000) and l4 (n = 65 536) cut to 60 ticks: room in the
+# script's time limit for j4's dense soak at n = 10 000 and phase n
+SERVE_TICKS_FULL = 60
 SERVE_KEYS = 2048  # cut from 8n keys a tick
 SERVE_POOL = 16384  # cut from a 32n pool
 SERVE_SEGMENT = 40
@@ -3599,38 +3633,21 @@ def serving_spec_small(n: int, ticks: int = SERVE_TICKS_SMALL) -> dict:
 
 
 def cascading_overload(n: int, ticks: int, overload: bool = True) -> tuple[dict, dict]:
-    """``scenarios/library.py``'s ``cascading_overload`` incident for n and
-    ticks (copied here: this script imports nothing of the JAX package):
-    ``_wl``'s zipf 1.2 workload (8n keys a tick, a max(32n, 256)-key
-    pool, 16 latency buckets) and the overload window its capacity knob
-    sets; ``overload=False`` is the control arm."""
-    wl = {"kind": "zipf", "zipf_s": 1.2, "keys_per_tick": 8 * n, "pool": max(32 * n, 256),
-          "latency_buckets": INCIDENT_BUCKETS}
-    m = wl["keys_per_tick"]
-    capacity = max(3, (3 * m) // (2 * n))
-    events = [{"at": ticks // 12 + 1, "op": "overload", "until": int(ticks * 0.92),
-               "capacity": capacity, "threshold": 6 * capacity, "recover": 2 * capacity,
-               "factor": 6}] if overload else []
-    return {"ticks": ticks, "events": events}, wl
+    """The incident library's ``cascading_overload`` for n and ticks as
+    the dicts the phases edit (spec, workload); ``overload=False`` is the
+    control arm."""
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    spec, wl = lib.build_incident("cascading_overload", n, ticks=ticks, overload=overload)
+    return spec.to_dict(), wl.to_dict()
 
 
 def incident_summary(trace) -> dict:
-    """The serving scorecard of ``scenarios/library.py``'s
-    ``incident_summary`` (the keys the headline table prints)."""
-    from ringpop_tpu_torch.traffic.engine import total_sends
-    from ringpop_tpu_torch.traffic.latency import hist_stats
+    """The library's ``incident_summary``, with ``ov_gray_peak`` 0 for a
+    run without the overload loop (the control arms)."""
+    from ringpop_tpu_torch.scenarios import library as lib
 
-    m = trace.metrics
-    out = {"lookups": int(m["lookups"].sum()), "delivered": int(m["delivered"].sum()),
-           "proxy_failed": int(m["proxy_failed"].sum()), "sends": total_sends(m),
-           "gray_timeouts": int(m["gray_timeouts"].sum()),
-           "lat_p99_ms": int(hist_stats(trace.planes["lat_hist_ms"].sum(axis=0))["p99"]),
-           "ov_gray_peak": int(m["ov_gray_nodes"].max()) if "ov_gray_nodes" in m else 0}
-    if "policy_shed" in m:
-        out.update(policy_shed=int(m["policy_shed"].sum()),
-                   policy_quar_peak=int(m["policy_quarantined"].max()),
-                   policy_retry_cap_min=int(m["policy_retry_cap"].min()))
-    return out
+    return {"ov_gray_peak": 0, **lib.incident_summary(trace)}
 
 
 def _np_copy(c) -> dict:
@@ -3752,19 +3769,19 @@ def serving_cpu_reference(path: str) -> None:
 
 
 SERVE_CPU_THREADS = 4  # of the machine's 8 cores; the card's host loop keeps the rest
-EARLY_CPU_THREADS = 1  # each of phases k1's and m1's children, done before phase k
+EARLY_CPU_THREADS = 1  # each of phases k1's, m1's and n1's children
 SERVE_CPU_TIMEOUT = 1000
 
 
 class CpuReference:
     """A child process computing a phase's CPU side, started early so that
     it overlaps the card's phases (stopped at exit either way): phase
-    k1's (``--sweeps-cpu``), phase l's (``--serving-cpu``) or phase m1's
-    (``--provenance-cpu``)."""
+    k1's (``--sweeps-cpu``), phase l's (``--serving-cpu``), phase m1's
+    (``--provenance-cpu``) or phase n1's (``--incidents-cpu``)."""
 
     def __init__(self, phase: str = "l"):
         self.what = {"k": "sweeps (phase k1)", "l": "serving (phase l)",
-                     "m": "provenance (phase m1)"}[phase]
+                     "m": "provenance (phase m1)", "n": "incidents (phase n1)"}[phase]
         self.dir = os.path.join(REPO, "ringpop_tpu_torch", "_build", f"phase_{phase}")
         os.makedirs(self.dir, exist_ok=True)
         self.path = os.path.join(self.dir, "cpu_reference.pt")
@@ -3772,7 +3789,8 @@ class CpuReference:
             os.remove(self.path)
         self.log = open(os.path.join(self.dir, "cpu_reference.log"), "w")
         self.t0 = time.perf_counter()
-        flag = {"k": "--sweeps-cpu", "l": "--serving-cpu", "m": "--provenance-cpu"}[phase]
+        flag = {"k": "--sweeps-cpu", "l": "--serving-cpu", "m": "--provenance-cpu",
+                "n": "--incidents-cpu"}[phase]
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, self.path],
             cwd=REPO, stdout=self.log, stderr=subprocess.STDOUT)
@@ -3957,7 +3975,7 @@ def serving_full(torch, backend: str) -> dict:
 
     dense = backend == "dense"
     n = N_MAIN if dense else N_DELTA
-    ticks = SERVE_TICKS if dense else SERVE_TICKS_DELTA
+    ticks = SERVE_TICKS_FULL
     phase = "(phase l3)" if dense else "(phase l4)"
     spec, wl = cascading_overload(n, ticks)
     spec_ctl, _ = cascading_overload(n, ticks, overload=False)
@@ -4535,6 +4553,500 @@ def provenance_phase(torch, cpu_ref: "CpuReference") -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase n: the incident library and the tick-cluster CLI
+# ---------------------------------------------------------------------------
+
+INCIDENT_N = 64  # BASELINE.md round 8/9's size (BASELINE.md:752-765)
+INCIDENT_SEED = 3
+INCIDENT_SEGMENT = 32  # the CLI's default segments for an incident
+CLI_SCRIPT = "j,t,k,w7800,t,K,w7800,t,s,q"  # n3: kill, converge, revive, converge
+CLI_SEGMENT = 27  # n3's streamed form: the script's 81-tick scenario in three segments
+INCIDENT_GOLDEN_PROCS = 4  # n1's processes on the card, beside n2's and n3's
+INCIDENT_CLI_PROCS = 3  # n2's
+# n2's runs timed again in one process alone on the card, after the rest
+SOLO_JOBS = ("cascading_overload/dense/", "cascading_overload/delta/")
+# BASELINE.md:767-772 (round 8, n = 64: goodput, amplification) and
+# :853-860 (the per-policy scorecards at the golden n = 16, dense: bare
+# and combined goodput / amplification), measured under jax 0.4.37's
+# threefry mode: printed beside the port's, not asserted
+BASELINE_ROUND8 = {"feedback": (0.766, 2.71), "control": (1.000, 1.00)}
+BASELINE_SCORECARDS = {
+    "region_partition_asym_heal": ((1.000, 1.00), (1.000, 1.00)),
+    "cascading_overload": ((0.805, 2.37), (1.000, 1.00)),
+    "deploy_during_partition": ((0.991, 1.04), (0.996, 1.02)),
+    "slow_network_hot_key": ((1.000, 1.00), (1.000, 1.00)),
+    "thundering_rejoin": ((0.952, 1.20), (0.953, 1.07)),
+    "gray_failure_storm": ((0.922, 1.40), (0.958, 1.19)),
+    "brownout_loss_ramp": ((0.990, 1.09), (0.994, 1.04)),
+    "hot_tenant_blackhole": ((1.000, 1.00), (1.000, 1.00)),
+}
+
+
+def golden_grid() -> list:
+    """The 29 (incident, backend, policy) runs pinned under
+    ``tests/golden/incidents/``: every incident on each backend it runs
+    on, and ``library.policy_golden_grid``'s policy-armed triples."""
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    grid = [(name, backend, None) for name in lib.incident_names()
+            for backend in lib.INCIDENTS[name].backends]
+    return grid + [(name, backend, policy) for name, policy, backend in lib.policy_golden_grid()]
+
+
+def _share(items: list, cost, i: int, k: int) -> list:
+    """The i-th of k shares of ``items`` of about equal ``cost``: the
+    costliest first, each to the share that holds the least."""
+    loads, shares = [0.0] * k, [[] for _ in range(k)]
+    for item in sorted(items, key=cost, reverse=True):
+        j = loads.index(min(loads))
+        shares[j].append(item)
+        loads[j] += cost(item)
+    return shares[i]
+
+
+def _run_cost(name: str, backend: str, runs: int = 1) -> float:
+    """A run's share of a phase n process: its ticks, a delta tick
+    counted as 2.5 dense ones (its ~12-24 host syncs a tick)."""
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    return runs * lib.INCIDENTS[name].default_ticks * (2.5 if backend == "delta" else 1.0)
+
+
+def golden_runs(device: str, part: int = 0, parts: int = 1) -> dict:
+    """The summary of each golden run of the ``part``-th of ``parts``
+    shares on ``device``, in the threefry mode the files were pinned in
+    (jax 0.4.37's non-partitionable one)."""
+    from ringpop_tpu_torch import prng
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    out = {}
+    with prng.partitionable_mode(False):
+        for name, backend, policy in _share(golden_grid(), lambda r: _run_cost(*r[:2]),
+                                            part, parts):
+            out[(name, backend, policy)] = lib.run_golden(name, backend, policy, device=device)
+    return out
+
+
+def incidents_cpu_reference(path: str) -> None:
+    """The CPU side of phase n1, run in a child process while the card
+    works (``--incidents-cpu``): the 29 golden summaries, saved to
+    ``path`` with ``torch.save``."""
+    import torch
+
+    torch.set_num_threads(EARLY_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = {"runs": golden_runs("cpu")}
+    out["total_s"] = time.perf_counter() - t0
+    log(f"n1 cpu golden runs {out['total_s']:.1f} s")
+    torch.save(out, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _goodput_amp(s: dict) -> tuple[float, float]:
+    return s["delivered"] / max(s["lookups"], 1), s["sends"] / max(s["delivered"], 1)
+
+
+def check_golden_cuda_equals_cpu(torch, cpu_ref: "CpuReference", parts: list[dict],
+                                 wall: float) -> dict:
+    """Phase n1: the 29 golden runs (n = 16, seed 3, segments of 32) the
+    card processes ``parts`` made equal the CPU child's, summary for
+    summary, and the pinned files where the checkout has them; returns
+    the kernels' launches (the processes')."""
+    card = {k: v for r in parts for k, v in r["runs"].items()}
+    launches = {k: sum(r["launches"][k] for r in parts) for k in parts[0]["launches"]}
+    if set(card) != set(golden_grid()):
+        raise AssertionError("incidents (phase n1): the card processes missed golden runs")
+    t_wait = time.perf_counter()
+    cpu = cpu_ref.result(torch)
+    log(f"incidents (phase n1): CPU golden runs took {cpu['total_s']:.1f} s in the child "
+        f"(started {time.perf_counter() - cpu_ref.t0:.1f} s ago; waited "
+        f"{time.perf_counter() - t_wait:.1f} s for it)")
+    golden_dir = os.path.join(REPO, "tests", "golden", "incidents")
+    pinned = 0
+    for key, s in card.items():
+        if s != cpu["runs"][key]:
+            diff = {k: (s.get(k), cpu["runs"][key].get(k)) for k in set(s) | set(cpu["runs"][key])
+                    if s.get(k) != cpu["runs"][key].get(k)}
+            raise AssertionError(f"incidents (phase n1) {key}: cuda != cpu: {diff}")
+        name, backend, policy = key
+        stem = f"{name}+{policy}" if policy else name
+        path = os.path.join(golden_dir, f"{stem}.{backend}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                if json.load(f) != s:
+                    raise AssertionError(f"incidents (phase n1) {key}: != {path}")
+            pinned += 1
+    ticks = sum(s["ticks"] for s in card.values())
+    log(f"incidents (phase n1): {len(card)} golden runs cuda == cpu, summary for summary; "
+        f"{pinned} equal to their pinned files; {ticks} ticks in {len(parts)} processes "
+        f"(each {[round(r['wall'], 1) for r in parts]} s after its start; phase n's card "
+        f"processes {wall:.1f} s in all); launches {launches}")
+    for name, (bare, comb) in BASELINE_SCORECARDS.items():
+        g0, a0 = _goodput_amp(card[(name, "dense", None)])
+        g1, a1 = _goodput_amp(card[(name, "dense", "combined")])
+        log(f"incidents (phase n1): {name} dense goodput / amplification bare {g0:.3f} / "
+            f"{a0:.2f}, combined {g1:.3f} / {a1:.2f} (BASELINE.md:853-860, the "
+            f"reference's CPU: {bare[0]:.3f} / {bare[1]:.2f}, {comb[0]:.3f} / {comb[1]:.2f})")
+    for k in ("recv_merge", "farmhash32_short", "row_searchsorted", "merge_insert"):
+        if launches[k] <= 0:
+            raise AssertionError(f"incidents (phase n1): kernel {k} was not launched")
+    return launches
+
+
+def _cli_in_process(torch, argv: list[str]) -> tuple[str, dict]:
+    """``tick_cluster.main(argv)`` in this process on the card: its printed
+    lines, wall, host syncs (outside revives) and peak over the start."""
+    import io
+
+    from ringpop_tpu_torch.cli import tick_cluster
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    sink: dict = {}
+    t0 = time.perf_counter()
+    with _syncs(torch, sink), contextlib.redirect_stdout(buf):
+        tick_cluster.main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), {"wall": time.perf_counter() - t0,
+                            "syncs": sink["syncs"] - sink.get("revive_syncs", 0),
+                            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def _summary_of(out: str, name: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"incident {name}:")]
+    if len(lines) != 1:
+        raise AssertionError(f"incidents (phase n2) {name}: no summary line in:\n{out}")
+    return lines[0]
+
+
+def cli_jobs() -> list[tuple[str, list[str]]]:
+    """Phase n2's CLI runs, (label, argv): ``--incident NAME -n 64 --seed
+    3 --segment-ticks 32`` for each incident on each backend it runs on
+    (delta at capacity n), and cascading_overload with ``--policy
+    combined`` (control and policy arm)."""
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    base = ["--backend", "tpu-sim", "-n", str(INCIDENT_N), "--seed", str(INCIDENT_SEED)]
+    jobs = []
+    for name in lib.incident_names():
+        for backend in lib.INCIDENTS[name].backends:
+            for policy in ((None, "combined") if name == "cascading_overload" else (None,)):
+                argv = base + ["--incident", name, "--segment-ticks", str(INCIDENT_SEGMENT)]
+                if backend == "delta":
+                    argv += ["--layout", "delta", "--capacity", str(INCIDENT_N)]
+                if policy:
+                    argv += ["--policy", policy]
+                jobs.append((f"{name}/{backend}/{policy or ''}", argv))
+    return jobs
+
+
+def _check_script(out: str, n: int) -> list[str]:
+    """The script's printed lines: three ``tick:`` lines, converged at n,
+    at n - 1 after the kill and at n after the revive (``CLI_SCRIPT``),
+    and one checksum group; returns the ``tick:`` lines."""
+    ticks = [ln.split("  (")[0] for ln in out.splitlines() if ln.startswith("tick:")]
+    groups = [ln for ln in out.splitlines() if ln.startswith("  checksum ")]
+    if (len(ticks) != 3 or f"CONVERGED [{n - 1}]" not in ticks[1]
+            or f"CONVERGED [{n}]" not in ticks[2] or len(groups) != 1):
+        raise AssertionError(f"incidents (phase n3): the script did not converge:\n{out}")
+    return ticks
+
+
+def _incident_line(label: str, out: str, r: dict, how: str) -> str:
+    """The summary of one ``cli_jobs`` incident run with its ms and host
+    syncs a tick and peak, ``how`` saying what shared the card."""
+    from ringpop_tpu_torch.scenarios import library as lib
+
+    name, backend, policy = label.split("/")
+    line = _summary_of(out, name)
+    if "CONVERGED" not in out and "NOT converged" not in out:
+        raise AssertionError(f"incidents (phase n2) {name}: no scenario line:\n{out}")
+    runs = 2 if policy else 1
+    ticks = runs * lib.INCIDENTS[name].default_ticks
+    return (f"{backend}{' --policy ' + policy if policy else ''}: {line}; "
+            f"{r['wall'] * 1e3 / ticks:.3f} ms a tick {how} over {ticks} ticks ({runs} "
+            f"run{'s' if runs > 1 else ''}), host syncs {r['syncs'] / ticks:.2f} a tick, peak "
+            f"{r['peak_gib']:.3f} GiB")
+
+
+def _job_cost(job: tuple[str, list[str]]) -> float:
+    name, backend, policy = job[0].split("/")
+    return _run_cost(name, backend, 2 if policy else 1)
+
+
+def check_cli_incidents(parts: list[dict], procs: int) -> dict:
+    """Phase n2: the CLI runs of ``cli_jobs`` the card processes ``parts``
+    made, in the jobs' order: each incident prints its summary, with ms and host syncs a tick and peak (ms
+    contended: ``procs`` processes of phase n on the card), and
+    cascading_overload's scorecard and A/B beside BASELINE.md's round 8.
+    Returns the kernels' launches."""
+    done = {label: (out, r) for p in parts for label, out, r in p["n2"]}
+    for label, _ in cli_jobs():
+        out, r = done[label]
+        log(f"incidents (phase n2) {_incident_line(label, out, r, f'contended ({procs} processes on the card)')}")
+        name, backend, policy = label.split("/")
+        if name != "cascading_overload":
+            continue
+        line = _summary_of(out, name)
+        if policy:
+            (ab,) = [ln for ln in out.splitlines() if ln.startswith("policy ")]
+            log(f"incidents (phase n2) {backend}: {ab} (BASELINE.md:767-772, the reference's "
+                f"CPU, jax 0.4.37's PRNG mode: feedback {BASELINE_ROUND8['feedback'][0]:.3f} / "
+                f"{BASELINE_ROUND8['feedback'][1]:.2f}; BASELINE.md:854 combined at n = 16 "
+                f"1.000 / 1.00)")
+        else:
+            m = line.split("goodput ")[1]
+            log(f"incidents (phase n2) {backend}: cascading_overload goodput "
+                f"{m.split(',')[0]}, amplification {m.split('amplification ')[1].split(',')[0]} "
+                f"(BASELINE.md:767-772 feedback {BASELINE_ROUND8['feedback'][0]:.3f} / "
+                f"{BASELINE_ROUND8['feedback'][1]:.2f}, recorded, not asserted)")
+    launches = {k: sum(p["launches"][k] for p in parts) for k in parts[0]["launches"]}
+    for k in ("recv_merge", "farmhash32", "farmhash32_short", "row_searchsorted",
+              "merge_insert"):
+        if launches[k] <= 0:
+            raise AssertionError(f"incidents (phase n2): kernel {k} was not launched")
+    log(f"incidents (phase n2): {len(done)} CLI runs in {len(parts)} processes (each "
+        f"{[round(p['wall'], 1) for p in parts]} s after its start); launches {launches}")
+    return launches
+
+
+def check_cli_solo(part: dict) -> dict:
+    """Phase n2's ``SOLO_JOBS`` rerun in one process alone on the card,
+    after the others: their ms and host syncs a tick uncontended, and
+    the same summary line as in the shared run.  Returns the kernels'
+    launches."""
+    for label, out, r in part["solo"]:
+        log(f"incidents (phase n2, alone) {_incident_line(label, out, r, 'alone on the card')}")
+    return part["launches"]
+
+
+def check_n3(part: dict) -> dict:
+    """Phase n3's checks on ``n3_runs``' results: the script converged at
+    9 999 after the kill and at 10 000 after the revive, in one checksum
+    group, through the receiver merge and FarmHash's warp kernel (each
+    launched in the script's own run), with a non-empty profile
+    directory; the scenario form converged at 9 999 before the revive
+    and at 10 000 at the end (``--trace-out``), with one cold ledger row
+    and warm rows for its one segment shape; ``obs-ledger`` summarizes
+    the file.  Returns the kernels' launches of both runs."""
+    import io
+    import shutil
+
+    from ringpop_tpu_torch import __main__ as entry
+    from ringpop_tpu_torch.obs import ledger
+    from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
+    from ringpop_tpu_torch.scenarios.trace import Trace
+
+    d = n3_dir()
+    runs = part["n3"]
+    out, r, la = runs["script"]
+    ticks = _check_script(out, N_MAIN)
+    for k in ("recv_merge", "farmhash32"):
+        if la[k] <= 0:
+            raise AssertionError(f"incidents (phase n3): kernel {k} was not launched by the "
+                                 f"script's run: {la}")
+    prof = os.path.join(d, "profile")
+    traces = [f for f in os.listdir(prof) if os.path.getsize(os.path.join(prof, f))]
+    if not traces:
+        raise AssertionError("incidents (phase n3): the profile directory is empty")
+    prof_mb = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 2**20
+    log(f"incidents (phase n3): tick-cluster -n {N_MAIN} --loss 0.01 --script {CLI_SCRIPT} "
+        f"--profile-dir (profiled, in one of phase n's processes on the card): "
+        f"{' | '.join(ticks)}; one checksum group; {r['wall']:.1f} s, host syncs {r['syncs']}, "
+        f"peak {r['peak_gib']:.2f} GiB; trace {len(traces)} file(s), {prof_mb:.1f} MiB; "
+        f"launches {la}")
+    out, r, la_scen = runs["scenario"]
+    spec = ScenarioSpec.load(os.path.join(d, "script.json"))
+    final = [ln for ln in out.splitlines() if ln.startswith("final checksums:")]
+    trace = Trace.load(os.path.join(d, "trace.npz"))
+    revive = min(e.at for e in spec.events if e.op == "revive")
+    if (len(final) != 1 or len(final[0].split()) != 3
+            or not (trace.converged[revive - 1] and trace.live[revive - 1] == N_MAIN - 1)
+            or not (trace.converged[-1] and trace.live[-1] == N_MAIN)):
+        raise AssertionError(f"incidents (phase n3): the scenario did not converge:\n{out}")
+    led_path = os.path.join(d, "ledger.jsonl")
+    rows = ledger.DispatchLedger.load_rows(led_path)
+    cold = [row for row in rows if row["cold"]]
+    if (sorted({row["ticks"] for row in rows}) != [CLI_SEGMENT] or len(cold) != 1
+            or not rows[0]["cold"] or len(rows) < 2
+            or {row["program"] for row in rows} != {"run_scenario"}
+            or any(row["platform"] != "gpu" for row in rows)):
+        raise AssertionError(f"incidents (phase n3): ledger rows {rows}")
+    buf, argv = io.StringIO(), sys.argv
+    sys.argv = ["ringpop_tpu_torch", "obs-ledger", led_path]
+    try:
+        with contextlib.redirect_stdout(buf):
+            entry.main()
+    finally:
+        sys.argv = argv
+    summary = buf.getvalue()
+    if f"{len(rows)} dispatches in" not in summary or "1 streamed soaks:" not in summary:
+        raise AssertionError(f"incidents (phase n3): obs-ledger printed:\n{summary}")
+    log(f"incidents (phase n3): the script compiled to a scenario, tick-cluster --scenario "
+        f"--segment-ticks {CLI_SEGMENT} with RINGPOP_LEDGER set: {final[0]}; converged at "
+        f"{N_MAIN - 1} live before the revive at tick {revive}, at {N_MAIN} at the end; "
+        f"{r['wall'] * 1e3 / spec.ticks:.3f} ms a tick (contended); ledger {len(rows)} rows "
+        f"({len(cold)} cold), peak {max(row['peak_bytes'] for row in rows) / 2**30:.2f} GiB; "
+        f"obs-ledger: {' | '.join(ln.strip() for ln in summary.splitlines()[1:])}; "
+        f"launches {la_scen}")
+    shutil.rmtree(d, ignore_errors=True)
+    return part["launches"]
+
+
+def incidents_phase(torch, cpu_ref: "CpuReference") -> dict:
+    """Phase n: n1's golden runs, n2's CLI runs and n3 in
+    ``INCIDENT_GOLDEN_PROCS`` + ``INCIDENT_CLI_PROCS`` + 1 processes on
+    the card at once (n1 and n2 host-bound), then ``SOLO_JOBS`` in one
+    process alone; then n1 cuda == cpu (the CPU side from ``cpu_ref``),
+    n2's summaries and n3's checks.  Returns the kernels' launches of
+    all of them."""
+    import shutil
+
+    from ringpop_tpu_torch.obs import ledger
+
+    t0 = time.perf_counter()
+    d = n3_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    parts = ([f"n1:{i}:{INCIDENT_GOLDEN_PROCS}" for i in range(INCIDENT_GOLDEN_PROCS)]
+             + [f"n2:{i}:{INCIDENT_CLI_PROCS}" for i in range(INCIDENT_CLI_PROCS)] + ["n3:0:1"])
+    workers = CardWorkers(parts, env={"n3:0:1": {
+        ledger.ENV_VAR: os.path.join(d, "ledger.jsonl"), "PYTHONPATH": REPO}})
+    solo = None
+    try:
+        done = workers.results(torch)
+        wall = time.perf_counter() - workers.t0
+        solo = CardWorkers(["solo:0:1"])
+        (alone,) = solo.results(torch)
+        solo_wall = time.perf_counter() - solo.t0
+        launches: dict[str, int] = {}
+        for more in (check_golden_cuda_equals_cpu(torch, cpu_ref, [p for p in done if "runs" in p],
+                                                  wall),
+                     check_cli_incidents([p for p in done if "n2" in p], len(parts)),
+                     check_cli_solo(alone),
+                     check_n3(next(p for p in done if "n3" in p))):
+            for k, v in more.items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        workers.stop()
+        if solo is not None:
+            solo.stop()
+    log(f"incidents (phase n): {time.perf_counter() - t0:.1f} s (the shared processes "
+        f"{wall:.1f} s, the one alone {solo_wall:.1f} s); "
+        f"launches {launches}")
+    return launches
+
+
+def n3_dir() -> str:
+    return os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_n3")
+
+
+def n3_runs(torch) -> dict:
+    """Phase n3, in its card process (``RINGPOP_LEDGER`` set to
+    ``n3_dir()/ledger.jsonl`` in its environment): ``tick_cluster.main``
+    at BASELINE config 3 (n = 10 000, 1% loss), first the script with
+    ``--profile-dir``, then the script compiled to a scenario
+    (``script_to_spec``) with ``--scenario`` in three 27-tick segments
+    and ``--trace-out`` (the ledger's rows); each with its printed
+    lines, wall, syncs, peak and the kernels' launches, each counted
+    from 0."""
+    from ringpop_tpu_torch.scenarios.spec import script_to_spec
+
+    d = n3_dir()
+    spec = script_to_spec(CLI_SCRIPT, N_MAIN)
+    spec.save(os.path.join(d, "script.json"))
+    base = ["--backend", "tpu-sim", "-n", str(N_MAIN), "--loss", "0.01", "--seed", "0"]
+    out = {}
+    for label, argv in (
+            ("script", base + ["--script", CLI_SCRIPT, "--profile-dir",
+                               os.path.join(d, "profile")]),
+            ("scenario", base + ["--scenario", os.path.join(d, "script.json"),
+                                 "--segment-ticks", str(CLI_SEGMENT), "--trace-out",
+                                 os.path.join(d, "trace.npz")])):
+        _reset_counts()
+        _counted_recv_merge_reset()
+        printed, r = _cli_in_process(torch, argv)
+        out[label] = (printed, r, _serve_counts())
+    return out
+
+
+def incidents_card_worker(part: str, path: str) -> None:
+    """One of phase n's processes on the card (``--incidents-card
+    KIND:I:K``): for ``n1`` the I-th of K shares of the golden runs; for
+    ``n2`` that of ``cli_jobs``; for ``solo`` those of
+    ``SOLO_JOBS``; for ``n3`` ``n3_runs``; with the kernels' launches
+    they made, saved to ``path`` with ``torch.save``.  At n = 16 and 64
+    a served tick is host-bound (the card idles between ~1 000 small
+    launches), so n1, n2 and n3 share the card in several processes;
+    ``solo`` runs alone after them, for ms a tick without the others."""
+    import torch
+
+    kind, i, k = part.split(":")
+    i, k = int(i), int(k)
+    torch.set_num_threads(1)
+    _reset_counts()
+    _counted_recv_merge_reset()
+    t0 = time.perf_counter()
+    if kind == "n1":
+        out = {"runs": golden_runs("cuda", i, k)}
+    elif kind == "n3":
+        out = {"n3": n3_runs(torch)}
+    else:
+        jobs = _share(cli_jobs(), _job_cost, i, k) if kind == "n2" else [
+            j for j in cli_jobs() if j[0] in SOLO_JOBS]
+        out = {kind: [(label, *_cli_in_process(torch, argv)) for label, argv in jobs]}
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = (_serve_counts() if kind != "n3" else
+                       {key: sum(r[2][key] for r in out["n3"].values())
+                        for key in _serve_counts()})
+    torch.save(out, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+class CardWorkers:
+    """Phase n's processes on the card (``incidents_card_worker``), one
+    for each of ``parts``, started together (stopped at exit either
+    way); ``env`` adds to the environment of the parts it names."""
+
+    def __init__(self, parts: list[str], env: dict[str, dict[str, str]] | None = None):
+        self.dir = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_n_card")
+        os.makedirs(self.dir, exist_ok=True)
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for part in parts:
+            stem = os.path.join(self.dir, part.replace(":", "_"))
+            if os.path.exists(stem + ".pt"):
+                os.remove(stem + ".pt")
+            log_f = open(stem + ".log", "w")
+            self.procs.append((stem + ".pt", log_f, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--incidents-card", part,
+                 stem + ".pt"], cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT,
+                env={**os.environ, **(env or {}).get(part, {})})))
+
+    def results(self, torch) -> list[dict]:
+        out = []
+        for path, log_f, proc in self.procs:
+            rc = proc.wait(timeout=SERVE_CPU_TIMEOUT)
+            log_f.flush()
+            if rc != 0:
+                with open(log_f.name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"incidents (phase n): a card process failed:\n{tail}")
+            out.append(torch.load(path, weights_only=False))
+        return out
+
+    def stop(self) -> None:
+        for _, log_f, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -4569,7 +5081,24 @@ def main() -> int:
                          "result line")
     ap.add_argument("--provenance-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--sweeps-cpu", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--incidents", action="store_true",
+                    help="only run phase n (the incident library's 29 golden runs cuda == cpu, "
+                         "the tick-cluster CLI's incidents at n = 64 and its script at n = 10 000 "
+                         "with the ledger and the profiler); print no result line")
+    ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.incidents_card:
+        # one of phase n's processes on the card
+        sys.path.insert(0, REPO)
+        incidents_card_worker(*args.incidents_card)
+        return 0
+    if args.incidents_cpu:
+        # the child of phase n: n1's CPU side, written to the given path
+        sys.path.insert(0, REPO)
+        incidents_cpu_reference(args.incidents_cpu)
+        return 0
     if args.serving_cpu:
         # the child of phase l: its CPU side, written to the given path
         sys.path.insert(0, REPO)
@@ -4654,6 +5183,11 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         provenance_phase(torch, refs[0])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.incidents:
+        refs.append(CpuReference("n"))
+        incidents_phase(torch, refs[0])
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -4672,6 +5206,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     refs.append(CpuReference("l"))
     refs.append(CpuReference("k"))
     refs.append(CpuReference("m"))
+    refs.append(CpuReference("n"))
     launches, converged_dense, c = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
@@ -4693,16 +5228,19 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches_sweeps = sweeps_phase(torch, refs[1])
     launches_serving = serving_phase(torch, refs[0])
     launches_prov = provenance_phase(torch, refs[2])
+    launches_inc = incidents_phase(torch, refs[3])
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
-    # runs of phases h-m for the receiver merge; FarmHash's warp kernel on
-    # the dense path, both config-4 paths, phases h-m, its short-row
-    # kernel on both lookup surfaces, config 5 and phase l; the delta
-    # kernels on the delta path, both config-4 paths and the delta runs of
-    # phases h-m (kernel 3 also at phase i's block search and phase m's
-    # fold); the hop on the three ring paths and phase l5
+    # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
+    # the dense path, both config-4 paths, phases h-n, its short-row
+    # kernel on both lookup surfaces, config 5 and phases l and n; the
+    # delta kernels on the delta path, both config-4 paths and the delta
+    # runs of phases h-n (kernel 3 also at phase i's block search and
+    # phase m's fold); the hop on the three ring paths and phase l5.
+    # (phase n's launches are counted in its own processes on the card)
     launches["farmhash32_short"] = (short_launches + config5_launches
-                                    + launches_serving["farmhash32_short"])
+                                    + launches_serving["farmhash32_short"]
+                                    + launches_inc["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"])
     for name in ("row_searchsorted", "merge_insert"):
@@ -4712,7 +5250,8 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
-                           + launches_serving.get(name, 0) + launches_prov.get(name, 0))
+                           + launches_serving.get(name, 0) + launches_prov.get(name, 0)
+                           + launches_inc.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

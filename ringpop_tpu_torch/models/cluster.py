@@ -372,8 +372,9 @@ class SimCluster:
         ``segment_ticks=S`` streams the sweep (``stream.run_sweep_streamed``):
         [R, S] slabs drained per segment into ``store``, the same
         replicas; not with ``param_axes``.  ``shard=True`` is a no-op on
-        one card and raises on several; ``program_tag`` has no effect
-        until the dispatch ledger is ported.  ``traffic`` serves one
+        one card and raises on several; ``program_tag`` names the sweep's
+        dispatch-ledger program (``run_sweep:<program_tag>``; unsegmented
+        sweeps only, as in the reference).  ``traffic`` serves one
         workload stream in every replica (replica r's serving counters are
         a standalone ``run_scenario(spec_r, traffic=...)``'s; see
         ``SweepTrace.serving_summary``); ``policy`` arms a policy in every

@@ -81,6 +81,7 @@ from ringpop_tpu_torch.models.swim_sim import (
     _validate_params,
     _wrap_i32,
 )
+from ringpop_tpu_torch.obs import annotate
 from ringpop_tpu_torch.ops import bitpack
 from ringpop_tpu_torch.ops.delta_merge import merge_insert
 from ringpop_tpu_torch.ops.farmhash import mul32
@@ -1250,7 +1251,7 @@ def delta_step_impl(
             state, a_subj, a_key, a_valid, fs_apply, t_safe, sl_start
         )
     elif bool(a_valid.any()):
-        with torch.profiler.record_function("delta.ack_merge"):
+        with annotate.scope("delta.ack_merge"):
             out = _merge_claims(state, *_sort_claim_rows(a_subj, a_key, a_valid), sl_start)
         state, ack_applied = out.state, out.applied_points
     if upto <= 4:
@@ -1292,7 +1293,7 @@ def delta_step_impl(
 
     pingreq_applied = zero
     if bool(req_del.any() & (state.d_pb >= 0).any()):
-        with torch.profiler.record_function("delta.exchange"):
+        with annotate.scope("delta.exchange"):
             state, pingreq_applied, late = _exchange(
                 state, params, maxpb, failed, t_safe, wit_safe, wit_valid,
                 req_del, ping_del, ack_del, resp_del, sl_start,
@@ -1820,10 +1821,10 @@ def rebase(state: DeltaState, anti_entropy: bool = False) -> DeltaState:
     host fold)."""
     state = compact(state)
     n, cap = state.n, state.capacity
-    with torch.profiler.record_function("delta.rebase_transfer"):
+    with annotate.scope("delta.rebase_transfer"):
         d_subj, d_key, d_pb, d_sl = _tables_np(state)
         base = state.base_key.cpu().numpy().copy()
-    with torch.profiler.record_function("delta.rebase_fold"):
+    with annotate.scope("delta.rebase_fold"):
         if state.side is None:
             _fold_group(d_subj, d_key, d_pb, d_sl, base, np.arange(n), cap,
                         anti_entropy=anti_entropy)
@@ -1835,7 +1836,7 @@ def rebase(state: DeltaState, anti_entropy: bool = False) -> DeltaState:
                     _fold_group(d_subj, d_key, d_pb, d_sl, base[g], members, cap,
                                 anti_entropy=anti_entropy)
             _lift_merge_rows(base, state.merge_to.cpu().numpy())
-    with torch.profiler.record_function("delta.rebase_transfer"):
+    with annotate.scope("delta.rebase_transfer"):
         state = _with_tables(state, d_subj, d_key, d_pb, d_sl)
         base_t = torch.as_tensor(base, device=state.device)
     return _with_base(_sort_rows(state), base_t)

@@ -46,7 +46,6 @@ step under a gossip ring.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, NamedTuple
 
@@ -54,6 +53,7 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import prng, resolve_device
+from ringpop_tpu_torch.obs.annotate import scoped as _scoped
 from ringpop_tpu_torch.ops import gossip_remote_copy as _grc
 from ringpop_tpu_torch.ops.farmhash import mul32
 from ringpop_tpu_torch.ops.recv_merge import recv_merge
@@ -76,22 +76,6 @@ _M32 = 0xFFFFFFFF
 # lower it to force those at small n, as the reference's tests do.
 _SPARSE_SMALL_N = 32767
 _PREFIX_BLOCK = 64  # int8-safe inner prefix width (inner <= 64 < 127)
-
-
-def _scoped(name: str):
-    """Label a phase for ``torch.profiler`` traces (the reference's
-    ``obs.annotate`` scopes, under the same names); a no-op cost of
-    about a microsecond when no profiler runs."""
-
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-
-        return wrapped
-
-    return deco
 
 
 class SwimParams(NamedTuple):

@@ -12,10 +12,14 @@ The port of ``ringpop_tpu/obs/``:
 * ``obs.provenance`` — rumor-level dissemination tracing
   (``trace_rumors`` and ``track`` in a scenario), folded on the device
   after each step, and its host-side report;
-* ``obs.spans`` — the report as Chrome trace-event JSON (Perfetto).
-
-The dispatch ledger and the profiler scopes of the reference
-(``obs.ledger``, ``obs.annotate``) are not ported yet.
+* ``obs.spans`` — the report as Chrome trace-event JSON (Perfetto);
+* ``obs.ledger`` — the dispatch ledger: a JSON line per scenario or
+  sweep dispatch (and per streamed segment) with its execute time and
+  memory, cold on a new shape; off unless ``RINGPOP_LEDGER=path`` or
+  ``default_ledger().enable(path)``; ``python -m ringpop_tpu_torch
+  obs-ledger FILE`` summarizes it;
+* ``obs.annotate`` — the protocol phases' ``torch.profiler`` scopes
+  under the reference's names and ``profile_trace(dir)``.
 """
 
 from __future__ import annotations

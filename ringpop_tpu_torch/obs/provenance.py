@@ -74,6 +74,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ringpop_tpu_torch import resolve_device
+from ringpop_tpu_torch.obs import annotate
 from ringpop_tpu_torch.ops import bitpack
 
 # status bits of a view key (as swim_sim's)
@@ -118,8 +120,10 @@ class ProvCarry(NamedTuple):
     knows: torch.Tensor  # int64[K, W]: packed knows plane
 
 
-def init_carry(n: int, k: int, k_wit: int, device: torch.device | str = "cpu") -> ProvCarry:
-    """A fresh all-unarmed carry for K rumor slots over N nodes."""
+def init_carry(n: int, k: int, k_wit: int, device: torch.device | str | None = None) -> ProvCarry:
+    """A fresh all-unarmed carry for K rumor slots over N nodes, on
+    ``device`` (``cuda`` unless the caller names one)."""
+    device = resolve_device(device)
     slot = torch.full((k, 4), -1, dtype=torch.int32, device=device)
     slot[:, _C_RES] = RES_PENDING
     return ProvCarry(
@@ -209,7 +213,7 @@ def prov_update(
     delta: ``view_lookup``).  ``tick`` is the scenario's tick (a host
     int).  Returns the next carry and the per-slot heard count int32[K]
     (the ``pv_heard`` telemetry plane)."""
-    with torch.profiler.record_function("obs.prov_update"):
+    with annotate.scope("obs.prov_update"):
         return _prov_update(pvc, ev, int(tick), view_post, pv_at, pv_node, n)
 
 

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from ringpop_tpu_torch import _build
+from ringpop_tpu_torch.obs import annotate
 
 SENTINEL = (1 << 31) - 1
 
@@ -150,11 +151,12 @@ def merge_insert(
     # and a Stream object, unless the tensors lie on another card than the
     # current one
     index = ins[0].get_device()
-    if index == torch._C._cuda_getDevice():
-        rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with annotate.scope("delta.merge_insert_pallas"):
+        if index == torch._C._cuda_getDevice():
             rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = lib.rp_merge_insert(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(rc, "merge_insert")
     merge_insert.launches += 1
     merge_insert.shapes[(cap, ki)] = merge_insert.shapes.get((cap, ki), 0) + 1

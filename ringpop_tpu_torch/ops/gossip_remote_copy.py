@@ -43,6 +43,7 @@ from typing import Any, Iterator
 import torch
 
 from ringpop_tpu_torch import _build
+from ringpop_tpu_torch.obs import annotate
 
 # ---------------------------------------------------------------------------
 # Ambient ring context
@@ -266,7 +267,7 @@ def ring_fetch_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     (``idx.shape[0] == plane.shape[0]``, global row ids, any trailing
     index shape); output shape ``idx.shape + plane.shape[1:]``.  The
     plane's blocks circulate the ring; a pure gather, so exact."""
-    with torch.profiler.record_function("gossip.ring_fetch"):
+    with annotate.scope("gossip.ring_fetch"):
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         if idx.shape[0] != n:
@@ -278,7 +279,7 @@ def ring_fetch_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def ring_take_per_row(plane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     """``plane[arange(N), col]``: each viewer row reads one of its own
     columns (the diagonal when ``col = arange(N)``).  Row-local: no hop."""
-    with torch.profiler.record_function("gossip.per_row"):
+    with annotate.scope("gossip.per_row"):
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         dev = plane.device
@@ -295,7 +296,7 @@ def ring_update_per_row(
     ``ring_take_per_row``."""
     if op not in ("set", "max"):
         raise ValueError(f"op={op!r}: set|max")
-    with torch.profiler.record_function("gossip.per_row"):
+    with annotate.scope("gossip.per_row"):
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         dev = plane.device
@@ -313,7 +314,7 @@ def ring_fetch_global(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``plane[idx]`` with ``idx`` (any shape of global row ids)
     replicated, and so the output: every shard watches all D blocks pass
     and resolves the full index set alike; shard 0's copy is returned."""
-    with torch.profiler.record_function("gossip.ring_fetch"):
+    with annotate.scope("gossip.ring_fetch"):
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         il = idx.to(torch.int64)[None].expand(d, *idx.shape)

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from ringpop_tpu_torch import _build
+from ringpop_tpu_torch.obs import annotate
 
 
 def _check(t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor) -> int:
@@ -110,11 +111,12 @@ def recv_merge(
     # for a device guard and a Stream object, unless the tensors lie on
     # another card than the current one
     index = claims.get_device()
-    if index == torch._C._cuda_getDevice():
-        _launch(t, ok, claims, meta, out, n, index)
-    else:
-        with torch.cuda.device(index):
+    with annotate.scope("swim.recv_merge_pallas"):
+        if index == torch._C._cuda_getDevice():
             _launch(t, ok, claims, meta, out, n, index)
+        else:
+            with torch.cuda.device(index):
+                _launch(t, ok, claims, meta, out, n, index)
     recv_merge.launches += 1
     if recv_merge.delivered is not None:
         recv_merge.delivered.append(meta[2 * n : 2 * n + 1])

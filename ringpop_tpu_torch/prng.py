@@ -19,6 +19,13 @@ modes:
   concatenated (``_threefry_split_original`` and
   ``_threefry_random_bits_original``).
 
+Which mode a draw takes is a process-wide setting, the counterpart of
+jax's ``jax_threefry_partitionable`` flag: ``set_partitionable(flag)``
+or ``with partitionable_mode(flag):``; the default is ``True``, jax
+0.9's.  Every function below takes ``partitionable=None`` to mean that
+setting, so every draw of the port follows it; the incident goldens
+were pinned under jax 0.4.37 and replay with ``partitionable_mode(False)``.
+
 uint32 arithmetic runs in int64 masked with ``& 0xFFFFFFFF`` (torch's
 uint32 support is partial).  ``categorical`` adds Gumbel noise
 ``-log(-log(u))`` and takes the argmax; its float32 ``log`` is
@@ -30,7 +37,9 @@ draws are made on the caller's device.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -38,6 +47,36 @@ import torch
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+
+
+_PARTITIONABLE = True
+
+
+def get_partitionable() -> bool:
+    """The process-wide threefry mode (jax's ``jax_threefry_partitionable``)."""
+    return _PARTITIONABLE
+
+
+def set_partitionable(flag: bool) -> bool:
+    """Set the process-wide threefry mode; returns the mode it replaces."""
+    global _PARTITIONABLE
+    before, _PARTITIONABLE = _PARTITIONABLE, bool(flag)
+    return before
+
+
+@contextlib.contextmanager
+def partitionable_mode(flag: bool) -> Iterator[None]:
+    """Draw in mode ``flag`` inside the block; the mode before comes back
+    after it, also when the block raises."""
+    before = set_partitionable(flag)
+    try:
+        yield
+    finally:
+        set_partitionable(before)
+
+
+def _mode(partitionable: bool | None) -> bool:
+    return _PARTITIONABLE if partitionable is None else bool(partitionable)
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -89,8 +128,9 @@ def _hash_counts(
     return threefry2x32(k1, k2, idx[:half], idx[half:])
 
 
-def split(key: torch.Tensor, num: int = 2, *, partitionable: bool = True) -> torch.Tensor:
+def split(key: torch.Tensor, num: int = 2, *, partitionable: bool | None = None) -> torch.Tensor:
     """``jax.random.split(key, num)``: int64[num, 2] keys (on the CPU)."""
+    partitionable = _mode(partitionable)
     k1, k2 = _words(key)
     if partitionable:
         b1, b2 = _hash_counts(k1, k2, num, torch.device("cpu"), True)
@@ -114,12 +154,13 @@ def random_bits(
     shape: tuple[int, ...],
     *,
     device: torch.device | str | None = None,
-    partitionable: bool = True,
+    partitionable: bool | None = None,
     offset: int = 0,
 ) -> torch.Tensor:
     """32-bit random words (int64 holding uint32) of ``shape``; in
     partitionable mode ``offset`` skips that many elements of the flat
     draw (a row block of a larger one)."""
+    partitionable = _mode(partitionable)
     k1, k2 = _words(key)
     device = torch.device("cpu") if device is None else torch.device(device)
     m = math.prod(shape)
@@ -146,13 +187,14 @@ def uniform(
     shape: tuple[int, ...],
     *,
     device: torch.device | str | None = None,
-    partitionable: bool = True,
+    partitionable: bool | None = None,
     minval: float = 0.0,
     maxval: float = 1.0,
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32):
     ``max(minval, u * (maxval - minval) + minval)`` with u in [0, 1),
     the multiply-add rounded once, as XLA:CPU's FMA does."""
+    partitionable = _mode(partitionable)
     u = _floats(random_bits(key, shape, device=device, partitionable=partitionable))
     return _scaled(u, minval, maxval)
 
@@ -174,12 +216,13 @@ def randint(
     maxval: int,
     *,
     device: torch.device | str | None = None,
-    partitionable: bool = True,
+    partitionable: bool | None = None,
 ) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32, host
     int bounds inside the int32 range): two 32-bit draws from the split
     key, ``(hi % span) * (2**32 % span) + lo % span`` in uint32 (every
     product and sum wraps at 2**32), then ``% span``."""
+    partitionable = _mode(partitionable)
     if not (-(1 << 31) <= minval < (1 << 31) and -(1 << 31) <= maxval < (1 << 31)):
         raise ValueError("randint bounds must lie in the int32 range")
     k1, k2 = split(key, partitionable=partitionable)
@@ -263,7 +306,7 @@ def categorical(
     logits: torch.Tensor,
     m: int,
     *,
-    partitionable: bool = True,
+    partitionable: bool | None = None,
 ) -> torch.Tensor:
     """``jax.random.categorical(key, logits, shape=(m,))`` for float32
     ``logits`` [K] (int64 indices on the logits' device): the argmax of
@@ -271,6 +314,7 @@ def categorical(
     ``uniform(minval=tiny)`` (the "low" mode).  In partitionable mode the
     draw is hashed in row blocks of at most ``CATEGORICAL_BLOCK``
     elements, so the int64 threefry temporaries stay bounded."""
+    partitionable = _mode(partitionable)
     k = logits.shape[0]
     dev = logits.device
     if not partitionable:
@@ -280,7 +324,8 @@ def categorical(
     out = []
     for a in range(0, m, rows):
         b = min(a + rows, m)
-        u = _scaled(_floats(random_bits(key, (b - a, k), device=dev, offset=a * k)),
+        u = _scaled(_floats(random_bits(key, (b - a, k), device=dev, partitionable=True,
+                                            offset=a * k)),
                     _F32_TINY, 1.0)
         out.append(torch.argmax(gumbel_from_uniform(u) + logits[None, :], dim=1))
     return out[0] if len(out) == 1 else torch.cat(out)

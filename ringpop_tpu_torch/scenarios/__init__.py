@@ -1,6 +1,6 @@
 """Scenarios: declarative fault timelines, run in one call per backend.
 
-The port of ``ringpop_tpu/scenarios`` without the incident library:
+The port of ``ringpop_tpu/scenarios``:
 
 * ``spec``    — the declarative ``ScenarioSpec`` and the ``--script``
   mini-DSL compiler into it;
@@ -14,7 +14,10 @@ The port of ``ringpop_tpu/scenarios`` without the incident library:
 * ``stream``  — S-tick segments, the segment store, checkpoints every
   segment and ``resume``, and the streamed sweep;
 * ``sweep``   — R replicas of a scenario (seed, loss scale, kill and
-  flap jitter, protocol knobs), with the stacked ``SweepTrace``.
+  flap jitter, protocol knobs), with the stacked ``SweepTrace``;
+* ``library`` — the named incidents (a fault timeline and its serving
+  workload each), their detect/heal/serve summary and the golden
+  configuration pinned under ``tests/golden/incidents/``.
 
 Entry points: ``SimCluster.run_scenario(spec[, segment_ticks=S,
 param_knobs=...])``, ``SimCluster.run_sweep(spec, replicas)`` and
@@ -48,6 +51,13 @@ from ringpop_tpu_torch.scenarios.stream import (
     run_streamed,
     run_sweep_streamed,
 )
+from ringpop_tpu_torch.scenarios.library import (
+    INCIDENTS,
+    Incident,
+    build_incident,
+    incident_names,
+    incident_summary,
+)
 
 __all__ = [
     "Event",
@@ -75,4 +85,9 @@ __all__ = [
     "resume",
     "run_streamed",
     "run_sweep_streamed",
+    "INCIDENTS",
+    "Incident",
+    "build_incident",
+    "incident_names",
+    "incident_summary",
 ]

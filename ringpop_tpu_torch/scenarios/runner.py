@@ -46,6 +46,7 @@ from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_delta import DeltaParams, DeltaState
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
 from ringpop_tpu_torch.obs import provenance as pvn
+from ringpop_tpu_torch.obs.ledger import default_ledger
 from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import faults as sfaults
 from ringpop_tpu_torch.scenarios.compile import (
@@ -787,10 +788,16 @@ def run_compiled(
     if compiled.trace_rumors:
         meta["trace_rumors"] = compiled.trace_rumors
     _last_meta = meta
-    st, up, resp, adj, period, ov, po, pv, ys = _scenario_scan_impl(
-        hand, net.up, net.responsive, adj, period, compiled, keys,
-        compiled.loss.cpu().numpy(), params=params, knobs=knobs,
-        traffic=traffic, ov=ov, po=po, policy=policy, pv=pv, pv_at=pv_at, pv_node=pv_node,
+    # ledger off (the default): a plain call-through; on, one row with
+    # the execute time and the memory footprint (obs/ledger.py)
+    args = (hand, net.up, net.responsive, adj, period, compiled, keys,
+            compiled.loss.cpu().numpy(), 0)
+    traced = dict(knobs=knobs, traffic=traffic, ov=ov, po=po, pv=pv, pv_at=pv_at,
+                  pv_node=pv_node)
+    statics = dict(params=params, policy=policy)
+    st, up, resp, adj, period, ov, po, pv, ys = default_ledger().dispatch(
+        "run_scenario", _scenario_scan_impl, *args, **traced, **statics, _meta=meta,
+        _sig=((*args, *traced.values()), statics),
     )
     return st, final_net(up, resp, adj, period, compiled, ov=ov, po=po, pv=pv), ys
 

@@ -33,14 +33,18 @@ a traced run (``trace_rumors``) carries its provenance planes the same
 way (``pv_*``).  With a stats sink on the cluster
 (``SimCluster(stats_emitter=)``) each segment's slab is replayed
 through the Trace->stats bridge as it drains, and the run closes with
-the checksum gauge: the stat stream of the unsegmented run.  The
-reference's per-segment dispatch ledger rows wait for the ledger.
+the checksum gauge: the stat stream of the unsegmented run.  Each
+segment goes through the dispatch ledger (``obs/ledger.py``,
+``launch``): with the ledger on, a row a segment records its dispatch,
+drain and overlapped drain seconds under the run's ``run_id``, the
+first segment of each shape cold.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 import uuid
 from typing import Any, Iterator
 
@@ -51,6 +55,7 @@ from ringpop_tpu_torch import prng
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState
 from ringpop_tpu_torch.obs import bridge as obs_bridge
+from ringpop_tpu_torch.obs.ledger import default_ledger
 from ringpop_tpu_torch.policies import core as pol
 from ringpop_tpu_torch.scenarios import compile as scompile
 from ringpop_tpu_torch.scenarios import runner as srunner
@@ -355,10 +360,12 @@ def resume(
 
 
 class _Pending:
-    """A launched segment's telemetry, on its way to the host."""
+    """A launched segment's telemetry, on its way to the host, with its
+    dispatch-ledger row (None with the ledger off)."""
 
-    def __init__(self, seg: int, a: int, ys: dict[str, torch.Tensor]):
-        self.seg, self.a, self.ys = seg, a, ys
+    def __init__(self, seg: int, a: int, ys: dict[str, torch.Tensor],
+                 row: dict[str, Any] | None = None):
+        self.seg, self.a, self.ys, self.row = seg, a, ys, row
         self.block = srunner.stack_telemetry(ys)
         self.done = None
         if self.block.is_cuda:
@@ -378,6 +385,30 @@ class _Pending:
             self.block.record_stream(side)
         side.synchronize()
         return srunner.unstack_telemetry(self.ys, pinned.numpy())
+
+
+def _launch_segment(program: str, fn: Any, args: tuple, kwargs: dict[str, Any],
+                    meta: dict[str, Any], sig: tuple[tuple, dict[str, Any]]
+                    ) -> tuple[Any, dict[str, Any] | None]:
+    """``fn(*args, **kwargs)``, one segment, through the dispatch ledger
+    (a plain call with the ledger off), its row describing ``sig``'s
+    tensors and statics: its outputs and its unrecorded row, timed to
+    the end of the launch (``dispatch_s``)."""
+    t0 = time.perf_counter()
+    out, row = default_ledger().launch(program, fn, *args, _meta=meta, _sig=sig, **kwargs)
+    if row is not None:
+        row["dispatch_s"] = round(time.perf_counter() - t0, 6)
+    return out, row
+
+
+def _drained(p: _Pending, t0: float, *, overlapped: bool) -> None:
+    """Close a segment's ledger row: the drain's seconds (from ``t0``),
+    counted as overlapped when the next segment was already launched."""
+    if p.row is not None:
+        drain_s = time.perf_counter() - t0
+        p.row["drain_s"] = round(drain_s, 6)
+        p.row["drain_overlap_s"] = round(drain_s if overlapped else 0.0, 6)
+        default_ledger().record(p.row)
 
 
 def _drive(
@@ -424,7 +455,8 @@ def _drive(
     last = {"slab": None, "prev_live": cursor.get("prev_live"), "ckpts": 0}
     pending: _Pending | None = None
 
-    def drain(p: _Pending) -> None:
+    def drain(p: _Pending, *, overlapped: bool) -> None:
+        t0 = time.perf_counter()
         stacks = p.host()
         slab = srunner.make_trace(stacks, cluster, cursor["start_tick"] + p.a, None)
         if store_obj is not None:
@@ -441,6 +473,7 @@ def _drive(
                 checksum_pending=True,
             )
         last["slab"], last["prev_live"] = slab, int(stacks["live"][-1])
+        _drained(p, t0, overlapped=overlapped)
 
     for seg in range(start_seg, len(bounds)):
         a, b = bounds[seg]
@@ -454,14 +487,27 @@ def _drive(
                     NetState(up=up.cpu(), responsive=resp.cpu(), adj=adj.cpu(),
                              period=None if period is None else period.cpu(), **carries))
         srunner._dispatches += 1
-        st, up, resp, adj, period, ov, po, pv, ys = srunner._scenario_scan_impl(
-            hand, up, resp, adj, period, compiled, keys[a:b], loss[a:b], a, params=params,
-            traffic=traffic, ov=ov, po=po, policy=policy, pv=pv, pv_at=pv_at, pv_node=pv_node)
+        meta = {"backend": cluster.backend, "n": cluster.n, "ticks": b - a, "replicas": 1,
+                "run_id": cursor["run_id"], "segment": seg, "tick0": a,
+                "segment_ticks": S, "total_ticks": T}
+        if traffic is not None:
+            meta["traffic_m"] = traffic.static.m
+        if policy is not None:
+            meta["policy"] = policy.name
+        args = (hand, up, resp, adj, period, compiled, keys[a:b], loss[a:b], a)
+        traced = dict(knobs=None, traffic=traffic, ov=ov, po=po, pv=pv, pv_at=pv_at,
+                      pv_node=pv_node)
+        statics = dict(params=params, policy=policy)
+        out, row = _launch_segment(
+            "run_scenario", srunner._scenario_scan_impl, args, {**traced, **statics}, meta,
+            ((*args, *traced.values()), statics))
+        del args, traced
+        st, up, resp, adj, period, ov, po, pv, ys = out
         hand = sim._Handoff(st)
-        del st
-        launched = _Pending(seg, a, ys)
+        del st, out
+        launched = _Pending(seg, a, ys, row)
         if pending is not None:
-            drain(pending)
+            drain(pending, overlapped=True)
             pending = None
         if due_prev:
             ckpt.save(cluster, checkpoint_path, state=snap[0], net=snap[1],
@@ -475,10 +521,10 @@ def _drive(
                 )
         pending = launched
         if not pipeline:
-            drain(pending)
+            drain(pending, overlapped=False)
             pending = None
     if pending is not None:
-        drain(pending)
+        drain(pending, overlapped=False)
 
     cluster.state = hand.take()
     cluster.net = srunner.final_net(up, resp, adj, period, compiled, ov=ov, po=po, pv=pv)
@@ -570,23 +616,32 @@ def run_sweep_streamed(
     slabs: list[Any] = []
     pending: _Pending | None = None
 
-    def drain(p: _Pending) -> None:
+    def drain(p: _Pending, *, overlapped: bool) -> None:
+        t0 = time.perf_counter()
         slab = ssweep.sweep_trace(p.host(), cluster, rkeys_np, cs, start_tick + p.a, None)
         if store_obj is not None:
             store_obj.append(slab, segment=p.seg, tick0=p.a)
         else:
             slabs.append(slab)
+        _drained(p, t0, overlapped=overlapped)
 
     for seg, (a, b) in enumerate(bounds):
-        launched = _Pending(seg, a, reps.segment(a, b))
+        meta = {"backend": cluster.backend, "n": cs.base.n, "ticks": b - a,
+                "replicas": cs.replicas, "run_id": run_id, "segment": seg, "tick0": a,
+                "segment_ticks": S, "total_ticks": T}
+        if policy is not None:
+            meta["policy"] = policy.name
+        ys, row = _launch_segment("run_sweep", reps.segment, (a, b), {}, meta,
+                                  (reps.program_args(a, b), reps.program_statics()))
+        launched = _Pending(seg, a, ys, row)
         if pending is not None:
-            drain(pending)
+            drain(pending, overlapped=True)
         pending = launched
         if not pipeline:
-            drain(pending)
+            drain(pending, overlapped=False)
             pending = None
     if pending is not None:
-        drain(pending)
+        drain(pending, overlapped=False)
     states, nets = reps.finish()
     if not assemble:
         return store_obj

@@ -42,8 +42,9 @@ work.  A traced spec (``trace_rumors``) gives each replica a fresh
 provenance carry: its planes land on ``final_nets[r]`` (``pv_*``) and
 its heard counts in the [R, T, K] plane ``pv_heard``.
 
-Not here: the dispatch ledger (``program_tag`` has no effect until it
-is ported, as in the reference with its ledger off) and the replica
+A sweep goes through the dispatch ledger (``obs/ledger.py``) as the
+program ``run_sweep``, or ``run_sweep:<program_tag>`` when the caller
+tags it.  Not here: the replica
 axis over several cards (``shard=True`` is the reference's no-op on one
 card and raises on several, item 11).  The
 reference's compile-once test of a knob grid checks XLA's compile cache
@@ -62,6 +63,7 @@ import torch
 from ringpop_tpu_torch import prng
 from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_delta import DeltaParams
+from ringpop_tpu_torch.obs.ledger import default_ledger
 from ringpop_tpu_torch.scenarios import runner
 from ringpop_tpu_torch.scenarios.compile import CompiledScenario, compile_spec, key_schedule
 from ringpop_tpu_torch.scenarios.spec import ScenarioSpec
@@ -436,6 +438,19 @@ class Replicas:
             rows.append(ys)
         return {k: torch.stack([y[k] for y in rows]) for k in rows[0]}
 
+    def program_args(self, a: int, b: int) -> tuple:
+        """What ``segment(a, b)`` runs on, for its dispatch ledger row: the
+        start state, net and adjacency (each replica's carry has their
+        shapes), the segment's [R, S] keys and loss rows, its first tick
+        and the workload."""
+        return (self.start, self.net, self.adj, self.keys[:, a:b], self.loss[:, a:b], a,
+                self.traffic)
+
+    def program_statics(self) -> dict[str, Any]:
+        """The static configuration of ``segment``: parameters, each
+        replica's policy and protocol knobs."""
+        return dict(params=self.params, policies=tuple(self.policies), knobs=self.knobs)
+
     def finish(self) -> tuple[list[Any], list[sim.NetState]]:
         """The final states and nets, replica by replica.  As in the
         reference's sweep, a final net carries the up and responsive
@@ -502,9 +517,8 @@ def run_sweep_compiled(
     standalone ``run_scenario(param_knobs=replica_param_knobs(param_axes,
     r))``, and with ``policy_axes`` ``run_scenario(policy=replica_policy(
     policy, policy_axes, r))``; ``traffic`` (a ``CompiledTraffic``)
-    serves in every replica.  ``program_tag`` names a ledger program in
-    the reference and has no effect here until the ledger is ported."""
-    del program_tag
+    serves in every replica.  ``program_tag`` names the dispatch ledger's
+    program, ``run_sweep:<program_tag>`` (``run_sweep`` untagged)."""
     if tuple(keys.shape[:2]) != (cs.replicas, cs.base.ticks):
         raise ValueError(
             f"key schedule is {tuple(keys.shape[:2])} for "
@@ -514,7 +528,23 @@ def run_sweep_compiled(
                          policy_axes=policy_axes, param_axes=param_axes)
     reps = Replicas(state, net, adj, cs, keys, params, knobs, traffic=traffic, policy=policy,
                     policy_axes=policy_axes)
-    ys = reps.segment(0, cs.base.ticks)
+    meta: dict[str, Any] = {
+        "backend": "delta" if isinstance(params, DeltaParams) else "dense",
+        "n": cs.base.n, "ticks": cs.base.ticks, "replicas": cs.replicas,
+    }
+    if traffic is not None:
+        meta["traffic_m"] = traffic.static.m
+    if policy is not None:
+        meta["policy"] = policy.name
+    if param_axes:
+        meta["param_axes"] = sorted(param_axes)
+    if cs.base.trace_rumors:
+        meta["trace_rumors"] = cs.base.trace_rumors
+    # ledger off (the default): a plain call-through; on, one row
+    ys = default_ledger().dispatch(
+        "run_sweep" if program_tag is None else f"run_sweep:{program_tag}",
+        reps.segment, 0, cs.base.ticks, _meta=meta,
+        _sig=(reps.program_args(0, cs.base.ticks), reps.program_statics()))
     states, nets = reps.finish()
     return states, nets, ys
 

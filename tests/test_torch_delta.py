@@ -244,9 +244,11 @@ def test_reference_refusals_kept():
 
 
 def test_port_reads_no_ringpop_environment():
-    """The port has one lowering per kernel site: the one ``RINGPOP_*``
-    variable its source reads is the reference's own state-build switch
-    ``RINGPOP_CARRY_SLOTBASE``, in ``swim_delta.refresh_carried`` only."""
+    """The port has one lowering per kernel site: the ``RINGPOP_*``
+    variables its source reads are the reference's own state-build switch
+    ``RINGPOP_CARRY_SLOTBASE``, in ``swim_delta.refresh_carried`` only,
+    and the dispatch ledger's switch ``RINGPOP_LEDGER`` (``obs/``: read
+    by ``DispatchLedger._maybe_enable_from_env`` only)."""
     import re
 
     root = os.path.join(REPO, "ringpop_tpu_torch")
@@ -256,16 +258,25 @@ def test_port_reads_no_ringpop_environment():
             if f.endswith((".py", ".cu")):
                 with open(os.path.join(dirpath, f)) as fh:
                     for name in re.findall(r"RINGPOP_\w+", fh.read()):
-                        hits.append((f, name))
-    assert set(hits) == {("swim_delta.py", "RINGPOP_CARRY_SLOTBASE")}, hits
+                        hits.append((os.path.relpath(os.path.join(dirpath, f), root), name))
+    assert set(hits) == {
+        (os.path.join("models", "swim_delta.py"), "RINGPOP_CARRY_SLOTBASE"),
+        (os.path.join("obs", "ledger.py"), "RINGPOP_LEDGER"),
+        (os.path.join("obs", "__init__.py"), "RINGPOP_LEDGER"),
+    }, hits
     import inspect
 
     from ringpop_tpu_torch.models import swim_delta as tdelta
+    from ringpop_tpu_torch.obs import ledger
 
     src = inspect.getsource(tdelta)
     body = inspect.getsource(tdelta.refresh_carried)
     assert src.count('os.environ.get("RINGPOP_CARRY_SLOTBASE"') == 1
     assert 'os.environ.get("RINGPOP_CARRY_SLOTBASE"' in body
+    assert ledger.ENV_VAR == "RINGPOP_LEDGER"
+    lsrc = inspect.getsource(ledger)
+    assert lsrc.count("os.environ") == 2  # .get and [] in one method
+    assert "os.environ" in inspect.getsource(ledger.DispatchLedger._maybe_enable_from_env)
 
 
 def test_sparsify_inverts_densify():

@@ -466,6 +466,35 @@ def run_reference_script(code: str, tmp_dir: str) -> object:
         return json.load(f)
 
 
+class ReferenceScript:
+    """A ``run_reference_script`` child started without waiting: the
+    caller runs the port meanwhile and reads ``result()`` after (or
+    ``close()`` it, which kills a child still running)."""
+
+    def __init__(self, code: str, tmp_dir: str, name: str = "script"):
+        self.out = os.path.join(tmp_dir, f"{name}-output.json")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _PATCHES + code, self.out],
+            cwd=REPO, env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        self._value = None
+
+    def result(self, timeout: float = 900) -> object:
+        if self._value is None:
+            _, err = self.proc.communicate(timeout=timeout)
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"reference script failed:\n{err[-4000:]}")
+            with open(self.out) as f:
+                self._value = json.load(f)
+        return self._value
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
 def flatten_outputs(x, key: str, out: dict) -> dict:
     """Numpy leaves of a (nested) result under ``key/field`` or
     ``key/index`` names, None leaves left out: the child's layout."""
@@ -1035,6 +1064,12 @@ _PORT_MODULES = (
     "ringpop_tpu_torch.obs.bridge",
     "ringpop_tpu_torch.obs.provenance",
     "ringpop_tpu_torch.obs.spans",
+    "ringpop_tpu_torch.obs.ledger",
+    "ringpop_tpu_torch.obs.annotate",
+    "ringpop_tpu_torch.scenarios.library",
+    "ringpop_tpu_torch.cli",
+    "ringpop_tpu_torch.cli.tick_cluster",
+    "ringpop_tpu_torch.__main__",
 )
 
 

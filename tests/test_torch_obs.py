@@ -81,7 +81,7 @@ def _fold_both():
     pv_at = np.array([0, 3, 0, 0, 0], np.int32)
     pv_node = np.array([2, 3, -1, -1, -1], np.int32)
     rc = rpvn.init_carry(N, K, KK)
-    tc = tpvn.init_carry(N, K, KK)
+    tc = tpvn.init_carry(N, K, KK, device="cpu")
     r_at, r_node = jnp.asarray(pv_at), jnp.asarray(pv_node)
     t_at, t_node = torch.from_numpy(pv_at), torch.from_numpy(pv_node)
     out = []

@@ -186,7 +186,7 @@ def _host_walk(spec: dict, seed: int) -> tuple[SimCluster, pvn.ProvCarry, np.nda
     c = SimCluster(N, SwimParams(**LEAN), seed=seed, device="cpu")
     compiled = scompile.compile_spec(spec_obj, c.n, base_loss=c.params.loss, device="cpu")
     keys = scompile.key_schedule(c._split, compiled)
-    pvc = pvn.init_carry(c.n, spec_obj.trace_rumors, LEAN["ping_req_size"])
+    pvc = pvn.init_carry(c.n, spec_obj.trace_rumors, LEAN["ping_req_size"], device="cpu")
     pv_at, pv_node = pvn.track_tensors(compiled.tracks, spec_obj.trace_rumors)
     by_tick = defaultdict(list)
     for at, op, arg in scompile.expand_events(spec_obj, c.params.loss):

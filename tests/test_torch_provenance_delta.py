@@ -93,7 +93,7 @@ def test_delta_host_walk_matches_run_scenario():
     b = SimCluster(N, SwimParams(**LEAN), seed=11, device="cpu", backend="delta", **AMPLE)
     compiled = scompile.compile_spec(spec, b.n, base_loss=b.params.loss, device="cpu")
     keys = scompile.key_schedule(b._split, compiled)
-    pvc = pvn.init_carry(b.n, spec.trace_rumors, LEAN["ping_req_size"])
+    pvc = pvn.init_carry(b.n, spec.trace_rumors, LEAN["ping_req_size"], device="cpu")
     pv_at, pv_node = pvn.track_tensors(compiled.tracks, spec.trace_rumors)
     by_tick = defaultdict(list)
     for at, op, arg in scompile.expand_events(spec, b.params.loss):
