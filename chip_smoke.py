@@ -166,7 +166,7 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     the checksums of every live row equal), and a ``tick(1)`` loop over
     the same scenario; j3, the same on the delta main path (n = 65,536,
     default caps) with the delay and gray families (cut from 80 ticks to
-    40); each
+    32); each
     arm's ms per tick, host syncs per tick and peak memory printed, and
     ``run_scenario`` may take no more syncs a tick outside its revives
     than the ``tick(1)`` loop inside its ticks; the receiver merge
@@ -189,7 +189,7 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     equal to their standalone ``run_scenario(replica_spec(...),
     param_knobs=...)`` runs on every series, state field and the
     checksums of every live row; k3, delta n = 65,536 (default caps,
-    the same spec cut to 40 ticks, R = 2), the whole sweep, the same
+    the same spec cut to 24 ticks, R = 2), the whole sweep, the same
     streamed in 20-tick
     segments pipelined and not (equal to it), and replica 1 against its
     standalone run; then the whole sweep again with knobs
@@ -264,12 +264,28 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     (n = 10,000, 1% loss) on the script with ``--profile-dir``
     (converged at 9,999 after the kill and at 10,000 after the revive,
     one checksum group, the receiver merge and FarmHash launched, a
-    non-empty trace directory), then on the script compiled to a
-    scenario in three 27-tick segments (converged before the revive and
-    at the end, one cold ledger row and two warm) and ``obs-ledger`` on
-    the file; then cascading_overload dense and delta again in one
+    non-empty trace directory, a ledger row for each tick() call,
+    ``swim_step`` or ``swim_run``, cold once each), then on the script
+    compiled to a scenario in three 27-tick segments (converged before
+    the revive and at the end, one cold ledger row and two warm) and
+    ``obs-ledger`` on the file; then cascading_overload dense and delta again in one
     process alone on the card, for their ms a tick uncontended;
-22. print the ``kernels`` JSON line (each kernel's launches summed over
+22. (phase o) the trace-contract auditor: ``python -m ringpop_tpu_torch
+    audit --fail-on error --json`` in a child process on the card over
+    every registered entry on both backends at the fixture size (n = 64,
+    4 ticks): each entry's host syncs a tick, peak and kernel launches,
+    every entry's sync budget and every sharded entry's hop budget
+    pinned, no error; meanwhile in this process ``run_scenario`` at
+    n = 4,096 dense and delta (the byte rows), n = 10,000 dense and
+    n = 65,536 delta (the sync rows and the flagship byte row), each
+    with its ``tick(1)`` companion, and every planted fault of
+    ``analysis/planted.py`` (``.item()`` and ``.tolist()`` in a step, a
+    handoff that keeps a reference, a float64 field, a key drawn twice,
+    mixed streams, an [N, N] plane in the delta step, a member gather),
+    each of which must be reported at severity error; the receiver merge,
+    row-searchsorted, merge-insert and ring-hop kernels must launch, and
+    FarmHash's launches are printed;
+23. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -281,10 +297,11 @@ only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
 only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
-``--provenance`` only phase m and ``--incidents`` only phase n; none
-prints a result line.  The CPU sides of phases k1, l, m1 and n1 run in
-child processes (``--sweeps-cpu``, ``--serving-cpu``,
-``--provenance-cpu``, ``--incidents-cpu``), started after phase a.
+``--provenance`` only phase m, ``--incidents`` only phase n and
+``--audit`` only phase o; none prints a result line.  The CPU sides of
+phases k1, l, m1 and n1 run in child processes (``--sweeps-cpu``,
+``--serving-cpu``, ``--provenance-cpu``, ``--incidents-cpu``), started
+after phase a.
 """
 
 from __future__ import annotations
@@ -2907,10 +2924,10 @@ def arms_phase(torch, dense_ticks: int = 34, delta_ticks: int = 36) -> dict:
 
 N_SCEN_SMALL = 256
 SCEN_TICKS = 120  # benchmarks/bench_scenario.py's horizon
-# j3's delta families cut from bench_faults.py's 80 ticks to 40 (the
-# window [8, 28), the kill at 12), and j4's delta soak in two segments of
-# them: room for phase n within the script's time limit
-SCEN_TICKS_DELTA = 40
+# j3's delta families cut from bench_faults.py's 80 ticks to 32 (the
+# window [8, 22), the kill at 12), and j4's delta soak in segments of
+# them: room for phases n and o within the script's time limit
+SCEN_TICKS_DELTA = 32
 SCEN_SEGMENT = 20
 # the dense soak in two segments: one checkpoint mid-run (each dense
 # checkpoint write takes 14-32 s on one host core), the kill and the resume
@@ -3259,9 +3276,10 @@ def scenarios_phase(torch) -> dict:
 
 N_SWEEP_SMALL = 256
 SWEEP_TICKS = 60  # benchmarks/bench_sweep.py's horizon
-# k3's delta sweeps cut to 40 ticks (the kill at 5, the loss at 10, the
-# ramp from 20 to 30): room for phase n within the script's time limit
-SWEEP_TICKS_DELTA = 40
+# k3's delta sweeps cut to 24 ticks (the kill at 3, the loss at 6, the
+# ramp from 12 to 22): room for phases n and o within the script's time
+# limit
+SWEEP_TICKS_DELTA = 24
 SWEEP_SEGMENT = 20  # k3's streamed segments
 TUNE_SEED = 3  # benchmarks/tune.py:60
 TUNE_SUSPICION = [1, 2, 3, 4, 6, 8, 10, 12]  # tune.py's full boundary axis
@@ -4828,11 +4846,13 @@ def check_n3(part: dict) -> dict:
     9 999 after the kill and at 10 000 after the revive, in one checksum
     group, through the receiver merge and FarmHash's warp kernel (each
     launched in the script's own run), with a non-empty profile
-    directory; the scenario form converged at 9 999 before the revive
-    and at 10 000 at the end (``--trace-out``), with one cold ledger row
-    and warm rows for its one segment shape; ``obs-ledger`` summarizes
-    the file.  Returns the kernels' launches of both runs."""
+    directory and a ledger row for each of its tick() calls (``swim_step``
+    or ``swim_run``, cold once each); the scenario form converged at
+    9 999 before the revive and at 10 000 at the end (``--trace-out``),
+    with one cold ledger row and warm rows for its one segment shape;
+    ``obs-ledger`` summarizes the file.  Returns the kernels' launches of both runs."""
     import io
+    from collections import Counter
     import shutil
 
     from ringpop_tpu_torch import __main__ as entry
@@ -4869,10 +4889,20 @@ def check_n3(part: dict) -> dict:
         raise AssertionError(f"incidents (phase n3): the scenario did not converge:\n{out}")
     led_path = os.path.join(d, "ledger.jsonl")
     rows = ledger.DispatchLedger.load_rows(led_path)
-    cold = [row for row in rows if row["cold"]]
-    if (sorted({row["ticks"] for row in rows}) != [CLI_SEGMENT] or len(cold) != 1
-            or not rows[0]["cold"] or len(rows) < 2
-            or {row["program"] for row in rows} != {"run_scenario"}
+    # the script's ticks first (a row a tick() call: tick(1) as swim_step,
+    # each w7800's tick(39) as swim_run, cold once each), then the
+    # scenario form's segments (cold once for its one segment shape)
+    ticked = [row for row in rows if row["program"] != "run_scenario"]
+    scen = rows[len(ticked):]
+    cold = [row for row in scen if row["cold"]]
+    shapes = {(row["program"], row["ticks"]) for row in ticked}
+    if (sorted({row["ticks"] for row in scen}) != [CLI_SEGMENT] or len(cold) != 1
+            or not scen[0]["cold"] or len(scen) < 2
+            or {row["program"] for row in scen} != {"run_scenario"}
+            or {row["program"] for row in ticked} != {"swim_step", "swim_run"}
+            or sum(row["cold"] for row in ticked) != len(shapes)
+            or any(row["backend"] != "dense" or row["n"] != N_MAIN or row["replicas"] != 1
+                   for row in ticked)
             or any(row["platform"] != "gpu" for row in rows)):
         raise AssertionError(f"incidents (phase n3): ledger rows {rows}")
     buf, argv = io.StringIO(), sys.argv
@@ -4888,8 +4918,10 @@ def check_n3(part: dict) -> dict:
     log(f"incidents (phase n3): the script compiled to a scenario, tick-cluster --scenario "
         f"--segment-ticks {CLI_SEGMENT} with RINGPOP_LEDGER set: {final[0]}; converged at "
         f"{N_MAIN - 1} live before the revive at tick {revive}, at {N_MAIN} at the end; "
-        f"{r['wall'] * 1e3 / spec.ticks:.3f} ms a tick (contended); ledger {len(rows)} rows "
-        f"({len(cold)} cold), peak {max(row['peak_bytes'] for row in rows) / 2**30:.2f} GiB; "
+        f"{r['wall'] * 1e3 / spec.ticks:.3f} ms a tick (contended); ledger {len(scen)} rows "
+        f"({len(cold)} cold), peak {max(row['peak_bytes'] for row in scen) / 2**30:.2f} GiB, "
+        f"after the script's {len(ticked)} tick rows ({sum(r['cold'] for r in ticked)} cold, "
+        f"{dict(Counter(r['program'] for r in ticked))}); "
         f"obs-ledger: {' | '.join(ln.strip() for ln in summary.splitlines()[1:])}; "
         f"launches {la_scen}")
     shutil.rmtree(d, ignore_errors=True)
@@ -5047,6 +5079,151 @@ class CardWorkers:
             log_f.close()
 
 
+# ---------------------------------------------------------------------------
+# phase o: the trace-contract auditor on the card
+# ---------------------------------------------------------------------------
+
+AUDIT_N = 64  # the audit's fixture size (its CLI default)
+AUDIT_TICKS = 4
+# run_scenario at 4 ticks: the byte rows (the reference's three) and the
+# sync rows at the main paths' sizes, each with its tick(1) companion
+AUDIT_BIG = (("dense", 4096), ("delta", 4096), ("dense", N_MAIN), ("delta", N_DELTA))
+AUDIT_TIMEOUT = 300
+
+
+def _audit_row(r) -> str:
+    peak = "" if r.peak_bytes is None else f", peak {r.peak_bytes} B"
+    tick1 = "" if r.tick1_syncs is None else f", tick(1) {r.tick1_syncs:g}"
+    return (f"{r.entry} [{r.backend}] n={r.n}: syncs {r.syncs} a tick{tick1}, host reads "
+            f"{r.host_reads:g}{peak}, launches {r.launches}, syncs by line {r.sync_sites}")
+
+
+class AuditChild:
+    """Phase o's ``python -m ringpop_tpu_torch audit --fail-on error
+    --json`` in a child process on the card (every entry at the fixture
+    size), its JSON lines and errors written under ``_build/``.  The
+    whole script starts it before phase m, whose small-n part is
+    host-bound, so that the child runs beside it."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.path = os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_o.jsonl")
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.out = open(self.path, "w")
+        self.err = open(self.path + ".err", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ringpop_tpu_torch", "audit", "--fail-on", "error", "--json",
+             "--n", str(AUDIT_N), "--ticks", str(AUDIT_TICKS)],
+            cwd=REPO, stdout=self.out, stderr=self.err, text=True)
+        self.wall = None
+
+    def result(self) -> tuple[int, list[dict], str]:
+        """(exit code, JSON lines, stderr) once the child has ended."""
+        rc = self.proc.wait(timeout=AUDIT_TIMEOUT)
+        if self.wall is None:
+            self.wall = time.perf_counter() - self.t0
+        self.out.flush()
+        self.err.seek(0)
+        with open(self.path) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        return rc, lines, self.err.read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def audit_phase(torch, child: AuditChild | None = None) -> dict:
+    """Phase o: the audit ``child`` (started here when not given) over
+    every entry at the fixture size, while this process audits
+    ``run_scenario`` at ``AUDIT_BIG`` (the byte and sync rows, each with
+    its tick(1) companion) and runs every planted fault of
+    ``analysis/planted.py``, each of which must be reported at severity
+    error.  Every entry's syncs, the byte rows and the sharded entries'
+    hops must be pinned.  Returns the kernels' launches of the phase (the
+    child's entries and this process's runs)."""
+    from ringpop_tpu_torch.analysis import budgets, planted
+    from ringpop_tpu_torch.analysis.contracts import audit_entry
+    from ringpop_tpu_torch.analysis.registry import iter_entries
+
+    t0 = time.perf_counter()
+    child = child or AuditChild()
+    problems = []
+    try:
+        _reset_counts()
+        _counted_recv_merge_reset()
+        for backend, n in AUDIT_BIG:
+            t1 = time.perf_counter()
+            r = audit_entry("run_scenario", backend, n=n, ticks=AUDIT_TICKS, device="cuda")
+            bad = [str(f) for f in r.findings if f.severity != "info"]
+            ref = budgets.REFERENCE_CPU_PEAK.get(("run_scenario", backend, n))
+            log(f"audit (phase o) {_audit_row(r)}"
+                + (f" (the reference's CPU-XLA derived peak {ref} B, for information)"
+                   if ref else "") + f"; {time.perf_counter() - t1:.1f} s")
+            problems += bad
+        for name, p in planted.PLANTED.items():
+            hits, _ = planted.run_planted(name, n=AUDIT_N, ticks=AUDIT_TICKS, device="cuda")
+            log(f"audit (phase o) planted {name} ({p.what}) on {p.entry} [{p.backend}]: "
+                f"{len(hits)} {p.contract} error(s)"
+                + (f", e.g. {hits[0].message[:160]}" if hits else ""))
+            if not hits:
+                problems.append(f"planted fault {name} was not found on the card")
+        launches = _serve_counts()
+        own = time.perf_counter() - t0
+        rc, lines, err = child.result()
+    finally:
+        child.stop()
+    entries = [d for d in lines if d["kind"] == "entry"]
+    others = [d for d in lines if d["kind"] == "finding"]
+    if rc != 0:
+        problems.append(f"audit --fail-on error exited {rc}: "
+                        f"{[d for d in others if d['severity'] == 'error'][:5]} {err[-2000:]}")
+    want = set(iter_entries())
+    got = {(d["entry"], d["backend"]) for d in entries}
+    skipped = {(d["entry"], d["message"].split("[")[1].split("]")[0]) for d in others
+               if d["contract"] == "registry"}
+    if got | skipped != want or skipped != {("run_sweep+shard", "dense"),
+                                             ("run_sweep+shard", "delta")}:
+        problems.append(f"the audit reported {sorted(got)} and skipped {sorted(skipped)}")
+    for d in entries:
+        row = budgets.SYNC_BUDGETS.get((d["entry"], d["backend"], AUDIT_N))
+        hops = d["launches"].get("ring_hop", 0)
+        log(f"audit (phase o) {d['entry']} [{d['backend']}] n={AUDIT_N}: syncs {d['syncs']} a "
+            f"tick (pinned {row and row['per_tick']}), host reads {d['host_reads']:g} (pinned "
+            f"{row and row.get('reads')}), tick(1) {d['tick1_syncs']}, peak {d['peak_bytes']} B, "
+            f"member gathers {d['member_gathers']}, launches {d['launches']}, syncs by line "
+            f"{d['sync_sites']}")
+        missing = [f["message"] for f in d["findings"] if "no pin" in f["message"]]
+        if row is None or missing:
+            problems.append(f"{d['entry']} [{d['backend']}]: not pinned ({missing})")
+        if d["mesh_size"] and budgets.HOP_BUDGETS.get((d["entry"], d["mesh_size"])) is None:
+            problems.append(f"{d['entry']}: no hop pin ({hops} hops)")
+        for k, v in d["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for backend, n in AUDIT_BIG:
+        if budgets.SYNC_BUDGETS.get(("run_scenario", backend, n)) is None:
+            problems.append(f"run_scenario [{backend}] n={n}: no sync pin")
+    for key in budgets.REFERENCE_CPU_PEAK:
+        if key not in budgets.BYTE_BUDGETS:
+            problems.append(f"{key}: no byte pin")
+    for k in ("recv_merge", "row_searchsorted", "merge_insert", "ring_hop"):
+        if launches.get(k, 0) <= 0:
+            problems.append(f"kernel {k} was not launched")
+    log(f"audit (phase o): {len(entries)} entries clean of errors on the card, "
+        f"{len(planted.PLANTED)} planted faults; FarmHash launched "
+        f"{launches['farmhash32']} (warp) and {launches['farmhash32_short']} (short) times "
+        f"(the traffic fixtures hash their key pools); launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s here ({own:.1f} s of this process's own runs), the "
+        f"audit child {child.wall:.1f} s from its start")
+    if problems:
+        raise AssertionError("audit (phase o):\n" + "\n".join(problems))
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -5085,6 +5262,10 @@ def main() -> int:
                     help="only run phase n (the incident library's 29 golden runs cuda == cpu, "
                          "the tick-cluster CLI's incidents at n = 64 and its script at n = 10 000 "
                          "with the ledger and the profiler); print no result line")
+    ap.add_argument("--audit", action="store_true",
+                    help="only run phase o (the trace-contract auditor on the card: every "
+                         "entry, the byte and sync rows, the planted faults); print no result "
+                         "line")
     ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
                     help=argparse.SUPPRESS)
@@ -5188,6 +5369,10 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         incidents_phase(torch, refs[0])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.audit:
+        audit_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -5227,8 +5412,12 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches_scen = scenarios_phase(torch)
     launches_sweeps = sweeps_phase(torch, refs[1])
     launches_serving = serving_phase(torch, refs[0])
+    # phase o's audit child runs beside phase m (host-bound at n = 256)
+    audit_child = AuditChild()
+    refs.append(audit_child)
     launches_prov = provenance_phase(torch, refs[2])
     launches_inc = incidents_phase(torch, refs[3])
+    launches_audit = audit_phase(torch, audit_child)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
@@ -5237,12 +5426,15 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # delta kernels on the delta path, both config-4 paths and the delta
     # runs of phases h-n (kernel 3 also at phase i's block search and
     # phase m's fold); the hop on the three ring paths and phase l5.
-    # (phase n's launches are counted in its own processes on the card)
+    # (phase n's launches are counted in its own processes on the card, and
+    # phase o's in its audit child and in this process)
     launches["farmhash32_short"] = (short_launches + config5_launches
                                     + launches_serving["farmhash32_short"]
-                                    + launches_inc["farmhash32_short"])
+                                    + launches_inc["farmhash32_short"]
+                                    + launches_audit["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
-                            + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"])
+                            + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"]
+                            + launches_audit["ring_hop"])
     for name in ("row_searchsorted", "merge_insert"):
         launches[name] = launches_delta[name]
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
@@ -5251,7 +5443,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
                            + launches_serving.get(name, 0) + launches_prov.get(name, 0)
-                           + launches_inc.get(name, 0))
+                           + launches_inc.get(name, 0) + launches_audit.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -5,9 +5,10 @@ Subcommands:
   tick-cluster    the simulated cluster harness and fault injector
                   (``--backend tpu-sim``)
   obs-ledger      summarize a dispatch-ledger .jsonl (obs/ledger.py)
+  audit           the trace-contract auditor (analysis/cli.py)
 
-The reference's ``worker`` and ``generate-hosts`` (its host library) and
-``audit`` (its trace-contract auditor) are not ported and raise.
+The reference's ``worker`` and ``generate-hosts`` (its host library) are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import sys
 _NOT_PORTED = {
     "worker": "ROADMAP queue 1 item 12 (the host library)",
     "generate-hosts": "ROADMAP queue 1 item 12 (the host library)",
-    "audit": "ROADMAP queue 1 item 9 (audit and bench)",
 }
 
 
@@ -30,6 +30,10 @@ def main() -> None:
         from ringpop_tpu_torch.cli.tick_cluster import main as tick_main
 
         tick_main(rest)
+    elif command == "audit":
+        from ringpop_tpu_torch.analysis.cli import main as audit_main
+
+        audit_main(rest)
     elif command == "obs-ledger":
         from ringpop_tpu_torch.obs.ledger import main as ledger_main
 

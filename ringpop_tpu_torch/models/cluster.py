@@ -29,6 +29,7 @@ from ringpop_tpu_torch.models import swim_sim as sim
 from ringpop_tpu_torch.models.swim_sim import NetState, SwimParams
 from ringpop_tpu_torch.obs import bridge as obs_bridge
 from ringpop_tpu_torch.obs import provenance as pvn
+from ringpop_tpu_torch.obs.ledger import default_ledger
 from ringpop_tpu_torch.ops import checksum_device as ckdev
 from ringpop_tpu_torch.ops import ring_ops
 from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
@@ -135,24 +136,39 @@ class SimCluster:
     def tick(self, ticks: int = 1) -> dict[str, int]:
         """Advance every node ``ticks`` protocol periods; returns the last
         tick's counters (plus ``ticks``), which also go to the stats sink
-        (``obs.bridge.emit_counters``) when there is one."""
+        (``obs.bridge.emit_counters``) when there is one.  Each call is one
+        dispatch of the ledger (``obs.ledger``), as ``swim_step``,
+        ``swim_run``, ``delta_step`` or ``delta_run``: a plain call while
+        the ledger is off."""
+        led = default_ledger()
+        meta = {"backend": self.backend, "n": self.n, "ticks": ticks, "replicas": 1}
         if self.backend == "delta":
             if ticks == 1:
-                self.state, metrics = sdelta.delta_step_impl(
-                    self.state, self.net, self._split(), self.dparams
-                )
+                self.state, metrics = led.dispatch(
+                    "delta_step", sdelta.delta_step_impl, self.state, self.net, self._split(),
+                    params=self.dparams, _meta=meta)
             else:
-                self.state, metrics = sdelta.delta_run_impl(
-                    self.state, self.net, self._split(), self.dparams, ticks
-                )
-        elif ticks == 1:
-            (metrics,) = self._handed(
-                lambda hand: sim._swim_step_handed(hand, self.net, self._split(), self.params)
-            )
+                self.state, metrics = led.dispatch(
+                    "delta_run", sdelta.delta_run_impl, self.state, self.net, self._split(),
+                    params=self.dparams, ticks=ticks, _meta=meta)
         else:
-            (metrics,) = self._handed(
-                lambda hand: sim._swim_run_handed(hand, self.net, self._split(), self.params, ticks)
-            )
+            # the signature is read off the handed-over box, before the
+            # step takes the state out of it
+            if ticks == 1:
+                def step(hand):
+                    key = self._split()
+                    return led.dispatch(
+                        "swim_step", sim._swim_step_handed, hand, self.net, key, self.params,
+                        _meta=meta, _sig=((hand, self.net, key), {"params": self.params}))
+            else:
+                def step(hand):
+                    key = self._split()
+                    return led.dispatch(
+                        "swim_run", sim._swim_run_handed, hand, self.net, key, self.params,
+                        ticks, _meta=meta,
+                        _sig=((hand, self.net, key), {"params": self.params, "ticks": ticks}))
+            (metrics,) = self._handed(step)
+        # audit: allow=RPL001 the tick's one read of its counters, in one copy
         values = torch.stack(list(metrics.values())).tolist()
         # sorted by name, as the reference's jitted steps return them (the
         # order the stats sink sees)
@@ -461,6 +477,7 @@ class SimCluster:
             return sdelta.materialize_rows(self.state, rows)
         return self.state.view_key.index_select(0, rows)
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def _view_rows(self, idx: np.ndarray) -> np.ndarray:
         """int32[len(idx), N] view rows (host copies)."""
         return self._device_rows(idx).cpu().numpy()
@@ -473,6 +490,7 @@ class SimCluster:
             )
         return torch.diagonal(self.state.view_key)
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def live_indices(self) -> np.ndarray:
         up = (self.net.up & self.net.responsive).cpu().numpy()
         own = self._own_keys().cpu().numpy() & 7
@@ -485,6 +503,7 @@ class SimCluster:
             return bool(sdelta._converged_impl(self.state, self.net.up, self.net.responsive))
         return bool(sim.converged_impl(self.state, self.net))
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def checksums(
         self, indices: Sequence[int] | None = None, backend: str | None = None
     ) -> dict[str, int]:
@@ -537,6 +556,7 @@ class SimCluster:
         damped = getattr(self.state, "damped", None)
         return None if damped is None else damped[viewer]
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def ring_for(self, viewer: int) -> HashRing:
         """The viewer's host ring: its alive and suspect members (faulty
         and leave members are out of the ring, and so are the members it
@@ -552,6 +572,7 @@ class SimCluster:
         ring.add_remove_servers(servers, [])
         return ring
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def damped_pairs(self) -> int:
         """Total (viewer, subject) damped entries (0 without damping)."""
         damped = getattr(self.state, "damped", None)
@@ -591,6 +612,7 @@ class SimCluster:
         return tworkloads.compile_traffic(spec, self.n, self.book.addresses,
                                           ring=self.traffic_ring())
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def lookup_batch(self, keys: Sequence[str], viewer: int = 0) -> list[str | None]:
         """Resolve a batch of keys through ``viewer``'s ring in one pass on
         the device: the keys are hashed there and resolved by a masked
@@ -626,6 +648,7 @@ class SimCluster:
                 out[i] = host_ring.lookup(keys[i])
         return out
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def status_counts(self, viewer: int) -> dict[str, int]:
         vs = self._view_rows(np.asarray([viewer]))[0] & 7
         return {name: int((vs == code).sum()) for code, name in sim.STATUS_NAMES.items()}
@@ -646,6 +669,7 @@ class SimCluster:
     def resume(self, i: int) -> None:
         self._set_flag("responsive", i, True)
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def revive(self, i: int, inc: int | None = None, seed: int | None = None) -> None:
         """Restart a killed node as a fresh process and re-join it."""
         if inc is None:
@@ -690,7 +714,7 @@ class SimCluster:
         gid = groups_to_gid(groups, self.n)
         keep_mask = self.net.adj is not None and self.net.adj.dim() == 2
         if (gid >= 0).all() and not keep_mask:
-            self.net = self.net._replace(adj=torch.as_tensor(gid).to(self.device))
+            self.net = self.net._replace(adj=torch.as_tensor(gid, device=self.device))
             return
         if self.backend == "delta":
             raise NotImplementedError(
@@ -698,7 +722,7 @@ class SimCluster:
                 "adjacency); partial groupings need the dense mask form"
             )
         same = (gid[:, None] == gid[None, :]) | (gid[:, None] < 0) | (gid[None, :] < 0)
-        self.net = self.net._replace(adj=torch.as_tensor(same).to(self.device))
+        self.net = self.net._replace(adj=torch.as_tensor(same, device=self.device))
 
     def heal_partition(self) -> None:
         """Reconnect everything, keeping the adjacency's form."""
@@ -716,6 +740,7 @@ class SimCluster:
 
     # -- the fault model: directed link rules, delay, per-node periods ----------
 
+    # audit: allow=RPL001 host-side by design: the caller asks for host values
     def set_link_rules(self, src, dst, p, d=None, j=None) -> None:
         """Install K directed link rules: a message from a node in
         ``src[k]`` to a node in ``dst[k]`` drops with extra probability
@@ -860,7 +885,7 @@ class SimCluster:
         if (gid < 0).any():
             raise ValueError("split_sides groups must cover every node")
         self.state = sdelta.make_sides(self.state, gid)
-        self.net = self.net._replace(adj=torch.as_tensor(gid).to(self.device))
+        self.net = self.net._replace(adj=torch.as_tensor(gid, device=self.device))
 
     def fold_sides(self) -> None:
         """Leave sided mode after the remerge converges

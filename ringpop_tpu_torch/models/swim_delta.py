@@ -242,8 +242,8 @@ def init_delta(
     dev = resolve_device(device)
     if inc is None:
         inc = torch.zeros(n, dtype=torch.int32, device=dev)
-    inc = torch.as_tensor(np.asarray(inc) if not torch.is_tensor(inc) else inc)
-    inc = inc.to(device=dev, dtype=torch.int32)
+    inc = torch.as_tensor(np.asarray(inc) if not torch.is_tensor(inc) else inc, device=dev)
+    inc = inc.to(dtype=torch.int32)
     _check_inc(inc)
     alive_key = inc * 8 + ALIVE
     c = capacity
@@ -409,6 +409,7 @@ def densify(state: DeltaState) -> ClusterState:
     return ClusterState(view_key=vk, pb=pb, suspect_left=sl, tick=state.tick)
 
 
+# audit: allow=RPL001 a dense state converted on the host, once
 def sparsify(dense: ClusterState, base_key: Any, capacity: int) -> DeltaState:
     """Delta representation of a dense state against ``base_key``
     (tests; host-side).  Raises if any row diverges beyond capacity."""
@@ -614,6 +615,7 @@ def _windowed_changes(
     n = within.shape[0]
     w = min(w, within.shape[1])
     dev = within.device
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(within.any()):
         cols = _compact_true(within, w)
         safe = cols.clamp(max=state.capacity - 1)
@@ -811,6 +813,7 @@ def _merge_claims(
     free = cap - slots_live.sum(dim=1, dtype=torch.int32)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((ins.any(dim=1) | self_ins).any()):
         # drop insertions beyond each row's free slots: self first, then
         # subject order
@@ -1143,6 +1146,7 @@ def delta_step_impl(
 
     # -- phase 2: sender issues up to W changes -------------------------------
     bump = (state.d_pb >= 0) & sends[:, None]
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(bump.any()):
         d_pb = state.d_pb
         pb1_ok = bump & (d_pb + 1 <= maxpb[:, None])
@@ -1184,6 +1188,7 @@ def delta_step_impl(
     else:
         sent_merge = sent_valid
     ping_applied, claims_dropped = zero, mat_late
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(sent_merge.any()):
         g_subj, g_key, g_valid, late = _route_claims(
             n, send_subj, send_key, sent_merge, t_safe, params.claim_grid
@@ -1196,6 +1201,7 @@ def delta_step_impl(
 
     # -- phase 4: receiver replies; sender merges the ack ---------------------
     has_change2 = state.d_pb >= 0
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(has_change2.any() & fwd_ok.any()):
         d_pb = state.d_pb
         tgt_sorted = torch.sort(torch.where(fwd_ok, t_safe, n)).values
@@ -1222,6 +1228,7 @@ def delta_step_impl(
 
     # anti-echo: drop reply claims about a subject this sender delivered
     # this tick whose value equals the sender's current belief
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((a_subj < SENTINEL).any()):
         sent_sorted = torch.where(sent_valid, send_subj, SENTINEL)
         _, sent_hit = _lookup_pos(sent_sorted, a_subj_q)
@@ -1244,12 +1251,14 @@ def delta_step_impl(
         state = _pend_write(state, 1, d4, dly4, a_subj, a_key, a_raw, ids)
     else:
         a_valid = a_raw & ack[:, None]
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     any_fs = bool(fs_apply.any())
     ack_applied = zero
     if any_fs:
         state, ack_applied = _ack_full_sync(
             state, a_subj, a_key, a_valid, fs_apply, t_safe, sl_start
         )
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     elif bool(a_valid.any()):
         with annotate.scope("delta.ack_merge"):
             out = _merge_claims(state, *_sort_claim_rows(a_subj, a_key, a_valid), sl_start)
@@ -1292,6 +1301,7 @@ def delta_step_impl(
     declare_suspect = failed & ~any_success & definite_fail
 
     pingreq_applied = zero
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(req_del.any() & (state.d_pb >= 0).any()):
         with annotate.scope("delta.exchange"):
             state, pingreq_applied, late = _exchange(
@@ -1302,6 +1312,7 @@ def delta_step_impl(
 
     # the declaration sees the post-exchange view
     dec_valid = declare_suspect & (t_safe != ids)
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(dec_valid.any()):
         cur_t = view_lookup(state, t_safe)
         dec_key = torch.where(cur_t > 0, (cur_t >> 3) * 8 + SUSPECT, 0)
@@ -1313,6 +1324,7 @@ def delta_step_impl(
 
     # -- phase 6: suspicion countdowns fire -> faulty --------------------------
     n_expired = zero
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((state.d_sl >= 0).any()):
         key0, sl0 = state.d_key, state.d_sl
         sl1 = torch.where(sl0 > 0, sl0 - 1, sl0)
@@ -1391,6 +1403,7 @@ def _mature_lanes(
     slot0 = (state.tick % state.pend_subj.shape[0]).long().view(1)
     m_subj = state.pend_subj.index_select(0, slot0)[0]  # [L, N, W]
     applied, late = zero, zero
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((m_subj < SENTINEL).any()):
         m_key = state.pend_key.index_select(0, slot0)[0]
         m_recv = state.pend_recv.index_select(0, slot0)[0]  # [L, N]
@@ -1481,6 +1494,7 @@ def _ack_full_sync(
         own_now = view_lookup(st4, ids)
         own_st = own_now & 7
         need_ref = fs_apply & ((own_st == SUSPECT) | (own_st == FAULTY))
+        # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
         if bool(need_ref.any()):
             out2 = _merge_claims(
                 st4, ids[:, None], own_now[:, None], need_ref[:, None], sl_start
@@ -1557,6 +1571,7 @@ def _exchange(
 
     # -- 5a: the ping-req body carries the source's changes
     sa_subj = w_empty
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool(((st.d_pb >= 0) & failed[:, None]).any()):
         nreq = (failed[:, None] & wit_valid).sum(dim=1, dtype=torch.int32)
         st, win_a = _stage_issue_delta(st, nreq, maxpb, w)
@@ -1576,6 +1591,7 @@ def _exchange(
     # -- 5b: the witness relay-pings the target with its changes
     wit_sent_subj = w_empty
     hc_b = (st.d_pb >= 0).any(dim=1)
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((req_del & hc_b[wit_safe.long()]).any()):
         nsrv = _role_counts(wit_safe, req_del, n)
         st, win_b = _stage_issue_delta(st, nsrv, maxpb, w)
@@ -1597,6 +1613,7 @@ def _exchange(
 
     # -- 5c: the target's ack carries its changes back
     hc_c = (st.d_pb >= 0).any(dim=1)
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((ping_del & hc_c[t_safe.long()][:, None]).any()):
         ntgt = _role_counts(t_safe[:, None].expand(n, kk), ping_del, n)
         st, win_c = _stage_issue_delta(st, ntgt, maxpb, w)
@@ -1630,6 +1647,7 @@ def _exchange(
 
     # -- 5d: the witness response carries its (fresh) changes
     hc_d = (st.d_pb >= 0).any(dim=1)
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
     if bool((req_del & hc_d[wit_safe.long()]).any()):
         nsrv = _role_counts(wit_safe, req_del, n)
         st, win_d = _stage_issue_delta(st, nsrv, maxpb, w)
@@ -1681,8 +1699,9 @@ def delta_run_impl(
 def materialize_rows(state: DeltaState, idx: Any) -> torch.Tensor:
     """int32[len(idx), N] view rows of the requested viewers: the base
     with each viewer's live slots written in."""
-    idx = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx)
-    idx = idx.to(device=state.device, dtype=torch.int64)
+    idx = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx,
+                          device=state.device)
+    idx = idx.to(dtype=torch.int64)
     return _scatter_rows(_base_rows(state, idx), _rows(state.d_subj, idx), _rows(state.d_key, idx))
 
 
@@ -1775,6 +1794,7 @@ def _keep_slots(
     )
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def _tables_np(state: DeltaState) -> tuple[np.ndarray, ...]:
     """Host copies of (d_subj, d_key, d_pb, d_sl), C-contiguous."""
     return tuple(
@@ -1809,6 +1829,7 @@ def _with_base(state: DeltaState, base_key: torch.Tensor, **extra) -> DeltaState
         base_key=base_key, bp_mask=bp_mask, bp_rank=bp_rank, bp_list=bp_list, **extra))
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def rebase(state: DeltaState, anti_entropy: bool = False) -> DeltaState:
     """Fold majority divergence into the base (host-side, rare): per
     subject, a value most viewers converged on becomes the base, the
@@ -1860,6 +1881,7 @@ def _lmerge_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.where(beats, b, a)
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def make_sides(state: DeltaState, gid: Any) -> DeltaState:
     """Enter sided mode for a block netsplit: ``gid[i]`` in 0..G-1 puts
     viewer i on a side.  Makes G + 1 base rows (each side's a copy of
@@ -1897,6 +1919,7 @@ def make_sides(state: DeltaState, gid: Any) -> DeltaState:
                       merge_to=torch.as_tensor(merge_to, device=dev))
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def fold_to_single(state: DeltaState) -> DeltaState:
     """Leave sided mode (host-side, after the remerge converges): the
     single base becomes the lattice merge of all rows, and a viewer
@@ -2134,6 +2157,7 @@ def _set_entry(
     return _with_tables(state, d_subj, d_key, d_pb, d_sl)
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def _base_row_np(state: DeltaState, viewer: int) -> np.ndarray:
     """The viewer's base row as numpy (its side's row in sided mode)."""
     if state.side is None:
@@ -2141,6 +2165,7 @@ def _base_row_np(state: DeltaState, viewer: int) -> np.ndarray:
     return state.base_key[int(state.side[viewer])].cpu().numpy()
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def view_of(state: DeltaState, viewer: int, subject: int) -> int:
     row = state.d_subj[viewer].cpu().numpy()
     hit = np.nonzero(row == subject)[0]
@@ -2149,6 +2174,7 @@ def view_of(state: DeltaState, viewer: int, subject: int) -> int:
     return int(_base_row_np(state, viewer)[subject])
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def _materialize_row(state: DeltaState, i: int):
     """Dense (vk, pb, sl) of viewer ``i`` (host-side numpy)."""
     n = state.n
@@ -2163,6 +2189,7 @@ def _materialize_row(state: DeltaState, i: int):
     return vk, pb, sl
 
 
+# audit: allow=RPL001 host-side by design: tables read back for the host
 def _write_row(
     state: DeltaState,
     i: int,
@@ -2266,6 +2293,7 @@ def _wipe_row(state: DeltaState, node: int) -> DeltaState:
 def revive(state: DeltaState, node: int, inc: int) -> DeltaState:
     """A killed process restarts fresh: its row is wiped to self-only
     with a new incarnation (pb -1); re-entry is an ``admin_join``."""
+    # audit: allow=RPL005 a host int's range check
     _check_inc(torch.tensor([int(inc)]))
     state = _wipe_row(state, node)
     state = _set_entry(state, node, node, int(inc) * 8 + ALIVE, -1, -1)

@@ -31,6 +31,7 @@ from ringpop_tpu_torch.obs.emitters import (
     StatsdEmitter,
     make_emitter,
 )
+from ringpop_tpu_torch.obs.ledger import DispatchLedger, default_ledger
 
 __all__ = [
     "CaptureEmitter",
@@ -38,4 +39,6 @@ __all__ = [
     "MultiEmitter",
     "StatsdEmitter",
     "make_emitter",
+    "DispatchLedger",
+    "default_ledger",
 ]

@@ -52,9 +52,9 @@ class DeviceBook:
             alen[i] = len(b)
         order = np.argsort(np.array(addresses, dtype=object), kind="stable")
         # tables pre-permuted into checksum (address-sorted) order
-        self.addr = torch.as_tensor(addr[order]).to(dev)
-        self.alen = torch.as_tensor(alen[order]).to(dev)
-        self.order = torch.as_tensor(order.astype(np.int64)).to(dev)
+        self.addr = torch.as_tensor(addr[order], device=dev)
+        self.alen = torch.as_tensor(alen[order], device=dev)
+        self.order = torch.as_tensor(order.astype(np.int64), device=dev)
 
         codes = sorted(STATUS_NAMES)
         self.max_status = max(len(v) for v in STATUS_NAMES.values())
@@ -64,8 +64,8 @@ class DeviceBook:
             b = name.encode()
             sbytes[code, : len(b)] = np.frombuffer(b, dtype=np.uint8)
             slen[code] = len(b)
-        self.status_bytes = torch.as_tensor(sbytes).to(dev)
-        self.status_len = torch.as_tensor(slen).to(dev)
+        self.status_bytes = torch.as_tensor(sbytes, device=dev)
+        self.status_len = torch.as_tensor(slen, device=dev)
 
         self.base_hi = self.base_inc // 10**9
         self.base_lo = self.base_inc % 10**9

@@ -202,6 +202,7 @@ def _words_at(b: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16) | (w[:, 3] << 24)
 
 
+# audit: allow=RPL001 the plain version's host loop over blocks
 def farmhash32_plain(bufs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Fingerprint32 of each row's first ``lens[r]`` bytes: int64[B]
     holding uint32.  ``bufs`` uint8[B, L], ``lens`` int32[B]."""
@@ -392,6 +393,7 @@ farmhash32_batch.launches = 0
 farmhash32_batch.short_launches = 0
 
 
+# audit: allow=RPL001 numpy rows and lengths, no tensor
 def pack_rows(raw: list[bytes], width: int) -> tuple[np.ndarray, np.ndarray]:
     """Byte strings as the rows ``farmhash32_batch`` takes: uint8[R, width],
     each string zero-padded (none may be longer than ``width``), and

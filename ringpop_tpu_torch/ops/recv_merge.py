@@ -10,7 +10,10 @@ elementwise int32 max.  Rows with no inbound ping are 0.
 CUDA tensors (the port of the TPU kernel
 ``ringpop_tpu/ops/recv_merge_pallas.py``): a counting sort of the senders
 by receiver, then the merge.  It runs ``recv_merge_plain`` for CPU
-tensors only.
+tensors only.  ``recv_merge_pallas`` is the host-level entry under the
+reference's name: the same merge, recorded as one row of the dispatch
+ledger (``obs/ledger.py``) while the ledger is on; the steps call
+``recv_merge`` itself, as the reference's steps inline its kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ringpop_tpu_torch import _build
 from ringpop_tpu_torch.obs import annotate
+from ringpop_tpu_torch.obs.ledger import default_ledger
 
 
 def _check(t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor) -> int:
@@ -125,3 +129,14 @@ def recv_merge(
 
 recv_merge.launches = 0
 recv_merge.delivered = None
+
+
+def recv_merge_pallas(
+    t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``recv_merge`` called from the host: with the dispatch ledger on,
+    one row under the reference's program name ``recv_merge_pallas``
+    (meta: backend ``dense`` and ``n``); off, a plain call."""
+    return default_ledger().dispatch(
+        "recv_merge_pallas", recv_merge, t_safe, fwd_ok, claim_rows,
+        _meta={"backend": "dense", "n": int(t_safe.shape[0])})

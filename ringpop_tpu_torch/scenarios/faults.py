@@ -232,6 +232,7 @@ def compile_faults(
         return None
     dev = resolve_device(device)
     src, dst, p, d, j = rules_arrays(rules, n)
+    # audit: allow=RPL001 numpy rule arrays, no tensor
     has_delay = bool((d + j).any())
 
     def on(a: np.ndarray) -> torch.Tensor:

@@ -402,6 +402,7 @@ def format_catalog() -> str:
 SUMMARY_SCHEMA = 1
 
 
+# audit: allow=RPL001 host numpy on a finished Trace
 def incident_summary(trace: Any, prov: Any | None = None) -> dict[str, int]:
     """One incident run's detect/heal/serve summary — every value an
     exact int so the golden files under ``tests/golden/incidents/``

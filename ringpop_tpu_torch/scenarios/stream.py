@@ -207,6 +207,7 @@ class SegmentStore:
 def _schedule_from_start_key(start_key: Any, compiled: scompile.CompiledScenario) -> torch.Tensor:
     """The full key schedule again from the cluster key as it was at the
     run's start: the chain of splits ``SimCluster._split`` made."""
+    # audit: allow=RPL005 keys are host metadata on the CPU
     kstate = {"key": torch.tensor([int(w) for w in start_key], dtype=torch.int64)}
 
     def split() -> torch.Tensor:
@@ -216,6 +217,7 @@ def _schedule_from_start_key(start_key: Any, compiled: scompile.CompiledScenario
     return scompile.key_schedule(split, compiled)
 
 
+# audit: allow=RPL001 a checkpoint's host copy, by design
 def _to_host(tup: Any) -> Any:
     """A NamedTuple of tensors copied to the CPU."""
     return type(tup)(*(None if v is None else v.cpu() for v in tup))
@@ -283,6 +285,7 @@ def run_streamed(
         "segment_ticks": int(segment_ticks),
         "ticks": compiled.ticks,
         "ticks_done": 0,
+        # audit: allow=RPL001 the key is a CPU tensor: no sync
         "start_key": [int(x) for x in cluster.key.tolist()],
         "start_tick": int(cluster.state.tick),
         "base_loss": float(cluster.params.loss),
@@ -372,6 +375,7 @@ class _Pending:
             self.done = torch.cuda.Event()
             self.done.record()
 
+    # audit: allow=RPL001,RPL005 the segment's one telemetry drain, into pinned host memory
     def host(self) -> dict[str, np.ndarray]:
         """The telemetry on the host: on the card, copied to pinned memory
         on a side stream that waits for the segment's last tick only."""
@@ -411,6 +415,7 @@ def _drained(p: _Pending, t0: float, *, overlapped: bool) -> None:
         default_ledger().record(p.row)
 
 
+# audit: allow=RPL001 the streamed driver drains a segment and copies checkpoints, by design
 def _drive(
     cluster: Any,
     compiled: scompile.CompiledScenario,
@@ -610,6 +615,7 @@ def run_sweep_streamed(
         })
     replica_keys = [cluster._split() for _ in range(replicas)]
     keys = ssweep.sweep_key_schedule(replica_keys, cs)
+    # audit: allow=RPL001 replica keys are CPU tensors: no sync
     rkeys_np = np.stack([k.numpy().astype(np.uint32) for k in replica_keys])
     reps = ssweep.Replicas(cluster.state, cluster.net, adj, cs, keys, params, None,
                            traffic=traffic, policy=policy, policy_axes=policy_axes)

@@ -346,6 +346,7 @@ def param_knob_axes(
                     f"param axis {field!r} must have one value per "
                     f"replica (got shape {v.shape} for {replicas})"
                 )
+            # audit: allow=RPL001 numpy values, no tensor
             knob_values[field] = [x.item() for x in v]
             cols[field] = [sim.knob_cast(field, x) for x in knob_values[field]]
         else:
@@ -405,6 +406,7 @@ class Replicas:
         self.knobs = knobs
         self.traffic = runner.policy_traffic(runner.overload_traffic(traffic, cs.base), policy)
         self.policies = [replica_policy(policy, policy_axes, r) for r in range(cs.replicas)]
+        # audit: allow=RPL001 one readback of the loss schedule for every replica
         self.loss = cs.loss.cpu().numpy()  # one readback for every replica
         self.carries: list[tuple | None] = [None] * cs.replicas
         self.pv_at = self.pv_node = None  # the track reservations, set with the carries
@@ -741,6 +743,7 @@ class SweepTrace:
         suffix = np.where(rev.all(axis=1), self.ticks, (~rev).argmax(axis=1))
         return np.where(suffix > 0, self.ticks - suffix, -1).astype(np.int64)
 
+    # audit: allow=RPL001 host numpy on a finished SweepTrace
     def summary(self) -> dict[str, dict[str, float]]:
         """The detection- and heal-tick distributions across replicas in
         ``stats.Histogram.print_obj`` key shape (replicas that never
@@ -761,6 +764,7 @@ class SweepTrace:
         }
         return out
 
+    # audit: allow=RPL001 host numpy on a finished SweepTrace
     def serving_summary(self) -> list[dict[str, Any]] | None:
         """Per-replica serving scorecards (None for a sweep that served
         no workload): goodput, retry amplification, the latency

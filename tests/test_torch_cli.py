@@ -159,8 +159,15 @@ def test_host_library_paths_raise(monkeypatch):
                  ["--backend", "host-sim", "--script", "t"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
             tc.main(argv)
-    for command, item in (("worker", "item 12"), ("generate-hosts", "item 12"),
-                          ("audit", "item 9")):
+    for command, item in (("worker", "item 12"), ("generate-hosts", "item 12")):
         monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", command])
         with pytest.raises(NotImplementedError, match=item):
             entry.main()
+    # the auditor is ported: it lists its entries, and with no card and
+    # no --device it raises as the other entry points do
+    monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", "audit", "--list"])
+    entry.main()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", "audit", "--entry", "swim_run"])
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        entry.main()

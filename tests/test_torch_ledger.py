@@ -8,7 +8,9 @@ streamed scenario twice, an unsegmented one, a tagged sweep and a
 streamed sweep) come from the reference in a child process, with its
 ledger on in memory, and are compared field by field with the port's:
 the same programs, the same meta, the same cold rows (one per program
-and segment shape) and the same pattern of equal signatures.
+and segment shape) and the same pattern of equal signatures.  The same
+child records ``SimCluster.tick`` (``tick()``, ``tick(3)`` and both
+again, dense and delta, n = 8) and a host-level receiver merge.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from test_torch_harness import ReferenceScript, one_thread  # noqa: F401 - a fix
 from ringpop_tpu_torch.models import swim_sim as tsim
 from ringpop_tpu_torch.models.cluster import SimCluster
 from ringpop_tpu_torch.obs import annotate, ledger
+from ringpop_tpu_torch.ops.recv_merge import recv_merge_pallas
 from ringpop_tpu_torch.scenarios.spec import Event, ScenarioSpec
 
 SPEC = dict(ticks=20, events=[dict(at=4, op="kill", node=3)])
@@ -46,6 +49,27 @@ c.run_sweep(spec, 2, program_tag="grid")
 c.run_sweep(spec, 2, segment_ticks=8)
 json.dump(led.rows, open(sys.argv[1], "w"))
 """
+
+# a second child, run beside the first: SimCluster.tick and host-level
+# receiver merges with the ledger on
+_TICK_CHILD = r"""
+from ringpop_tpu.models.cluster import SimCluster
+from ringpop_tpu.models.swim_sim import SwimParams
+from ringpop_tpu.obs.ledger import default_ledger
+led = default_ledger().enable(None)
+for backend in ("dense", "delta"):
+    c = SimCluster(8, SwimParams(), seed=3, backend=backend)
+    for k in TICKS:
+        c.tick(k)
+import jax.numpy as jnp
+from ringpop_tpu.ops import recv_merge_pallas as rmp
+for n in (8, 8, 16):
+    rmp.recv_merge_pallas(jnp.zeros(n, jnp.int32), jnp.ones(n, bool),
+                          jnp.zeros((n, n), jnp.int32), interpret=True)
+json.dump(led.rows, open(sys.argv[1], "w"))
+"""
+
+TICKS = (1, 3, 1, 3)
 
 # the row fields both packages fill alike (times, digests, run ids,
 # memory and recompile texts differ by construction)
@@ -68,6 +92,20 @@ def in_memory_ledger():
         led._path, led._explicit, led._enabled = saved
 
 
+def port_tick_rows() -> list[dict]:
+    """The rows of ``SimCluster.tick`` and of host-level receiver merges,
+    as the child makes them."""
+    with in_memory_ledger() as led:
+        for backend in ("dense", "delta"):
+            c = SimCluster(8, tsim.SwimParams(), seed=3, backend=backend, device="cpu")
+            for k in TICKS:
+                c.tick(k)
+        for n in (8, 8, 16):
+            recv_merge_pallas(torch.zeros(n, dtype=torch.int64), torch.ones(n, dtype=torch.bool),
+                              torch.zeros((n, n), dtype=torch.int32))
+        return [dict(r) for r in led.rows]
+
+
 def port_rows() -> list[dict]:
     with in_memory_ledger() as led:
         c = SimCluster(16, tsim.SwimParams(), seed=3, device="cpu")
@@ -82,17 +120,19 @@ def port_rows() -> list[dict]:
 
 @pytest.fixture(scope="module")
 def rows(tmp_path_factory, one_thread):  # noqa: F811
-    child = ReferenceScript(f"SPEC = {json.dumps(SPEC)}\n" + _CHILD,
-                            str(tmp_path_factory.mktemp("ledger")), "ledger")
+    tmp = str(tmp_path_factory.mktemp("ledger"))
+    children = [ReferenceScript(f"SPEC = {json.dumps(SPEC)}\n" + _CHILD, tmp, "ledger"),
+                ReferenceScript(f"TICKS = {TICKS}\n" + _TICK_CHILD, tmp, "ticks")]
     try:
-        got = port_rows()
-        return got, child.result()
+        got = port_rows(), port_tick_rows()
+        return got, tuple(child.result() for child in children)
     finally:
-        child.close()
+        for child in children:
+            child.close()
 
 
 def test_rows_match_reference(rows):
-    got, want = rows
+    (got, _), (want, _) = rows
     assert len(got) == len(want) == 3 + 3 + 1 + 1 + 3
     for g, w in zip(got, want):
         assert {k: g.get(k) for k in COMPARED} == {k: w.get(k) for k in COMPARED}
@@ -106,8 +146,32 @@ def test_rows_match_reference(rows):
                             and want[i]["program"] == want[j]["program"]), (i, j)
 
 
+def test_tick_rows_match_reference(rows):
+    (_, got), (_, want) = rows
+    assert [r["program"] for r in got] == (
+        ["swim_step", "swim_run"] * 2 + ["delta_step", "delta_run"] * 2 + ["recv_merge_pallas"] * 3)
+    assert [r["cold"] for r in got] == [True, True, False, False] * 2 + [True, False, True]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert {k: g.get(k) for k in COMPARED} == {k: w.get(k) for k in COMPARED}
+        assert ("recompile_cause" in g) == ("recompile_cause" in w)
+    assert [r["ticks"] for r in got[:8]] == list(TICKS) * 2
+    assert got[-1]["n"] == 16 and got[-1]["backend"] == "dense"
+
+
+def test_obs_exports_the_ledger():
+    import ringpop_tpu.obs as robs
+
+    import ringpop_tpu_torch.obs as tobs
+
+    assert tobs.DispatchLedger is ledger.DispatchLedger
+    assert tobs.default_ledger is ledger.default_ledger
+    assert {"DispatchLedger", "default_ledger"} <= set(tobs.__all__)
+    assert set(tobs.__all__) == set(robs.__all__) - {"memory_row"}
+
+
 def test_streamed_rows_and_tag(rows):
-    got, _ = rows
+    (got, _), _ = rows
     seg = [r for r in got if r.get("run_id") and r["program"] == "run_scenario"]
     assert [r["cold"] for r in seg] == [True, False, True, False, False, False]
     assert all(r["trace_s"] == r["compile_s"] == 0.0 for r in got)
