@@ -285,7 +285,26 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     each of which must be reported at severity error; the receiver merge,
     row-searchsorted, merge-insert and ring-hop kernels must launch, and
     FarmHash's launches are printed;
-23. print the ``kernels`` JSON line (each kernel's launches summed over
+23. (phase p) the host library: p1, BASELINE config 1, ``tick_cluster
+    .main`` on ``--backend host-sim -n 5 --seed 7`` and the script of
+    ``tests/test_cli.py`` (join, kill, revive, suspend, resume) on the
+    card and on the CPU: the same lines (converged at 5, 4 and 5),
+    elapsed ms aside; p2, a host ``harness.Cluster`` of 64 nodes on the
+    card beside its CPU twin, through bootstrap (``bootstrap_all(run=
+    False)``: the joins sent, no fixed wait), convergence, a kill of
+    node 42, convergence, its revive and convergence: after every step
+    the same member lists, checksums, rings, dissemination buffers,
+    generator states and ``get_stats()`` (uuid ids and the pid aside),
+    each step's ms on both, the card arm's ring batches, short FarmHash
+    launches (one a batch, none of the warp kernel) and host syncs; p3,
+    BASELINE config 2, ``membership.update()`` of the 1,332-member
+    changeset on a fresh ``test_ringpop`` on the card (5 runs) and on the
+    CPU (2 runs): the same members, checksums and ring entries, ops a
+    second on each, two short launches a run; p4, p2's member list
+    adopted by the tensor ``SimCluster(64, device="cuda")``: its
+    checksums equal the host cluster's.  Throughout, a plain FarmHash
+    call on CUDA rows fails the phase;
+24. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
     kernels on rows apart), then the result line.
 
@@ -297,8 +316,9 @@ only phase c to convergence (up to the bench's 800 heal ticks), then
 ``fold_sides``, and prints no result line.  ``python3 chip_smoke.py
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
 only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
-``--provenance`` only phase m, ``--incidents`` only phase n and
-``--audit`` only phase o; none prints a result line.  The CPU sides of
+``--provenance`` only phase m, ``--incidents`` only phase n,
+``--audit`` only phase o and ``--host`` only phase p; none prints a
+result line.  The CPU sides of
 phases k1, l, m1 and n1 run in child processes (``--sweeps-cpu``,
 ``--serving-cpu``, ``--provenance-cpu``, ``--incidents-cpu``), started
 after phase a.
@@ -5224,6 +5244,255 @@ def audit_phase(torch, child: AuditChild | None = None) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase p: the host library (RingPop on the in-process transport)
+
+HOST_SCRIPT = "j,w3000,t,s,k,w1000,t,K,w10000,t,l,w1000,L,q"  # tests/test_cli.py's
+HOST_SCRIPT_N = 5  # BASELINE config 1: tick-cluster's 5-node ring
+HOST_SCRIPT_SEED = 7
+HOST_N = 64  # phase p2's cluster
+HOST_SEED = 1
+HOST_VICTIM = 42
+CONFIG2_MEMBERS = 1332  # BASELINE config 2: benchmarks/fixtures.py's changeset
+CONFIG2_RUNS_CARD = 5
+CONFIG2_RUNS_CPU = 2
+
+
+def large_membership(n: int = CONFIG2_MEMBERS) -> list[dict]:
+    """The reference's 1 332-member changeset (a copy of the generator of
+    ``benchmarks/fixtures.py``: realistic 10.x addresses, status alive,
+    wall-clock incarnation numbers)."""
+    return [{"address": f"10.{30 + i // 2500}.{(i // 25) % 100}.{i % 25 + 1}:{31000 + i % 1000}",
+             "status": "alive", "incarnationNumber": 1414143508000 + i} for i in range(n)]
+
+
+def host_node_state(rp) -> tuple:
+    """What a host node holds, for the card == CPU check: member list in
+    its order, checksums, ring, dissemination buffer (update ids left
+    out: uuid4 on both sides), its generator's state and get_stats()
+    without the pid."""
+    stats = rp.get_stats()
+    del stats["process"]
+    return ([(m.address, m.status, m.incarnation_number) for m in rp.membership.members],
+            rp.membership.checksum, rp.ring.checksum, list(rp.ring._entries),
+            {a: {k: v for k, v in c.items() if k != "id"}
+             for a, c in rp.dissemination.changes.items()},
+            rp.rng.getstate(), stats)
+
+
+def host_cluster_state(c) -> tuple:
+    return (c.scheduler.now(), c.scheduler.pending(), c.network.message_count,
+            c.checksums(), [host_node_state(n) for n in c.nodes])
+
+
+@contextlib.contextmanager
+def _ring_on_card_guard(torch):
+    """Phase p's rings on the card may never hash with the plain FarmHash:
+    a plain call on CUDA rows raises here; counts the rings' batches
+    (``hash_replicas`` calls) into the yielded dict."""
+    from ringpop_tpu_torch import hashring
+    from ringpop_tpu_torch.ops import farmhash
+
+    plain, batch = farmhash.farmhash32_plain, hashring.hash_replicas
+    seen = {"batches": 0, "cuda_batches": 0}
+
+    def guarded(bufs, lens):
+        if bufs.is_cuda:
+            raise AssertionError("the plain FarmHash ran on CUDA rows of a ring")
+        return plain(bufs, lens)
+
+    def counted(servers, replica_points, device):
+        seen["batches"] += 1
+        seen["cuda_batches"] += torch.device(device).type == "cuda"
+        return batch(servers, replica_points, device)
+
+    farmhash.farmhash32_plain, hashring.hash_replicas = guarded, counted
+    try:
+        yield seen
+    finally:
+        farmhash.farmhash32_plain, hashring.hash_replicas = plain, batch
+
+
+def host_cli(torch) -> None:
+    """Phase p1: BASELINE config 1, ``tick-cluster --backend host-sim`` at
+    n = 5 on the card and on the CPU: the same lines, elapsed ms aside."""
+    import io
+    import re
+
+    from ringpop_tpu_torch.cli import tick_cluster
+
+    outs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tick_cluster.main(["--backend", "host-sim", "--device", device, "--size",
+                               str(HOST_SCRIPT_N), "--seed", str(HOST_SCRIPT_SEED), "--script",
+                               HOST_SCRIPT])
+        walls[device] = time.perf_counter() - t0
+        outs[device] = re.sub(r"(?m)^(tick: .*) in \d+ms$", r"\1 in <ms>", buf.getvalue())
+    ticks = [line for line in outs["cuda"].splitlines() if line.startswith("tick:")]
+    want = ["tick: CONVERGED [5]", "tick: CONVERGED [4]", "tick: CONVERGED [5]"]
+    if [t.split(" in ")[0] for t in ticks] != want or outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"host-sim script: cuda {outs['cuda']!r} cpu {outs['cpu']!r}")
+    log(f"host (phase p1) config 1: tick-cluster --backend host-sim -n {HOST_SCRIPT_N} --seed "
+        f"{HOST_SCRIPT_SEED} --script {HOST_SCRIPT}: {' / '.join(t.split(' in ')[0] for t in ticks)}"
+        f"; cuda == cpu line for line; {walls['cuda']:.2f} s on cuda, {walls['cpu']:.2f} s on "
+        f"cpu")
+
+
+def host_cluster(torch, seen: dict):
+    """Phase p2: a host ``Cluster`` of ``HOST_N`` nodes on the card beside
+    its CPU twin: bootstrap, convergence, a kill, convergence, a revive,
+    convergence; the same state after every step.  Prints each step's ms
+    on both, the card arm's host syncs and ring batches.  Returns the
+    card's converged cluster."""
+    from ringpop_tpu_torch.harness import Cluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+
+    steps = [("bootstrap", lambda c: c.bootstrap_all(run=False)),
+             ("converge", lambda c: c.run_until_converged()),
+             ("kill", lambda c: (c.kill(HOST_VICTIM), c.run(8000))),
+             ("kill_converge", lambda c: c.run_until_converged()),
+             ("revive", lambda c: c.revive(HOST_VICTIM)),
+             ("revive_converge", lambda c: c.run_until_converged())]
+    short0, warp0 = farmhash32_batch.short_launches, farmhash32_batch.launches
+    card = Cluster(size=HOST_N, seed=HOST_SEED, device="cuda")
+    twin = Cluster(size=HOST_N, seed=HOST_SEED, device="cpu")
+    syncs = batches = 0
+    rows = []
+    with warnings.catch_warnings():  # torch's own first sync warning: an empty window
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    for label, step in steps:
+        b0 = seen["cuda_batches"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                got = step(card)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            card_ms = (time.perf_counter() - t0) * 1e3
+        step_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        t0 = time.perf_counter()
+        want = step(twin)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if got != want or host_cluster_state(card) != host_cluster_state(twin):
+            raise AssertionError(f"host cluster (phase p2) {label}: cuda != cpu")
+        step_batches = seen["cuda_batches"] - b0
+        syncs += step_syncs
+        batches += step_batches
+        groups = card.checksum_groups()
+        rows.append(f"{label} {card_ms:.1f}/{cpu_ms:.1f} ms ({step_batches} ring batches, "
+                    f"{step_syncs} syncs; groups {sorted(len(v) for v in groups.values())})")
+    short = farmhash32_batch.short_launches - short0
+    warp = farmhash32_batch.launches - warp0
+    if not card.is_converged() or len(card.live_nodes()) != HOST_N:
+        raise AssertionError("host cluster (phase p2) did not end converged at full size")
+    if short < 1 or short != batches or warp != 0:
+        raise AssertionError(f"host cluster (phase p2): {short} short FarmHash launches, "
+                             f"{warp} warp, for {batches} ring batches on the card")
+    log(f"host (phase p2) Cluster n={HOST_N} seed {HOST_SEED}, kill and revive node "
+        f"{HOST_VICTIM}, cuda == cpu after every step (members, checksums, rings, "
+        f"dissemination, rng state, get_stats); cuda/cpu per step: {'; '.join(rows)}; "
+        f"on the card {batches} ring batches = {short} short FarmHash launches (warp {warp}), "
+        f"{syncs} host syncs ({syncs / max(batches, 1):.2f} a batch); virtual time "
+        f"{card.scheduler.now() - 1.4e12:.0f} ms, {card.network.message_count} messages")
+    twin.destroy_all()
+    return card, short
+
+
+def host_config2(torch) -> int:
+    """Phase p3: BASELINE config 2, one ``membership.update()`` of the
+    1 332-member changeset on a fresh ``test_ringpop`` on the card and on
+    the CPU: the same members, membership checksum, ring checksum and
+    entries; ops a second on each.  Returns the short kernel's launches."""
+    from ringpop_tpu_torch.harness import test_ringpop as make
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+
+    changes = large_membership()
+    result, secs = {}, {}
+    short0, warp0 = farmhash32_batch.short_launches, farmhash32_batch.launches
+    for device, runs in (("cuda", CONFIG2_RUNS_CARD), ("cpu", CONFIG2_RUNS_CPU)):
+        secs[device] = []
+        for _ in range(runs):
+            rp = make(host_port="10.30.0.1:30000", device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rp.membership.update(changes)
+            torch.cuda.synchronize()
+            secs[device].append(time.perf_counter() - t0)
+        result[device] = ([(m.address, m.status, m.incarnation_number)
+                           for m in rp.membership.members], rp.membership.checksum,
+                          rp.ring.checksum, rp.ring._entries)
+    short = farmhash32_batch.short_launches - short0
+    warp = farmhash32_batch.launches - warp0
+    if result["cuda"] != result["cpu"] or len(result["cuda"][3]) != 100 * (CONFIG2_MEMBERS + 1):
+        raise AssertionError("config 2 (phase p3): cuda != cpu")
+    if short != 2 * CONFIG2_RUNS_CARD or warp != 0:
+        raise AssertionError(f"config 2 (phase p3): {short} short launches, {warp} warp, not "
+                             f"2 a run on the card")
+    rate = {d: len(s) / sum(s) for d, s in secs.items()}
+    log(f"host (phase p3) config 2: membership.update of {CONFIG2_MEMBERS} members "
+        f"({CONFIG2_MEMBERS * 100} replica names in one short FarmHash launch): membership "
+        f"checksum {result['cuda'][1]}, ring checksum {result['cuda'][2]}, cuda == cpu; "
+        f"{rate['cuda']:.2f} ops/s on cuda (runs {', '.join(f'{s * 1e3:.1f}' for s in secs['cuda'])}"
+        f" ms), {rate['cpu']:.2f} ops/s on cpu (runs "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in secs['cpu'])} ms); {short} short launches "
+        f"(2 a run: the local member, then the changeset)")
+    return short
+
+
+def host_north_star(torch, host) -> int:
+    """Phase p4: phase p2's converged member list adopted by the tensor
+    ``SimCluster`` on the card: its checksums equal the host cluster's.
+    Returns FarmHash's warp launches (the device checksums)."""
+    from ringpop_tpu_torch.models.cluster import SimCluster
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+
+    members = host.nodes[0].membership.get_stats()["members"]
+    if {m["status"] for m in members} != {"alive"} or len(members) != HOST_N:
+        raise AssertionError(f"host (phase p4): the member list is not {HOST_N} alive")
+    warp0 = farmhash32_batch.launches
+    simc = SimCluster(HOST_N, addresses=[m["address"] for m in members],
+                      base_inc=min(m["incarnationNumber"] for m in members),
+                      inc=[m["incarnationNumber"] for m in members], init="converged",
+                      device="cuda")
+    sim_sums, host_sums = set(simc.checksums().values()), set(host.checksums().values())
+    warp = farmhash32_batch.launches - warp0
+    if sim_sums != host_sums or len(host_sums) != 1 or simc.members(0) != members or warp < 1:
+        raise AssertionError(f"host (phase p4): tensor {sim_sums} != host {host_sums} "
+                             f"(warp launches {warp})")
+    log(f"host (phase p4) north star: SimCluster({HOST_N}, device='cuda') on phase p2's member "
+        f"list: checksum {sorted(sim_sums)[0]} == the host cluster's, members(0) equal; "
+        f"{warp} FarmHash warp launches")
+    return warp
+
+
+def host_phase(torch) -> dict:
+    """Phase p: the host library (p1-p4), every ring on the card guarded
+    against the plain FarmHash.  Returns the FarmHash kernels' launches
+    of the phase, counted from 0."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _ring_on_card_guard(torch) as seen:
+        host_cli(torch)
+        host, _ = host_cluster(torch, seen)
+        host_config2(torch)
+        host_north_star(torch, host)
+    host.destroy_all()
+    counted = _counted()["farmhash32"]
+    launches = {"farmhash32_short": counted.short_launches, "farmhash32": counted.launches}
+    log(f"host (phase p) {time.perf_counter() - t0:.1f} s; ring batches on the card "
+        f"{seen['cuda_batches']}, on the cpu {seen['batches'] - seen['cuda_batches']}; "
+        f"FarmHash launches: short {launches['farmhash32_short']}, warp "
+        f"{launches['farmhash32']}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -5266,6 +5535,11 @@ def main() -> int:
                     help="only run phase o (the trace-contract auditor on the card: every "
                          "entry, the byte and sync rows, the planted faults); print no result "
                          "line")
+    ap.add_argument("--host", action="store_true",
+                    help="only run phase p (the host library: tick-cluster --backend host-sim "
+                         "at n = 5, a 64-node host Cluster cuda == cpu through a kill and a "
+                         "revive, BASELINE config 2, the tensor SimCluster on its member "
+                         "list); print no result line")
     ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
                     help=argparse.SUPPRESS)
@@ -5373,6 +5647,10 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         audit_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.host:
+        host_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -5418,6 +5696,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches_prov = provenance_phase(torch, refs[2])
     launches_inc = incidents_phase(torch, refs[3])
     launches_audit = audit_phase(torch, audit_child)
+    launches_host = host_phase(torch)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
@@ -5427,11 +5706,13 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # runs of phases h-n (kernel 3 also at phase i's block search and
     # phase m's fold); the hop on the three ring paths and phase l5.
     # (phase n's launches are counted in its own processes on the card, and
-    # phase o's in its audit child and in this process)
+    # phase o's in its audit child and in this process); phase p's FarmHash
+    # launches (the host rings' batches, the tensor cluster's checksums)
     launches["farmhash32_short"] = (short_launches + config5_launches
                                     + launches_serving["farmhash32_short"]
                                     + launches_inc["farmhash32_short"]
-                                    + launches_audit["farmhash32_short"])
+                                    + launches_audit["farmhash32_short"]
+                                    + launches_host["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"]
                             + launches_audit["ring_hop"])
@@ -5443,7 +5724,8 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
                            + launches_serving.get(name, 0) + launches_prov.get(name, 0)
-                           + launches_inc.get(name, 0) + launches_audit.get(name, 0))
+                           + launches_inc.get(name, 0) + launches_audit.get(name, 0)
+                           + launches_host.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -11,6 +11,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card visible and no device given they raise rather than fall
 back.  Each hand-written kernel (``csrc/*.cu``) has a plain PyTorch
 version beside it, which runs only for tensors that lie on the CPU.
+
+The host library's core is ported too (``RingPop`` on the in-process
+transport, ``harness.Cluster``): the package exports ``RingPop``
+(imported lazily), ``farmhash32`` and ``__version__``, as
+``ringpop_tpu/__init__.py`` does.
 """
 
 from __future__ import annotations
@@ -29,3 +34,20 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "on the host"
         )
     return torch.device("cuda")
+
+
+from ringpop_tpu_torch.ops.farmhash import farmhash32  # noqa: E402 - after resolve_device
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy, so that `import ringpop_tpu_torch` stays light
+    if name == "RingPop":
+        from ringpop_tpu_torch.ringpop import RingPop
+
+        return RingPop
+    raise AttributeError(name)
+
+
+__all__ = ["farmhash32", "resolve_device", "RingPop", "__version__"]

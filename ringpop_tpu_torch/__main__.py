@@ -3,12 +3,12 @@
 Subcommands:
 
   tick-cluster    the simulated cluster harness and fault injector
-                  (``--backend tpu-sim``)
+                  (``--backend tpu-sim`` or ``host-sim``)
   obs-ledger      summarize a dispatch-ledger .jsonl (obs/ledger.py)
   audit           the trace-contract auditor (analysis/cli.py)
 
-The reference's ``worker`` and ``generate-hosts`` (its host library) are
-not ported and raise.
+The reference's ``worker`` and ``generate-hosts`` (the TCP half of its
+host library) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import sys
 
 # what the port lacks of the reference's dispatcher, and where it waits
 _NOT_PORTED = {
-    "worker": "ROADMAP queue 1 item 12 (the host library)",
-    "generate-hosts": "ROADMAP queue 1 item 12 (the host library)",
+    "worker": "ROADMAP queue 1 item 12 (b) (the host library's TCP half)",
+    "generate-hosts": "ROADMAP queue 1 item 12 (b) (the host library's TCP half)",
 }
 
 

@@ -18,10 +18,13 @@ remediation policies), ``--trace-rumors`` (the provenance plane),
 ``--stats-out`` (the stats bridge) and ``--profile-dir`` (a
 ``torch.profiler`` trace).  Every printed line is the reference's.
 
-It runs on ``--device`` (``cuda`` unless told ``cpu``; with no card and
-no ``--device`` it raises).  The reference's ``--backend proc`` and
-``host-sim`` drive its host library (``harness.py``, ``ringpop.py``,
-``transport/``), which is not ported: they raise ``NotImplementedError``.
+``SimCluster`` (``--backend host-sim`` or ``--sim``) puts the host
+library's in-process ``harness.Cluster`` on virtual time behind the same
+commands, as the reference's does, with each node's ring hashed on the
+card.  Either runs on ``--device`` (``cuda`` unless told ``cpu``; with
+no card and no ``--device`` it raises).  The reference's ``--backend
+proc`` drives real worker processes over TCP, which wait for their port
+(ROADMAP queue 1 item 12 (b)): it raises ``NotImplementedError``.
 
 Non-interactive automation: ``--script "j,w3000,t,t,q"`` runs comma-
 separated commands (``wN`` = wait N ms) and exits.
@@ -34,8 +37,28 @@ import sys
 import time
 from typing import Any
 
-# the reference's host-library backends wait for their port here
-HOST_LIBRARY_ITEM = "ROADMAP queue 1 item 12 (the host library)"
+# the reference's process backend waits for its port here
+HOST_LIBRARY_ITEM = "ROADMAP queue 1 item 12 (b) (the host library's TCP half)"
+
+def print_op_percentiles(stats: dict[str, Any], indent: str = "    ") -> None:
+    """The per-operation p50/p95/p99 lines of the `p` command, shared
+    by the proc and host-sim drivers (full get_stats() shape): the
+    protocol timings plus the serving-layer lookup/lookupN aggregates."""
+    protocol = stats.get("protocol", {})
+    ops = [
+        ("ping", protocol.get("ping")),
+        ("pingReq", protocol.get("pingReq")),
+        ("lookup", stats.get("lookup")),
+        ("lookupN", stats.get("lookupN")),
+    ]
+    for op, agg in ops:
+        if agg and agg.get("count"):
+            print(
+                f"{indent}{op}: p50={agg['median']:.1f}"
+                f" p95={agg['p95']:.1f} p99={agg['p99']:.1f}"
+                f" count={agg['count']}"
+            )
+
 
 def group_by_checksum(checksums: dict[str, Any]) -> dict[Any, list[str]]:
     """tick-cluster.js:100-113: hosts grouped by membership checksum."""
@@ -100,6 +123,95 @@ def print_final_checksums(cluster, groups: dict[int, list[str]] | None = None) -
         set(cluster.checksums().values())
     )
     print("final checksums: " + " ".join(str(s) for s in sums))
+
+
+class SimCluster(ClusterCommands):
+    """Deterministic in-process cluster on virtual time (--sim): the
+    host library's ``harness.Cluster``, each node's ring hashed on
+    ``device`` (``cuda`` unless the caller names one)."""
+
+    def __init__(self, size: int, base_port: int, seed: int = 1,
+                 device: Any = None):
+        from ringpop_tpu_torch.harness import Cluster
+
+        self.cluster = Cluster(size=size, base_port=base_port, seed=seed,
+                               device=device)
+        self.cluster.bootstrap_all()
+        self._suspended: list[int] = []
+        self._killed: list[int] = []
+
+    def join_all(self) -> None:
+        print(f"join: {len(self.cluster.live_nodes())} nodes bootstrapped")
+
+    def gossip_all(self) -> None:
+        for node in self.cluster.live_nodes():
+            node.gossip.start()
+        print("gossip started on all nodes")
+
+    def tick_all(self) -> None:
+        t0 = time.perf_counter()
+        self.cluster.tick_all()
+        print(format_groups(self.cluster.checksum_groups(),
+                            (time.perf_counter() - t0) * 1000))
+
+    def stats(self) -> None:
+        for checksum, hosts in self.cluster.checksum_groups().items():
+            print(f"  checksum {checksum}: {len(hosts)} nodes {sorted(hosts)}")
+
+    def protocol_stats(self) -> None:
+        for node in self.cluster.live_nodes():
+            stats = node.get_stats()
+            timing = stats["protocol"]["timing"]
+            print(
+                f"  {node.host_port}: p50={timing['median']:.1f}"
+                f" p95={timing['p95']:.1f} count={timing['count']}"
+            )
+            print_op_percentiles(stats)
+
+    def debug_set(self, flag: str) -> None:
+        for node in self.cluster.live_nodes():
+            node.set_debug_flag(flag)
+
+    def debug_clear(self) -> None:
+        for node in self.cluster.live_nodes():
+            node.clear_debug_flags()
+
+    def suspend_next(self) -> None:
+        live = [i for i, n in enumerate(self.cluster.nodes)
+                if i not in self._suspended and i not in self._killed]
+        if not live:
+            return print("no live node to suspend")
+        self.cluster.suspend(live[-1])
+        self._suspended.append(live[-1])
+        print(f"suspended {self.cluster.host_ports[live[-1]]}")
+
+    def resume_all(self) -> None:
+        for index in self._suspended:
+            self.cluster.resume(index)
+        print(f"resumed {len(self._suspended)} nodes")
+        self._suspended.clear()
+
+    def kill_next(self) -> None:
+        live = [i for i, n in enumerate(self.cluster.nodes)
+                if i not in self._suspended and i not in self._killed]
+        if not live:
+            return print("no live node to kill")
+        self.cluster.kill(live[-1])
+        self._killed.append(live[-1])
+        print(f"killed {self.cluster.host_ports[live[-1]]}")
+
+    def revive_next(self) -> None:
+        if not self._killed:
+            return print("no dead node to revive")
+        index = self._killed.pop(0)
+        self.cluster.revive(index)
+        print(f"revived {self.cluster.host_ports[index]}")
+
+    def wait(self, ms: float) -> None:
+        self.cluster.run(ms)
+
+    def shutdown(self) -> None:
+        self.cluster.destroy_all()
 
 
 class TpuSimCluster(ClusterCommands):
@@ -591,11 +703,13 @@ def add_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--backend", choices=["proc", "host-sim", "tpu-sim"],
                         default=None,
                         help="tpu-sim: the tensor simulation (scales to "
-                             "tens of thousands); proc (the default) and "
-                             "host-sim (= --sim) need the reference's host "
-                             "library, which is not ported, and raise")
+                             "tens of thousands); host-sim (= --sim): the "
+                             "host library's in-process cluster on virtual "
+                             "time; proc (the default) needs real worker "
+                             "processes over TCP, which are not ported, "
+                             "and raises")
     parser.add_argument("--device", default=None,
-                        help="tpu-sim: the torch device to run on (cuda "
+                        help="tpu-sim, host-sim: the torch device to run on (cuda "
                              "unless told, e.g. cpu; with no card and no "
                              "--device the run raises)")
     parser.add_argument("--loss", type=float, default=0.0,
@@ -906,17 +1020,22 @@ def main(argv: list[str] | None = None) -> None:
             sweep_paxes[name.strip()] = [
                 float(x) if "." in x else int(x) for x in vals.split(",")
             ]
-    if backend != "tpu-sim":
+    if backend == "proc":
         raise NotImplementedError(
-            f"--backend {backend} drives the reference's host library "
-            f"(harness.py, ringpop.py, transport/), which is not ported: "
-            f"{HOST_LIBRARY_ITEM}; use --backend tpu-sim"
+            "--backend proc drives real worker processes over the TCP "
+            f"transport, which is not ported: {HOST_LIBRARY_ITEM}; use "
+            "--backend host-sim or tpu-sim"
         )
-    surface = TpuSimCluster(args.size, seed=args.seed, loss=args.loss,
-                           sparse_cap=args.sparse_cap, probe=args.probe,
-                           damping=args.damping, layout=args.layout,
-                           capacity=args.capacity,
-                           stats_out=args.stats_out, device=args.device)
+    surface: ClusterCommands
+    if backend == "host-sim":
+        surface = SimCluster(args.size, args.base_port, seed=args.seed,
+                             device=args.device)
+    else:
+        surface = TpuSimCluster(args.size, seed=args.seed, loss=args.loss,
+                                sparse_cap=args.sparse_cap, probe=args.probe,
+                                damping=args.damping, layout=args.layout,
+                                capacity=args.capacity,
+                                stats_out=args.stats_out, device=args.device)
 
     import contextlib
 
