@@ -220,7 +220,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     run may take no more than the control), peak and scorecard; l5,
     ``parallel.sharded_serve`` over D = 4 shards equal to ``serve_once``
     at n = 10,000, with ring-hop launches.  The CPU side of l1 and l2
-    runs in a child process (``--serving-cpu``) started after phase a;
+    runs in a child process (``--serving-cpu``) started after phase a,
+    and l3-l5 run before its result is read;
 20. (phase m) the gossip provenance plane and the stats bridge: m1, at
     n = 256 (dense, and delta at phase 4's caps) a 30-tick traced
     ``run_scenario`` (8 slots; reservations for the node killed at tick
@@ -304,9 +305,27 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     adopted by the tensor ``SimCluster(64, device="cuda")``: its
     checksums equal the host cluster's.  Throughout, a plain FarmHash
     call on CUDA rows fails the phase;
-24. print the ``kernels`` JSON line (each kernel's launches summed over
+24. (phase q) the host library over TCP: q1, BASELINE config 1 in its
+    real shape, ``tick-cluster --backend proc -n 5 --device cuda``
+    (``ProcCluster`` on a free run of ports): every worker healthy, ``j``
+    then ``t`` until ``CONVERGED [5]`` with every view all alive, ``k``
+    until ``CONVERGED [4]`` with the victim down in every view, ``K``
+    until ``CONVERGED [5]``; the seconds to each, each worker's startup,
+    warm-up, ring batches, short launches (one a batch, no warp launch)
+    and host syncs from its ``device`` stats hook; q3, 2 000 seeded keys
+    through each worker's ``/admin/lookup`` over TCP equal to a CPU
+    ``HashRing`` and the port's ``RBRing`` on that worker's ring list; q2,
+    every worker on the card: the card's compute processes (``nvidia-smi
+    --query-compute-apps``) printed with all five up beside the workers'
+    pids (``/admin/stats``), then the workers stopped one at a time, each
+    exit freeing at least a CUDA context's memory there (in a container
+    ``nvidia-smi`` may list every process under one pid, not each
+    worker's).
+    An unhealthy worker or one left after the shutdown fails the phase;
+25. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
-    kernels on rows apart), then the result line.
+    kernels on rows apart; phase q's counted in its workers), then the
+    result line.
 
 ``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
 of the receiver merge and the merge-insert (phase 3's part for them) on
@@ -317,23 +336,39 @@ only phase c to convergence (up to the bench's 800 heal ticks), then
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
 only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
 ``--provenance`` only phase m, ``--incidents`` only phase n,
-``--audit`` only phase o and ``--host`` only phase p; none prints a
-result line.  The CPU sides of
+``--audit`` only phase o, ``--host`` only phase p and ``--proc`` only
+phase q; none prints a result line.  The CPU sides of
 phases k1, l, m1 and n1 run in child processes (``--sweeps-cpu``,
 ``--serving-cpu``, ``--provenance-cpu``, ``--incidents-cpu``), started
 after phase a.
+
+The whole script runs in two processes on the card.  After phase a it
+starts the second, the stream (``--stream PATH``), which starts those
+CPU sides at once and then waits.  When phase f (the last kernel time
+of the ``kernels`` line) is done, the stream starts phase o's audit
+child and runs phases k, m, n, o and l, in that order, while this
+process runs phases i, h, j and p.  This
+process then waits for the stream, prints its log and runs phase q
+alone on the card (q2 reads the card's memory).  So the kernels' times
+are taken on an idle card, and the per-tick times of phases h-p beside
+the other process's work.  From ``go`` on each of the two runs torch on
+``STREAM_CPU_THREADS`` CPU threads.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import io
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -2601,7 +2636,8 @@ def wide_dense(torch) -> tuple[dict, int]:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    # Python frames only: the breakdown names the package's frames
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python")
     captured: dict = {}
 
     def capture(offs, want, side="left"):
@@ -4136,11 +4172,17 @@ def sharded_serving(torch) -> dict:
 
 
 def serving_phase(torch, cpu_ref: "CpuReference") -> dict:
-    """Phase l: l1 cuda == cpu at n = 256 (and the sampler, the Gumbel
-    transform), l2 the policy headline, l3 dense n = 10 000, l4 delta
-    n = 65 536, l5 sharded serving; returns the kernels' launches summed
-    over l3-l5."""
+    """Phase l: l3 dense n = 10 000, l4 delta n = 65 536, l5 sharded
+    serving, then (with the CPU side) l1 cuda == cpu at n = 256 (and the
+    sampler, the Gumbel transform) and l2 the policy headline; returns
+    the kernels' launches summed over l3-l5."""
     t0 = time.perf_counter()
+    # l3-l5 need no CPU side: they run first, while it may still be running
+    launches: dict[str, int] = {}
+    for backend in ("dense", "delta"):
+        for k, v in serving_full(torch, backend)["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    launches["ring_hop"] = launches.get("ring_hop", 0) + sharded_serving(torch)["ring_hop"]
     t_wait = time.perf_counter()
     cpu = cpu_ref.result(torch)
     log(f"serving (phase l): the CPU side took {cpu['small_s']:.1f} s (l1) and "
@@ -4150,11 +4192,6 @@ def serving_phase(torch, cpu_ref: "CpuReference") -> dict:
     check_serving_cuda_equals_cpu(torch, cpu)
     check_headline(torch, cpu)
     del cpu
-    launches: dict[str, int] = {}
-    for backend in ("dense", "delta"):
-        for k, v in serving_full(torch, backend)["launches"].items():
-            launches[k] = launches.get(k, 0) + v
-    launches["ring_hop"] = launches.get("ring_hop", 0) + sharded_serving(torch)["ring_hop"]
     log(f"serving (phase l): {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
 
@@ -5122,8 +5159,8 @@ class AuditChild:
     """Phase o's ``python -m ringpop_tpu_torch audit --fail-on error
     --json`` in a child process on the card (every entry at the fixture
     size), its JSON lines and errors written under ``_build/``.  The
-    whole script starts it before phase m, whose small-n part is
-    host-bound, so that the child runs beside it."""
+    whole script's stream starts it before phase k, so that it runs
+    beside phases k-n."""
 
     def __init__(self):
         self.t0 = time.perf_counter()
@@ -5493,6 +5530,419 @@ def host_phase(torch) -> dict:
     return launches
 
 
+# phase q: the host library over TCP (real worker processes on the card)
+
+PROC_N = 5  # BASELINE config 1: tick-cluster's 5 processes
+PROC_KEYS = 2000
+PROC_KEY_SEED = 18
+PROC_HEALTHY_S = 120  # five interpreters importing torch at once
+PROC_CONVERGE_S = 60
+PROC_CONTEXT_MIB = 100  # less than any CUDA context with a kernel loaded
+PROC_RELEASE_S = 10
+PROC_LOOKUP_MS = 20000
+PROC_SYNCS_A_BATCH = 5  # a ring batch's host syncs on the card (phase p2's count)
+# lookups in flight on one connection: on the H100 machine's loopback,
+# 2 000 written at once on each of five connections leave the tails of
+# most of them 40-60 s late, with a plain asyncio echo server and client
+# as with the transport (python3 -m ringpop_tpu_torch.tcp_burst; PERF.md
+# §7): the host's stall, not the transport's; a client keeps a window
+PROC_WINDOW = 256
+
+
+def proc_views(cluster) -> dict:
+    """Each live worker's ``/admin/stats``, or the error it gave."""
+    from ringpop_tpu_torch.cli.admin_client import AdminRequestError, admin_request
+
+    views = {}
+    for host_port in cluster.live():
+        try:
+            views[host_port] = admin_request(host_port, "/admin/stats", timeout_s=10.0)
+        except (AdminRequestError, OSError) as e:
+            views[host_port] = f"error: {e}"
+    return views
+
+
+def proc_converge(cluster, want: int, victim: str | None, t0: float) -> tuple:
+    """Send ``t`` until its line reads ``tick: CONVERGED [want]`` and every
+    live worker's member list shows every live worker alive and ``victim``
+    (if any) not alive; (seconds since ``t0``, the tick line, the victim's
+    status as the first live worker sees it)."""
+    end = time.perf_counter() + PROC_CONVERGE_S
+    while True:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cluster.cmd("t")
+        line = buf.getvalue().strip()
+        if line.startswith(f"tick: CONVERGED [{want}]"):
+            live = set(cluster.live())
+            views = proc_views(cluster)
+            seen = [{m["address"]: m["status"] for m in v["membership"]["members"]}
+                    for v in views.values() if isinstance(v, dict)]
+            if len(seen) == want and all(
+                    all(s.get(hp) == "alive" for hp in live)
+                    and (victim is None or s.get(victim) not in (None, "alive"))
+                    for s in seen):
+                return time.perf_counter() - t0, line, seen[0].get(victim)
+        if time.perf_counter() > end:
+            raise AssertionError(f"proc cluster (phase q1): not CONVERGED [{want}] with the "
+                                 f"victim {victim} down within {PROC_CONVERGE_S} s: {line}")
+        time.sleep(0.1)
+
+
+def proc_lookups(host_ports: list, keys: list) -> dict:
+    """Each worker's ``/admin/lookup`` owner of every key over one
+    connection a worker (the port's TcpChannel as a client; the body is
+    the key itself), all workers at once, at most ``PROC_WINDOW`` requests
+    in flight on each connection."""
+    import asyncio
+
+    from ringpop_tpu_torch.transport.tcp import TcpChannel
+
+    async def run() -> dict:
+        channel = TcpChannel("chip-smoke:0")  # a client only: never listens
+        loop = asyncio.get_running_loop()
+
+        async def one(host_port: str, key: str, window) -> tuple:
+            async with window:
+                fut = loop.create_future()
+                channel.request(host_port, "/admin/lookup", None, key, PROC_LOOKUP_MS,
+                                lambda err, res1=None, res2=None: fut.set_result((err, res2)))
+                return await fut
+
+        async def host(host_port: str) -> list:
+            window = asyncio.Semaphore(PROC_WINDOW)
+            return await asyncio.gather(*(one(host_port, key, window) for key in keys))
+
+        try:
+            got = await asyncio.gather(*(host(hp) for hp in host_ports))
+        finally:
+            channel.close()
+        out = dict(zip(host_ports, got))
+        errs = {hp: [i for i, (err, _) in enumerate(res) if err is not None]
+                for hp, res in out.items()}
+        if any(errs.values()):
+            first = next(out[hp][ix[0]][0] for hp, ix in errs.items() if ix)
+            raise AssertionError(
+                f"proc lookups (phase q3): {first!r}; failed requests by worker (key "
+                f"indices): " + "; ".join(f"{hp} {len(ix)} {ix[:8]}" for hp, ix in errs.items()))
+        return {hp: [json.loads(res)["dest"] for _, res in got] for hp, got in out.items()}
+
+    return asyncio.run(run())
+
+
+def proc_hooks(cluster) -> dict:
+    """Each live worker's ``device`` stats hook (its pid beside it)."""
+    hooks = {}
+    for host_port, view in proc_views(cluster).items():
+        if not isinstance(view, dict):
+            raise AssertionError(f"proc cluster (phase q): {host_port} {view}")
+        hooks[host_port] = dict(view["hooks"]["device"], pid=view["process"]["pid"])
+    return hooks
+
+
+def proc_card_mib() -> tuple:
+    """The card's compute processes as ``nvidia-smi`` lists them: (their
+    used memory summed, MiB; pid -> MiB)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mem = (part.strip() for part in line.split(",", 1))
+        apps[int(pid)] = float(mem)
+    return sum(apps.values()), apps
+
+
+def proc_release(cluster) -> dict:
+    """Phase q2's teardown: stop the workers one at a time; for each, the
+    MiB the card's compute processes free when it exits (waited on up to
+    ``PROC_RELEASE_S``)."""
+    freed = {}
+    for host_port, proc in cluster.procs.items():
+        before, _ = proc_card_mib()
+        proc.terminate()
+        proc.wait(timeout=30)
+        end = time.perf_counter() + PROC_RELEASE_S
+        while True:
+            after, _ = proc_card_mib()
+            if before - after >= PROC_CONTEXT_MIB or time.perf_counter() > end:
+                break
+            time.sleep(0.1)
+        freed[host_port] = before - after
+    return freed
+
+
+def proc_log_tails(cluster, lines: int = 12) -> None:
+    """Print the end of each worker's log (a failed phase q's evidence)."""
+    for name in sorted(os.listdir(cluster.workdir)):
+        if name.endswith(".log"):
+            with open(os.path.join(cluster.workdir, name)) as f:
+                tail = f.read().splitlines()[-lines:]
+            log(f"proc (phase q) {name}, last {len(tail)} lines:")
+            for line in tail:
+                log(f"    {line}")
+
+
+def proc_phase(torch, device: str = "cuda") -> dict:
+    """Phase q: BASELINE config 1 in its real shape, ``tick-cluster
+    --backend proc -n 5`` (``ProcCluster``, on a free base port) with
+    every worker's ring on ``device``: q1 join, kill, revive, each to one
+    checksum group with every view agreeing; q3 2 000 seeded keys, each
+    worker's owner equal to a CPU ``HashRing``'s and an ``RBRing``'s on
+    its ring list; q2 (on the card) each worker's exit, one at a time,
+    frees a context's memory there.  Every
+    worker is gone at the end, pass or fail.  Returns the workers' FarmHash
+    launches since their warm-up (the killed worker's read before its kill)."""
+    import random
+
+    from ringpop_tpu_torch.cli import tick_cluster as tc
+    from ringpop_tpu_torch.hashring import HashRing
+    from ringpop_tpu_torch.ops.farmhash import farmhash32
+    from ringpop_tpu_torch.rbtree import RBRing
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the workers' contexts share the card with this process
+    base = tc.free_port_run(PROC_N)
+    t0 = time.perf_counter()
+    cluster = tc.ProcCluster(PROC_N, base, log_level="info", device=device)
+    spawned = []
+    try:
+        spawned.extend(cluster.procs.values())
+        cluster.wait_healthy(PROC_HEALTHY_S)
+        healthy_s = time.perf_counter() - t0
+        if sorted(cluster.startup_s) != sorted(cluster.host_ports):
+            raise AssertionError(f"proc cluster (phase q1): workers never healthy: "
+                                 f"{sorted(set(cluster.host_ports) - set(cluster.startup_s))}")
+        startup = dict(cluster.startup_s)
+        hooks0 = proc_hooks(cluster)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            cluster.cmd("j")
+        if buf.getvalue().strip() != f"join: {PROC_N} nodes joined":
+            raise AssertionError(f"proc cluster (phase q1): {buf.getvalue()!r}")
+        join_s, join_line, _ = proc_converge(cluster, PROC_N, None, t0)
+        before_kill = proc_hooks(cluster)
+        victim = cluster.live()[-1]
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            cluster.cmd("k")
+        kill_s, kill_line, victim_status = proc_converge(cluster, PROC_N - 1, victim, t0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            cluster.cmd("K")
+        spawned.append(cluster.procs[victim])
+        revive_s, revive_line, _ = proc_converge(cluster, PROC_N, None, t0)
+        cluster.wait_healthy(PROC_HEALTHY_S)
+        log(f"proc (phase q1) config 1: tick-cluster --backend proc -n {PROC_N} --device "
+            f"{device} on 127.0.0.1:{base}..{base + PROC_N - 1}: all healthy after "
+            f"{healthy_s:.2f} s; join -> {join_line} after {join_s:.2f} s; kill {victim} -> "
+            f"{kill_line} ({victim_status} in every view) after {kill_s:.2f} s; revive -> "
+            f"{revive_line} after {revive_s:.2f} s (its startup {cluster.startup_s[victim]:.2f} "
+            f"s)")
+        hooks = proc_hooks(cluster)
+        for host_port in cluster.host_ports:
+            h = hooks[host_port]
+            h0 = (hooks0 if host_port != victim else {}).get(host_port)
+            log(f"proc (phase q1) worker {host_port} pid {h['pid']}: startup "
+                f"{(startup if host_port != victim else cluster.startup_s)[host_port]:.2f} s to "
+                f"/health, warm-up "
+                f"{h['warmupS']:.3f} s; since the warm-up {h['ringBatches']} ring batches, "
+                f"{h['shortLaunches']} short launches, {h['warpLaunches']} warp, "
+                f"{h['hostSyncs']} host syncs"
+                + (f" (at health: {h0['ringBatches']} batches)" if h0 else
+                   f" (the revived process; before the kill: "
+                   f"{before_kill[host_port]['ringBatches']} batches, "
+                   f"{before_kill[host_port]['shortLaunches']} short launches, "
+                   f"{before_kill[host_port]['hostSyncs']} syncs)"))
+        every = list(hooks.values()) + [before_kill[victim]]
+        for h in every:
+            if h["device"] != device or h["ringBatches"] < 1 or h["warpLaunches"] != 0 or (
+                    device == "cuda" and (h["shortLaunches"] != h["ringBatches"]
+                                          or h["warmupS"] <= 0)):
+                raise AssertionError(f"proc cluster (phase q1): a worker's ring did not hash "
+                                     f"each batch in one short launch on {device}: {h}")
+            if device == "cuda" and h["hostSyncs"] != PROC_SYNCS_A_BATCH * h["ringBatches"]:
+                raise AssertionError(f"proc cluster (phase q1): a worker's host syncs are not "
+                                     f"{PROC_SYNCS_A_BATCH} a ring batch: {h}")
+        launches = {"farmhash32_short": sum(h["shortLaunches"] for h in every),
+                    "farmhash32": sum(h["warpLaunches"] for h in every)}
+
+        rng = random.Random(PROC_KEY_SEED)
+        keys = [f"key-{rng.randrange(10 ** 9)}" for _ in range(PROC_KEYS)]
+        t0 = time.perf_counter()
+        owners = proc_lookups(cluster.host_ports, keys)
+        lookup_s = time.perf_counter() - t0
+        rings = {hp: v["ring"] for hp, v in proc_views(cluster).items()}
+        for host_port, got in owners.items():
+            plain = HashRing(device="cpu")
+            plain.add_remove_servers(rings[host_port], [])
+            tree = RBRing(farmhash32)
+            for server in rings[host_port]:
+                tree.add_server(server)
+            want = [plain.lookup(k) for k in keys]
+            if got != want or [tree.lookup(k) for k in keys] != want:
+                bad = sum(a != b for a, b in zip(got, want))
+                raise AssertionError(f"proc lookups (phase q3) {host_port}: {bad} of "
+                                     f"{len(keys)} owners differ from the CPU ring's")
+        spread = sorted(collections.Counter(owners[cluster.host_ports[0]]).values())
+        log(f"proc (phase q3) {PROC_KEYS} keys (seed {PROC_KEY_SEED}) x {PROC_N} workers over "
+            f"TCP in {lookup_s:.2f} s: every worker's owner == a CPU HashRing on its ring list "
+            f"({len(rings[cluster.host_ports[0]])} servers) == the port's RBRing; keys a "
+            f"server {spread}")
+
+        if device == "cuda":
+            # in a container nvidia-smi may list every process under one pid, not
+            # each worker's: what each worker's exit frees on the card
+            # shows that it held a context there
+            total, apps = proc_card_mib()
+            pids = {hp: h["pid"] for hp, h in hooks.items()}
+            freed = proc_release(cluster)
+            short = [hp for hp, mib in freed.items() if mib < PROC_CONTEXT_MIB]
+            if short:
+                raise AssertionError(f"proc cluster (phase q2): the exit of workers {short} "
+                                     f"freed under {PROC_CONTEXT_MIB} MiB of the card: {freed}")
+            log(f"proc (phase q2) every worker on the card: nvidia-smi --query-compute-apps "
+                f"listed {apps} ({total:.0f} MiB) with all five up (the workers' pids "
+                f"{sorted(pids.values())}, {sum(p in apps for p in pids.values())} of them "
+                f"listed; this process {os.getpid()}); each worker's exit, one at a time, freed "
+                + ", ".join(f"{hp} {mib:.0f} MiB" for hp, mib in freed.items()))
+    except BaseException:
+        proc_log_tails(cluster)
+        raise
+    finally:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cluster.shutdown()
+        left = [p.pid for p in spawned + list(cluster.procs.values()) if p.poll() is None]
+    if left:
+        raise AssertionError(f"proc cluster (phase q): workers {left} outlived the shutdown")
+    log(f"proc (phase q) {time.perf_counter() - t_phase:.1f} s; every worker gone; the "
+        f"workers' FarmHash launches since their warm-up: short "
+        f"{launches['farmhash32_short']}, warp {launches['farmhash32']}")
+    return launches
+
+
+STREAM_PHASES = ("sweeps", "serving", "provenance", "incidents", "audit")
+STREAM_TIMEOUT = 1000  # s from the stream's start (the script's limit is 1 200)
+STREAM_CPU_THREADS = 2  # torch's CPU threads in each of the two processes from go on
+
+
+def _end_with_parent(parent: int) -> None:
+    """Kill the stream's session (itself and every child) once the whole
+    script that started it is gone, however it ended."""
+    while os.getppid() == parent:
+        time.sleep(1)
+    os.killpg(os.getpgrp(), signal.SIGKILL)
+
+
+def stream_phases(path: str) -> int:
+    """The stream, the whole script's second process on the card: it
+    starts the CPU sides of phases k1, l, m1 and n1, waits for ``go`` on
+    its standard input (the kernels' times are taken by then), starts
+    phase o's audit child, runs phases k, m, n, o and l, and writes
+    each phase's launches to ``path`` as JSON.  Phase l comes last: its
+    CPU side takes longest."""
+    refs = {phase: CpuReference(phase) for phase in "lnkm"}
+    threading.Thread(target=_end_with_parent, args=(os.getppid(),), daemon=True).start()
+    try:
+        if sys.stdin.readline().strip() != "go":
+            return 1  # the whole script ended before it got here
+        import torch
+
+        torch.set_num_threads(STREAM_CPU_THREADS)
+        t0 = time.perf_counter()
+        audit_child = AuditChild()  # host-bound at n = 64: beside phases k-n
+        try:
+            out = {"sweeps": sweeps_phase(torch, refs["k"]),
+                   "provenance": provenance_phase(torch, refs["m"]),
+                   "incidents": incidents_phase(torch, refs["n"])}
+            out["audit"] = audit_phase(torch, audit_child)
+        finally:
+            audit_child.stop()
+        out["serving"] = serving_phase(torch, refs["l"])
+        log(f"stream: phases k, m, n, o and l in {time.perf_counter() - t0:.1f} s")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({phase: out[phase] for phase in STREAM_PHASES}, f, default=int)
+        os.replace(tmp, path)
+        return 0
+    finally:
+        for ref in refs.values():
+            ref.stop()
+
+
+class Stream:
+    """The stream (``--stream``) seen from the whole script: a session of
+    its own, so that stopping it stops its children too; its output
+    goes to ``_build/stream/stream.log`` and is printed here when it
+    ends, or its tail when the script fails first."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.t_go = None
+        d = os.path.join(REPO, "ringpop_tpu_torch", "_build", "stream")
+        os.makedirs(d, exist_ok=True)
+        self.path = os.path.join(d, "launches.json")
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        self.log_path = os.path.join(d, "stream.log")
+        self.log = open(self.log_path, "w")
+        self.printed = False
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--stream", self.path],
+            cwd=REPO, stdin=subprocess.PIPE, stdout=self.log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+    def go(self) -> None:
+        self.proc.stdin.write(b"go\n")
+        self.proc.stdin.close()
+        self.t_go = time.perf_counter()
+        log(f"stream: go {self.t_go - self.t0:.1f} s after its start")
+
+    def _print(self, tail: int | None = None) -> None:
+        self.printed = True
+        self.log.flush()
+        with open(self.log_path) as f:
+            lines = f.read().splitlines()
+        if tail is not None:
+            lines = lines[-tail:]
+            log(f"stream: the last {len(lines)} lines of its log:")
+        for line in lines:
+            log(line)
+
+    def result(self) -> dict:
+        """Each stream phase's launches, once the stream has ended; its
+        log printed first.  Raises if it failed or outran its time."""
+        t_wait = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(STREAM_TIMEOUT - (t_wait - self.t0), 1))
+        except subprocess.TimeoutExpired:
+            rc = None
+        waited = time.perf_counter() - t_wait
+        self._print()
+        if rc is None:
+            self.stop()
+            raise AssertionError(f"stream: not done {STREAM_TIMEOUT} s after its start")
+        if rc != 0:
+            raise AssertionError(f"stream: exited {rc} (its log above)")
+        log(f"stream: done {time.perf_counter() - self.t_go:.1f} s after go; waited "
+            f"{waited:.1f} s for it")
+        with open(self.path) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass  # the stream and all its children have ended
+        self.proc.wait()
+        if not self.printed:
+            self._print(tail=40)
+        self.log.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split-of", metavar="ROOT",
@@ -5540,10 +5990,20 @@ def main() -> int:
                          "at n = 5, a 64-node host Cluster cuda == cpu through a kill and a "
                          "revive, BASELINE config 2, the tensor SimCluster on its member "
                          "list); print no result line")
+    ap.add_argument("--proc", action="store_true",
+                    help="only run phase q (BASELINE config 1 as five real worker processes "
+                         "over TCP, their rings on the card: join, kill, revive, the workers "
+                         "on the card, 2 000 lookups against the plain ring); print no result "
+                         "line")
     ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--stream", metavar="PATH", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.stream:
+        # the whole script's second process on the card
+        sys.path.insert(0, REPO)
+        return stream_phases(args.stream)
     if args.incidents_card:
         # one of phase n's processes on the card
         sys.path.insert(0, REPO)
@@ -5651,6 +6111,10 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         host_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.proc:
+        proc_phase(torch)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -5664,12 +6128,10 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     check_delta_cuda_equals_cpu(torch)
     check_delta_equals_dense(torch)
     check_sided_cuda_equals_cpu(torch)
-    # the CPU sides of phases l and m run in child processes from here on,
-    # after the lockstep phases that run on the CPU themselves
-    refs.append(CpuReference("l"))
-    refs.append(CpuReference("k"))
-    refs.append(CpuReference("m"))
-    refs.append(CpuReference("n"))
+    # the stream starts the CPU sides of phases k-n from here on, after the
+    # lockstep phases that run on the CPU themselves
+    stream = Stream()
+    refs.append(stream)
     launches, converged_dense, c = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
@@ -5685,18 +6147,18 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     time_sided_kernels(torch, sided_shapes)
     config5_launches, short_row = config5(torch)
     rows.append(short_row)
-    launches_faults = faults_phase(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # phase c's cache, before the stream shares the card
+    torch.set_num_threads(STREAM_CPU_THREADS)
+    stream.go()
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
+    launches_faults = faults_phase(torch)
     launches_scen = scenarios_phase(torch)
-    launches_sweeps = sweeps_phase(torch, refs[1])
-    launches_serving = serving_phase(torch, refs[0])
-    # phase o's audit child runs beside phase m (host-bound at n = 256)
-    audit_child = AuditChild()
-    refs.append(audit_child)
-    launches_prov = provenance_phase(torch, refs[2])
-    launches_inc = incidents_phase(torch, refs[3])
-    launches_audit = audit_phase(torch, audit_child)
     launches_host = host_phase(torch)
+    streamed = stream.result()
+    launches_sweeps, launches_serving, launches_prov, launches_inc, launches_audit = (
+        streamed[p] for p in STREAM_PHASES)
+    launches_proc = proc_phase(torch)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
@@ -5705,14 +6167,17 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # delta kernels on the delta path, both config-4 paths and the delta
     # runs of phases h-n (kernel 3 also at phase i's block search and
     # phase m's fold); the hop on the three ring paths and phase l5.
-    # (phase n's launches are counted in its own processes on the card, and
-    # phase o's in its audit child and in this process); phase p's FarmHash
-    # launches (the host rings' batches, the tensor cluster's checksums)
+    # (phases k-o's are counted in the stream, phase n's in its own processes
+    # on the card, and phase o's in its audit child and in the stream);
+    # phase p's FarmHash launches (the host rings' batches, the tensor
+    # cluster's checksums);
+    # phase q's, counted in its worker processes since their warm-up
     launches["farmhash32_short"] = (short_launches + config5_launches
                                     + launches_serving["farmhash32_short"]
                                     + launches_inc["farmhash32_short"]
                                     + launches_audit["farmhash32_short"]
-                                    + launches_host["farmhash32_short"])
+                                    + launches_host["farmhash32_short"]
+                                    + launches_proc["farmhash32_short"])
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"]
                             + launches_audit["ring_hop"])
@@ -5725,7 +6190,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
                            + launches_serving.get(name, 0) + launches_prov.get(name, 0)
                            + launches_inc.get(name, 0) + launches_audit.get(name, 0)
-                           + launches_host.get(name, 0))
+                           + launches_host.get(name, 0) + launches_proc.get(name, 0))
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))

@@ -1,30 +1,31 @@
-"""``tick-cluster`` subcommand: the simulated cluster harness and fault
-injector, on the port's tensor simulation.
-
-The port of the ``tpu-sim`` path of ``ringpop_tpu/cli/tick_cluster.py``
-(reference: scripts/tick-cluster.js).  ``TpuSimCluster`` puts
-``models/cluster.SimCluster`` behind the reference's keyboard commands:
+"""``tick-cluster`` subcommand: the multi-node cluster harness and fault
+injector (reference: scripts/tick-cluster.js), the port of
+``ringpop_tpu/cli/tick_cluster.py``.  Three backends behind the
+reference's keyboard commands:
 
   j join-all   t tick-all (checksum-convergence groups)
   s membership stats by checksum   p protocol counters
   g start gossip   d/D debug set/clear
   l suspend  L resume  k kill  K revive  q quit
 
-with ``--loss`` (packet loss), ``--damping`` (flap damping),
-``--scenario``/``--incident`` (a compiled fault timeline, streamed with
-``--segment-ticks``, checkpointed and resumed), ``--sweep`` (R
-replicas), ``--traffic``/``--policy`` (the serving plane and the
-remediation policies), ``--trace-rumors`` (the provenance plane),
-``--stats-out`` (the stats bridge) and ``--profile-dir`` (a
-``torch.profiler`` trace).  Every printed line is the reference's.
+* ``ProcCluster`` (``--backend proc``, the default): one real ``python -m
+  ringpop_tpu_torch worker`` process a node over the TCP transport,
+  driven over ``/admin/*`` requests, with signals for fault injection.
+* ``SimCluster`` (``--backend host-sim`` or ``--sim``): the host
+  library's in-process ``harness.Cluster`` on virtual time.
+* ``TpuSimCluster`` (``--backend tpu-sim``): ``models/cluster.SimCluster``
+  with ``--loss`` (packet loss), ``--damping`` (flap damping),
+  ``--scenario``/``--incident`` (a compiled fault timeline, streamed with
+  ``--segment-ticks``, checkpointed and resumed), ``--sweep`` (R
+  replicas), ``--traffic``/``--policy`` (the serving plane and the
+  remediation policies), ``--trace-rumors`` (the provenance plane),
+  ``--stats-out`` (the stats bridge) and ``--profile-dir`` (a
+  ``torch.profiler`` trace).
 
-``SimCluster`` (``--backend host-sim`` or ``--sim``) puts the host
-library's in-process ``harness.Cluster`` on virtual time behind the same
-commands, as the reference's does, with each node's ring hashed on the
-card.  Either runs on ``--device`` (``cuda`` unless told ``cpu``; with
-no card and no ``--device`` it raises).  The reference's ``--backend
-proc`` drives real worker processes over TCP, which wait for their port
-(ROADMAP queue 1 item 12 (b)): it raises ``NotImplementedError``.
+Every printed line is the reference's.  Each backend runs on
+``--device`` (``cuda`` unless told ``cpu``; with no card and no
+``--device`` it raises): tpu-sim's tensors, and each node's ring on the
+others (each proc worker is given the device).
 
 Non-interactive automation: ``--script "j,w3000,t,t,q"`` runs comma-
 separated commands (``wN`` = wait N ms) and exits.
@@ -33,12 +34,19 @@ separated commands (``wN`` = wait N ms) and exits.
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import signal
+import socket
+import subprocess
 import sys
+import tempfile
 import time
 from typing import Any
 
-# the reference's process backend waits for its port here
-HOST_LIBRARY_ITEM = "ROADMAP queue 1 item 12 (b) (the host library's TCP half)"
+from ringpop_tpu_torch.cli.admin_client import AdminRequestError, admin_request
+from ringpop_tpu_torch.cli.generate_hosts import generate
+
 
 def print_op_percentiles(stats: dict[str, Any], indent: str = "    ") -> None:
     """The per-operation p50/p95/p99 lines of the `p` command, shared
@@ -75,7 +83,7 @@ def format_groups(groups: dict[Any, list[str]], elapsed_ms: float) -> str:
 
 
 class ClusterCommands:
-    """Common command surface over either backend."""
+    """Common command surface over every backend."""
 
     def cmd(self, ch: str) -> None:
         dispatch = {
@@ -123,6 +131,241 @@ def print_final_checksums(cluster, groups: dict[int, list[str]] | None = None) -
         set(cluster.checksums().values())
     )
     print("final checksums: " + " ".join(str(s) for s in sums))
+
+
+# ports that tests/test_tcp_transport.py (24300 + 0..59) and
+# tests/test_cli.py (24500-24502) bind, or dial expecting a refusal, at
+# fixed numbers, maybe at the same moment as a run of free_port_run's
+RESERVED_PORTS = ((24300, 24360), (24500, 24502))
+
+
+def free_port_run(count: int, host: str = "127.0.0.1", attempts: int = 200) -> int:
+    """A base port P whose run P .. P + count - 1 is free on ``host`` now:
+    each port bound once, then released.  The run is drawn at random
+    below the usual ephemeral range (32768 up), so that no connection's
+    local port takes one of them while a node is down, and takes none of
+    ``RESERVED_PORTS``."""
+    import random
+
+    draw = random.SystemRandom()
+    for _ in range(attempts):
+        base = draw.randrange(20000, 32000 - count)
+        if any(base <= hi and base + count - 1 >= lo for lo, hi in RESERVED_PORTS):
+            continue
+        socks = []
+        try:
+            for port in range(base, base + count):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(sock)
+                sock.bind((host, port))
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+        return base
+    raise RuntimeError(f"no run of {count} free ports found on {host}")
+
+
+class ProcCluster(ClusterCommands):
+    """Real process-per-node cluster (tick-cluster.js mode): one
+    ``python -m ringpop_tpu_torch worker`` a node, its ring on ``device``
+    (``cuda`` unless told; with no card and no device it raises before
+    anything is spawned).  On the card the parent builds and loads the
+    FarmHash32 kernel first, so that the workers do not each run
+    ``nvcc``.  ``startup_s`` holds each worker's seconds from its (last)
+    spawn to its first ``/health`` answer, as ``wait_healthy`` saw them."""
+
+    def __init__(self, size: int, base_port: int, host: str = "127.0.0.1",
+                 log_level: str = "warn", device: Any = None):
+        from ringpop_tpu_torch import _build, resolve_device
+
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            _build.load("farmhash32")
+        self.host_ports = generate([host], base_port, size)
+        self.workdir = tempfile.mkdtemp(prefix="ringpop-tick-")
+        self.hosts_file = os.path.join(self.workdir, "hosts.json")
+        with open(self.hosts_file, "w") as f:
+            json.dump(self.host_ports, f)
+        self.log_level = log_level
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.suspended: list[str] = []
+        self.spawned_at: dict[str, float] = {}
+        self.startup_s: dict[str, float] = {}
+        try:
+            for host_port in self.host_ports:
+                self.procs[host_port] = self._spawn(host_port)
+        except BaseException:
+            self.shutdown()  # the workers spawned so far
+            raise
+
+    def _spawn(self, host_port: str) -> subprocess.Popen:
+        log_path = os.path.join(self.workdir, host_port.replace(":", "_") + ".log")
+        # the workers run the package this process runs
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+        log_file = open(log_path, "a")
+        try:
+            self.spawned_at[host_port] = time.time()
+            self.startup_s.pop(host_port, None)
+            return subprocess.Popen(
+                [sys.executable, "-m", "ringpop_tpu_torch", "worker",
+                 "--listen", host_port, "--hosts", self.hosts_file,
+                 "--log-level", self.log_level, "--device", str(self.device)],
+                stdout=log_file, stderr=subprocess.STDOUT, env=env,
+            )
+        finally:
+            log_file.close()  # the child holds its inherited copy
+
+    def live(self) -> list[str]:
+        return [
+            hp for hp, p in self.procs.items()
+            if p.poll() is None and hp not in self.suspended
+        ]
+
+    def _each(self, endpoint: str, body: Any = None) -> dict[str, Any]:
+        """Fan the request out concurrently (the reference drives all
+        nodes in parallel; serial round-trips would distort the reported
+        tick/convergence timings)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        hosts = self.live()
+        if not hosts:
+            return {}
+
+        def one(host_port: str) -> Any:
+            try:
+                return admin_request(host_port, endpoint, body)
+            except (AdminRequestError, OSError) as e:
+                return f"error: {e}"
+
+        with ThreadPoolExecutor(max_workers=min(32, len(hosts))) as pool:
+            return dict(zip(hosts, pool.map(one, hosts)))
+
+    def join_all(self) -> None:
+        responses = self._each("/admin/join")
+        errors = [hp for hp, r in responses.items()
+                  if isinstance(r, str) and r.startswith("error")]
+        print(f"join: {len(responses) - len(errors)} nodes joined"
+              + (f", {len(errors)} errors {errors}" if errors else ""))
+
+    def gossip_all(self) -> None:
+        self._each("/admin/gossip")
+        print("gossip started on all nodes")
+
+    def tick_all(self) -> None:
+        t0 = time.perf_counter()
+        responses = self._each("/admin/tick")
+        checksums = {hp: r.get("checksum") for hp, r in responses.items()
+                     if isinstance(r, dict)}
+        errors = [hp for hp in responses if hp not in checksums]
+        line = format_groups(group_by_checksum(checksums),
+                             (time.perf_counter() - t0) * 1000)
+        if errors:
+            line += f"  ({len(errors)} errors: {errors})"
+        print(line)
+
+    def stats(self) -> None:
+        responses = self._each("/admin/stats")
+        checksums = {
+            hp: (r.get("membership", {}).get("checksum")
+                 if isinstance(r, dict) else r)
+            for hp, r in responses.items()
+        }
+        for checksum, hosts in group_by_checksum(checksums).items():
+            print(f"  checksum {checksum}: {len(hosts)} nodes {sorted(hosts)}")
+
+    def protocol_stats(self) -> None:
+        for hp, r in self._each("/admin/stats").items():
+            if isinstance(r, dict):
+                timing = r["protocol"]["timing"]
+                print(
+                    f"  {hp}: rate={r['protocol']['protocolRate']:.1f}ms"
+                    f" p50={timing['median']:.1f} p95={timing['p95']:.1f}"
+                    f" p99={timing['p99']:.1f} count={timing['count']}"
+                )
+                print_op_percentiles(r)
+            else:
+                print(f"  {hp}: {r}")
+
+    def debug_set(self, flag: str) -> None:
+        self._each("/admin/debugSet", {"debugFlag": flag})
+        print(f"debug flag {flag!r} set on all nodes")
+
+    def debug_clear(self) -> None:
+        self._each("/admin/debugClear")
+        print("debug flags cleared on all nodes")
+
+    def suspend_next(self) -> None:
+        live = self.live()
+        if not live:
+            return print("no live node to suspend")
+        target = live[-1]
+        self.procs[target].send_signal(signal.SIGSTOP)
+        self.suspended.append(target)
+        print(f"suspended {target}")
+
+    def resume_all(self) -> None:
+        for host_port in self.suspended:
+            if self.procs[host_port].poll() is None:
+                self.procs[host_port].send_signal(signal.SIGCONT)
+        print(f"resumed {len(self.suspended)} nodes")
+        self.suspended.clear()
+
+    def kill_next(self) -> None:
+        live = self.live()
+        if not live:
+            return print("no live node to kill")
+        target = live[-1]
+        self.procs[target].kill()
+        self.procs[target].wait()
+        print(f"killed {target}")
+
+    def revive_next(self) -> None:
+        dead = [hp for hp, p in self.procs.items() if p.poll() is not None]
+        if not dead:
+            return print("no dead node to revive")
+        target = dead[0]
+        self.procs[target] = self._spawn(target)
+        print(f"revived {target}")
+
+    def wait(self, ms: float) -> None:
+        time.sleep(ms / 1000.0)
+
+    def wait_healthy(self, timeout_s: float = 60.0) -> None:
+        """Block until every worker answers /health (startup can be slow:
+        each spawned interpreter imports torch, and on the card warms
+        its ring's kernel before it listens)."""
+        deadline = time.time() + timeout_s
+        waiting = set(self.host_ports)
+        while waiting and time.time() < deadline:
+            for host_port in list(waiting):
+                try:
+                    admin_request(host_port, "/health", timeout_s=1.0)
+                    waiting.discard(host_port)
+                    self.startup_s.setdefault(
+                        host_port, time.time() - self.spawned_at[host_port])
+                except (AdminRequestError, OSError):
+                    pass
+            if waiting:
+                time.sleep(0.25)
+        if waiting:
+            print(f"warning: nodes never became healthy: {sorted(waiting)}")
+
+    def shutdown(self) -> None:
+        self.resume_all()
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        deadline = time.time() + 5
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
 
 
 class SimCluster(ClusterCommands):
@@ -702,16 +945,15 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                         help="in-process deterministic cluster on virtual time")
     parser.add_argument("--backend", choices=["proc", "host-sim", "tpu-sim"],
                         default=None,
-                        help="tpu-sim: the tensor simulation (scales to "
-                             "tens of thousands); host-sim (= --sim): the "
-                             "host library's in-process cluster on virtual "
-                             "time; proc (the default) needs real worker "
-                             "processes over TCP, which are not ported, "
-                             "and raises")
+                        help="proc (the default): real worker processes over "
+                             "TCP; host-sim (= --sim): the host library's "
+                             "in-process cluster on virtual time; tpu-sim: "
+                             "the tensor simulation (scales to tens of "
+                             "thousands)")
     parser.add_argument("--device", default=None,
-                        help="tpu-sim, host-sim: the torch device to run on (cuda "
-                             "unless told, e.g. cpu; with no card and no "
-                             "--device the run raises)")
+                        help="the torch device to run on, each proc worker's "
+                             "too (cuda unless told, e.g. cpu; with no card "
+                             "and no --device the run raises)")
     parser.add_argument("--loss", type=float, default=0.0,
                         help="tpu-sim: iid packet-loss probability")
     parser.add_argument("--sparse-cap", type=int, default=0,
@@ -1020,16 +1262,19 @@ def main(argv: list[str] | None = None) -> None:
             sweep_paxes[name.strip()] = [
                 float(x) if "." in x else int(x) for x in vals.split(",")
             ]
-    if backend == "proc":
-        raise NotImplementedError(
-            "--backend proc drives real worker processes over the TCP "
-            f"transport, which is not ported: {HOST_LIBRARY_ITEM}; use "
-            "--backend host-sim or tpu-sim"
-        )
     surface: ClusterCommands
     if backend == "host-sim":
         surface = SimCluster(args.size, args.base_port, seed=args.seed,
                              device=args.device)
+    elif backend == "proc":
+        cluster = ProcCluster(args.size, args.base_port,
+                              log_level=args.log_level, device=args.device)
+        try:
+            cluster.wait_healthy(args.startup_timeout_s)
+        except BaseException:
+            cluster.shutdown()
+            raise
+        surface = cluster
     else:
         surface = TpuSimCluster(args.size, seed=args.seed, loss=args.loss,
                                 sparse_cap=args.sparse_cap, probe=args.probe,

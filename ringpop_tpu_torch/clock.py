@@ -13,15 +13,14 @@ host library is written against a ``Scheduler`` so that
 This is the host-side mirror of the simulation core's tick-synchronous
 time model (models/swim_sim.py).
 
-The port of ``ringpop_tpu/clock.py``.  Its ``AsyncioScheduler`` drives
-real deployments over TCP and waits for them (ROADMAP queue 1 item 12
-(b)).
+The port of ``ringpop_tpu/clock.py``.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import time
 from typing import Any, Callable
 
 
@@ -98,3 +97,26 @@ class SimScheduler:
 
     def pending(self) -> int:
         return sum(1 for t in self._heap if not t.cancelled)
+
+
+class AsyncioScheduler:
+    """Wall-clock scheduler on top of an asyncio loop (real deployments)."""
+
+    def __init__(self, loop=None):
+        import asyncio
+
+        self._loop = loop or asyncio.get_event_loop()
+
+    def now(self) -> float:
+        return time.time() * 1000.0
+
+    def call_later(self, delay_ms: float, fn: Callable[[], Any]):
+        # asyncio handles already expose .cancel(), the only method used
+        return self._loop.call_later(max(0.0, delay_ms) / 1000.0, fn)
+
+    def call_soon(self, fn: Callable[[], Any]):
+        return self._loop.call_soon(fn)
+
+    def cancel(self, timer) -> None:
+        if timer is not None:
+            timer.cancel()

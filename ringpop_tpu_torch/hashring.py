@@ -70,6 +70,8 @@ class HashRing(EventEmitter):
         # server -> tuple of replica hashes; remove re-uses what add
         # computed, and churn re-adds recently removed servers.
         self._replica_cache: dict[str, tuple[int, ...]] = {}
+        # batches hashed by hash_replicas (one kernel launch each on the card)
+        self.batches = 0
 
     def _cache(self, server: str, hashes: tuple[int, ...]) -> None:
         if len(self._replica_cache) > 4 * max(len(self.servers), 1000):
@@ -86,6 +88,7 @@ class HashRing(EventEmitter):
         p = self.replica_points
         if self.batch_hash:
             flat = hash_replicas(missing, p, self.device).tolist()
+            self.batches += 1
             fresh = [tuple(flat[k * p : (k + 1) * p]) for k in range(len(missing))]
         else:
             fresh = [tuple(self.hash_func(f"{s}{i}") for i in range(p)) for s in missing]

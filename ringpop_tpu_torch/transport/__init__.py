@@ -3,15 +3,19 @@
 The reference injects a TChannel subchannel and calls
 ``channel.request({host, timeout}).send(endpoint, head, body, cb)``
 (lib/swim/ping-sender.js:57-99), with 14 endpoints registered server-side
-(server/index.js:32-75).  ``InProcessNetwork`` / ``InProcessChannel``
-pass messages deterministically in one process on the shared scheduler,
-with latency and fault injection (drop/partition/pause/kill): the
-test/sim harness transport.
+(server/index.js:32-75).  This rebuild defines a minimal transport
+interface with two implementations:
 
-The port of ``ringpop_tpu/transport/__init__.py``.  The reference's
-``TcpChannel`` (``transport/tcp.py``) waits for ROADMAP queue 1 item 12 (b).
+* ``InProcessNetwork`` / ``InProcessChannel`` — deterministic in-process
+  message passing on the shared scheduler, with latency and fault
+  injection (drop/partition/pause/kill) — the test/sim harness transport.
+* ``TcpChannel`` (transport/tcp.py) — newline-delimited JSON frames over
+  asyncio TCP for real multi-process clusters (CLI mode).
+
+The port of ``ringpop_tpu/transport/__init__.py``.
 """
 
 from ringpop_tpu_torch.transport.inproc import InProcessChannel, InProcessNetwork, TimeoutError_
+from ringpop_tpu_torch.transport.tcp import TcpChannel
 
-__all__ = ["InProcessChannel", "InProcessNetwork", "TimeoutError_"]
+__all__ = ["InProcessChannel", "InProcessNetwork", "TcpChannel", "TimeoutError_"]

@@ -154,16 +154,24 @@ def test_no_card_without_device_raises(monkeypatch):
 
 def test_host_library_paths_raise(monkeypatch):
     from ringpop_tpu_torch import __main__ as entry
+    from ringpop_tpu_torch.cli import generate_hosts, main as worker
 
-    # the process backend waits for the TCP half of the host library;
-    # host-sim (= --sim) is ported (tests/test_torch_host_cluster.py)
+    # the process backend (the default) is ported: with no card and no
+    # --device it raises before it spawns a worker, as every entry point
+    # does (tests/test_torch_proc_cluster.py runs it on the CPU)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["-n", "3", "--script", "t"], ["--backend", "proc", "--script", "t"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 12 \(b\)"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             tc.main(argv)
-    for command, item in (("worker", r"item 12 \(b\)"), ("generate-hosts", r"item 12 \(b\)")):
-        monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", command])
-        with pytest.raises(NotImplementedError, match=item):
-            entry.main()
+    # worker and generate-hosts dispatch to their ports
+    seen = []
+    monkeypatch.setattr(worker, "main", lambda argv: seen.append(("worker", argv)))
+    monkeypatch.setattr(generate_hosts, "main", lambda argv: seen.append(("hosts", argv)))
+    for command in ("worker", "generate-hosts"):
+        monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", command, "-x"])
+        entry.main()
+    assert seen == [("worker", ["-x"]), ("hosts", ["-x"])]
+    monkeypatch.undo()
     # the auditor is ported: it lists its entries, and with no card and
     # no --device it raises as the other entry points do
     monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", "audit", "--list"])

@@ -15,8 +15,8 @@ BASELINE config 2, the north-star parity and the refusals.
   the CPU) give the same membership checksums for one cluster history,
   and those equal the reference's host ``Cluster``'s.
 * **Refusals.** With no card and no ``device`` the host library's entry
-  points raise; ``--backend proc``, ``worker`` and ``generate-hosts``
-  raise naming ROADMAP queue 1 item 12 (b).
+  points raise; ``--backend proc`` (the TCP half, ported since) is wired
+  to ``ProcCluster`` with the CLI's options.
 """
 
 from __future__ import annotations
@@ -228,16 +228,41 @@ def test_host_library_needs_a_card_or_the_cpu(monkeypatch):
 
 
 def test_tcp_half_raises_naming_item_12b(monkeypatch):
+    """The TCP half is ported (ROADMAP item 12 (b) is done): ``--backend
+    proc``, the default, builds a ``ProcCluster`` from ``--size``,
+    ``--base-port``, ``--log-level`` and ``--device``, waits
+    ``--startup-timeout-s`` for it, runs the script and shuts it down;
+    ``--stats-out`` and ``--profile-dir`` still refuse it.  The real
+    processes run in ``tests/test_torch_proc_cluster.py``."""
     from ringpop_tpu_torch import __main__ as entry
 
-    with pytest.raises(NotImplementedError, match=r"item 12 \(b\)"):
-        port_tc.main(["-n", "3", "--script", "t"])
-    with pytest.raises(NotImplementedError, match=r"item 12 \(b\)"):
-        port_tc.main(["--backend", "proc", "--device", "cpu", "--script", "t"])
-    for command in ("worker", "generate-hosts"):
-        monkeypatch.setattr(sys, "argv", ["ringpop_tpu_torch", command])
-        with pytest.raises(NotImplementedError, match=r"item 12 \(b\)"):
-            entry.main()
+    seen = []
+
+    class FakeProc(port_tc.ClusterCommands):
+        def __init__(self, size, base_port, log_level="warn", device=None):
+            seen.append(("init", size, base_port, log_level, device))
+
+        def wait_healthy(self, timeout_s=60.0):
+            seen.append(("healthy", timeout_s))
+
+        def tick_all(self):
+            seen.append(("tick",))
+
+        def shutdown(self):
+            seen.append(("shutdown",))
+
+    monkeypatch.setattr(port_tc, "ProcCluster", FakeProc)
+    for backend in ([], ["--backend", "proc"]):
+        seen.clear()
+        port_tc.main(backend + ["-n", "3", "--base-port", "4100", "--device", "cpu",
+                                "--log-level", "error", "--startup-timeout-s", "7",
+                                "--script", "t"])
+        assert seen == [("init", 3, 4100, "error", "cpu"), ("healthy", 7.0), ("tick",),
+                        ("shutdown",)]
+    for flag in ("--stats-out", "--profile-dir"):
+        with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+            port_tc.main([flag, "x", "--device", "cpu", "--script", "t"])
+    assert not hasattr(port_tc, "HOST_LIBRARY_ITEM") and not hasattr(entry, "_NOT_PORTED")
 
 
 def test_ring_on_card_never_hashes_on_host(monkeypatch):
