@@ -322,10 +322,26 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     ``nvidia-smi`` may list every process under one pid, not each
     worker's).
     An unhealthy worker or one left after the shutdown fails the phase;
-25. print the ``kernels`` JSON line (each kernel's launches summed over
+25. (phase r) the dense sharded step across processes: BASELINE config
+    3 in four rank processes on the card (``parallel.ranks.launch``,
+    ``make_mesh(group=...)``), each holding 2 500 rows of every plane,
+    every hop the peer-hop kernel's write into the right neighbour's
+    memory (CUDA IPC): the main path's history (5 ticks, kill node 4242,
+    tick to detection) with every tick's metrics, the kill-to-convergence
+    ticks and the final state (each rank's rows, and rank 0's gathered
+    state, by sha256) equal to the main path's unsharded run, the device
+    checksums of each rank's own rows in one group, each rank's peak
+    plus its receive buffers under half the unsharded step's peak, the
+    peer hop launched D - 1 times a circulation on every rank and
+    FarmHash on every rank; then the peer hop against its plain version
+    (gloo on CPU copies) at [2 500, 10 000] int32 and bool[37, 1 001],
+    timed beside its launch alone and a ``copy_`` into the mapped
+    neighbour's buffer; each rank's per-tick ms, host syncs a tick and
+    startup s are printed;
+26. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
-    kernels on rows apart; phase q's counted in its workers), then the
-    result line.
+    kernels on rows apart; phase q's counted in its workers, phase r's
+    peer hop summed over its ranks), then the result line.
 
 ``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
 of the receiver merge and the merge-insert (phase 3's part for them) on
@@ -336,8 +352,9 @@ only phase c to convergence (up to the bench's 800 heal ticks), then
 --faults`` runs only phase h, ``--arms`` only phase i, ``--scenarios``
 only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
 ``--provenance`` only phase m, ``--incidents`` only phase n,
-``--audit`` only phase o, ``--host`` only phase p and ``--proc`` only
-phase q; none prints a result line.  The CPU sides of
+``--audit`` only phase o, ``--host`` only phase p, ``--proc`` only
+phase q and ``--ranks`` the dense main path and phase r; none prints a
+result line.  The CPU sides of
 phases k1, l, m1 and n1 run in child processes (``--sweeps-cpu``,
 ``--serving-cpu``, ``--provenance-cpu``, ``--incidents-cpu``), started
 after phase a.
@@ -346,12 +363,12 @@ The whole script runs in two processes on the card.  After phase a it
 starts the second, the stream (``--stream PATH``), which starts those
 CPU sides at once and then waits.  When phase f (the last kernel time
 of the ``kernels`` line) is done, the stream starts phase o's audit
-child and runs phases k, m, n, o and l, in that order, while this
-process runs phases i, h, j and p.  This
-process then waits for the stream, prints its log and runs phase q
-alone on the card (q2 reads the card's memory).  So the kernels' times
-are taken on an idle card, and the per-tick times of phases h-p beside
-the other process's work.  From ``go`` on each of the two runs torch on
+child and runs phases k, m, n, o, l and p, in that order, while this
+process runs phases i, h and j.  This
+process then waits for the stream, prints its log and runs phases q
+(q2 reads the card's memory) and r alone on the card.  So the kernels'
+times are taken on an idle card, and the per-tick times of phases h-p
+beside the other process's work.  From ``go`` on each of the two runs torch on
 ``STREAM_CPU_THREADS`` CPU threads.
 """
 
@@ -1145,6 +1162,7 @@ def main_path(torch) -> dict:
             break
     if detected is None:
         raise AssertionError(f"node {VICTIM} not faulty everywhere after {MAX_TICKS} ticks")
+    step_peak = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     groups = c.checksum_groups(backend="device")
@@ -1180,7 +1198,12 @@ def main_path(torch) -> dict:
         raise AssertionError(f"device checksums {dev_sums} != host {host}")
     log(f"checksums: device == host (pure Python) on live rows {[int(i) for i in live]}")
     check_farmhash_real_rows(torch, c)
-    return launches, detected, c
+    # what phase r's ranks must reproduce: every tick's metrics, the final
+    # state's digests (whole and by rank block) and the step's peak
+    history = {"metrics": [{k: v for k, v in m.items() if k != "ticks"} for m in c.metrics_log],
+               "detected": detected, "step_peak": step_peak,
+               "digests": state_digests(c.state, RANKS), "digest": state_digests(c.state, 1)[0]}
+    return launches, detected, c, history
 
 
 def delta_main_path(torch) -> dict:
@@ -5824,7 +5847,260 @@ def proc_phase(torch, device: str = "cuda") -> dict:
     return launches
 
 
-STREAM_PHASES = ("sweeps", "serving", "provenance", "incidents", "audit")
+# ---------------------------------------------------------------------------
+# phase r: the dense sharded step across processes (one rank a shard, each
+# holding its own rows), every hop a peer write into the neighbour's memory
+# ---------------------------------------------------------------------------
+
+RANKS = 4
+RANK_WARM_TICKS = 5  # the main path's ticks before the kill
+
+
+def state_digests(state, parts: int) -> list:
+    """sha256 of the view_key, pb and suspect_left bytes of each of
+    ``parts`` row blocks of ``state`` (the blocks the ranks hold)."""
+    import hashlib
+
+    rows = state.view_key.shape[0] // parts
+    out = []
+    for p in range(parts):
+        h = hashlib.sha256()
+        for f in ("view_key", "pb", "suspect_left"):
+            h.update(getattr(state, f)[p * rows:(p + 1) * rows].contiguous().cpu().numpy()
+                     .tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _rank_detected(torch, state, net, mesh) -> bool:
+    """The main path's stop: every live view holds the victim faulty, and
+    the views converged (each rank its own rows, the answers summed)."""
+    from ringpop_tpu_torch import parallel
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.ops import gossip_remote_copy as grc
+
+    lo, rows = mesh.rows(state.n)
+    own = torch.diagonal(state.view_key, lo) & 7
+    live = (net.up & net.responsive)[lo:lo + rows] & ((own == sim.ALIVE) | (own == sim.SUSPECT))
+    col = state.view_key[:, VICTIM] & 7
+    with grc.ring_mesh(mesh):
+        missed = grc.ring_sum((live & (col != sim.FAULTY)).any())
+    return not bool(missed) and parallel.converged(state, net, mesh)
+
+
+def _peer_hop_times(torch, mesh) -> dict:
+    """The peer hop at the dense ring path's block ([N/D, N] int32) and at
+    an odd-sized bool block: the kernel's hop equal to the plain version's
+    (gloo on CPU copies), then timed: the hop (its barriers and syncs
+    included), the launch alone, the plain version, and ``copy_`` into
+    the neighbour's buffer as mapped here (the library row)."""
+    from ringpop_tpu_torch.ops import peer_hop
+
+    ring = mesh.peers
+    gen = torch.Generator(device=mesh.device).manual_seed(60 + mesh.rank)
+    block = torch.randint(-(1 << 30), 1 << 30, (N_MAIN // RANKS, N_MAIN), generator=gen,
+                          device=mesh.device, dtype=torch.int32)
+    odd = torch.rand((37, 1001), generator=gen, device=mesh.device) < 0.5
+    err = 0
+    for x in (block, odd):
+        (got,) = peer_hop.peer_hop([x], ring)
+        (want,) = peer_hop.peer_hop_plain([x.cpu()], ring)
+        got = got.cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"peer hop kernel != plain at {x.dtype}{list(x.shape)} "
+                                 f"on rank {mesh.rank}")
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+    moved = 2 * block.numel() * block.element_size()  # read once, written once
+    ring.reserve(moved // 2)
+    remote = ring.remote_view(0)[:moved // 2].view(torch.int32).view(block.shape)
+    host = block.cpu()
+    torch.distributed.barrier()  # every rank's copies out of its slots are done
+
+    def plain():
+        peer_hop.peer_hop_plain([host], ring)
+
+    plain()
+    plain_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plain()
+        plain_times.append((time.perf_counter() - t0) * 1e3)
+    out = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: peer_hop.peer_hop([block], ring)),
+        "plain_ms": statistics.median(plain_times),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "moved": moved,
+    }
+    torch.distributed.barrier()
+    # the launch alone and the library row write the neighbour's slot 0
+    # with no ordering: nothing reads it until the barrier after them
+    out["launch_ms"] = time_ms(torch, lambda: ring.write([block], [0], 0))
+    out["library_ms"] = time_ms(torch, lambda: remote.copy_(block))
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    return out
+
+
+def rank_phase_r(mesh, t_spawn: float) -> dict:
+    """One rank of phase r (run by ``parallel.ranks.launch``): BASELINE
+    config 3 through ``sharded_step`` on this rank's rows, the main path's
+    history (5 ticks, kill ``VICTIM``, tick until detected); then the
+    device checksums of its own rows, the gathered state's digest, and
+    the peer hop held against its plain version and timed."""
+    import torch
+
+    from ringpop_tpu_torch import parallel, prng
+    from ringpop_tpu_torch.models import checksum as cksum
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.ops import checksum_device as ckdev
+    from ringpop_tpu_torch.ops import gossip_remote_copy as grc
+    from ringpop_tpu_torch.ops import peer_hop
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+
+    book = ckdev.DeviceBook(cksum.default_addresses(N_MAIN), 0, device=mesh.device)
+    torch.cuda.synchronize()
+    startup_s = time.time() - t_spawn
+    torch.cuda.reset_peak_memory_stats()
+    peer_hop.peer_hop.launches = 0
+    grc._circulate.count = 0
+    farmhash32_batch.launches = 0
+    state, net = parallel.init_cluster(N_MAIN, mesh)
+    shapes = {f: list(getattr(state, f).shape) for f in ("view_key", "pb", "suspect_left")}
+    params = sim.SwimParams(loss=0.01)
+    step = parallel.sharded_step(mesh)
+    key = prng.PRNGKey(0)
+    tick_ms, metrics, sync_counts = [], [], []
+    detected = None
+    for t in range(RANK_WARM_TICKS + MAX_TICKS):
+        if t == RANK_WARM_TICKS:
+            up = net.up.clone()
+            up[VICTIM] = False
+            net = net._replace(up=up)
+        key, sub = prng.split(key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, m = step(state, net, sub, params)
+                vals = torch.stack(list(m.values())).tolist()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        sync_counts.append(sum("synchroniz" in str(w.message) for w in caught))
+        metrics.append(dict(sorted(zip(m, vals))))
+        if t >= RANK_WARM_TICKS and _rank_detected(torch, state, net, mesh):
+            detected = t + 1 - RANK_WARM_TICKS
+            break
+    step_peak = torch.cuda.max_memory_allocated()
+    hop_launches, circulations = peer_hop.peer_hop.launches, grc._circulate.count
+    sums = parallel.checksums(state, net, book, mesh)
+    groups = len(set(sums.tolist()))
+    launches = {"peer_hop": peer_hop.peer_hop.launches, "farmhash32": farmhash32_batch.launches}
+    own = state_digests(state, 1)[0]
+    whole = parallel.gather_cluster(state, mesh)
+    gathered = state_digests(whole, 1)[0] if mesh.rank == 0 else None
+    del whole
+    torch.cuda.empty_cache()
+    return {
+        "rank": mesh.rank, "startup_s": startup_s, "shapes": shapes, "detected": detected,
+        "metrics": metrics, "tick_ms": tick_ms, "syncs": sync_counts, "step_peak": step_peak,
+        "buffer_bytes": mesh.peers.buffer_bytes(), "hop_launches_steps": hop_launches,
+        "circulations": circulations, "launches": launches, "live": len(sums), "groups": groups,
+        "digest": own, "gathered": gathered, "hop": _peer_hop_times(torch, mesh),
+    }
+
+
+def ranks_phase(torch, history: dict) -> dict:
+    """Phase r: ``RANKS`` rank processes on the card run BASELINE config 3
+    on their own rows (``rank_phase_r``) and are held to the main path's
+    unsharded run: every tick's metrics, the kill-to-convergence ticks,
+    the final state (each rank's block and rank 0's gathered state, by
+    digest) and one checksum group; each rank's peak (plus its receive
+    buffers) under half the unsharded step's; the peer hop launched on
+    every rank, D - 1 times a circulation, FarmHash on every rank.
+    Returns the peer hop's row of the kernels line."""
+    from ringpop_tpu_torch.parallel import ranks
+
+    t0 = time.perf_counter()
+    out = ranks.launch("chip_smoke:rank_phase_r", RANKS,
+                       {"t_spawn": time.time()},
+                       workdir=os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_r"),
+                       timeout=600)
+    want = history["metrics"]
+    rows = N_MAIN // RANKS
+    half = history["step_peak"] / 2
+    for r in out:
+        k = r["rank"]
+        if r["shapes"] != {f: [rows, N_MAIN] for f in ("view_key", "pb", "suspect_left")}:
+            raise AssertionError(f"ranks (phase r): rank {k} held {r['shapes']}")
+        if r["detected"] != history["detected"] or r["metrics"] != want:
+            bad = next((t for t, (a, b) in enumerate(zip(r["metrics"], want)) if a != b),
+                       min(len(r["metrics"]), len(want)))
+            raise AssertionError(
+                f"ranks (phase r): rank {k} detected after {r['detected']} ticks (unsharded "
+                f"{history['detected']}); first differing tick {bad}: "
+                f"{r['metrics'][bad] if bad < len(r['metrics']) else None} against "
+                f"{want[bad] if bad < len(want) else None}")
+        if r["digest"] != history["digests"][k]:
+            raise AssertionError(f"ranks (phase r): rank {k}'s final rows differ from the "
+                                 "unsharded run's")
+        if r["groups"] != 1 or r["live"] != N_MAIN - 1:
+            raise AssertionError(f"ranks (phase r): rank {k}: {r['live']} live checksums in "
+                                 f"{r['groups']} groups")
+        used = r["step_peak"] + r["buffer_bytes"]
+        if used >= half:
+            raise AssertionError(f"ranks (phase r): rank {k} peak {used} B (with its receive "
+                                 f"buffers) not under half the unsharded {history['step_peak']}")
+        if (r["hop_launches_steps"] <= 0 or r["launches"]["farmhash32"] <= 0
+                or r["hop_launches_steps"] != (RANKS - 1) * r["circulations"]):
+            raise AssertionError(f"ranks (phase r): rank {k} launches {r['launches']}, "
+                                 f"{r['hop_launches_steps']} hops in the steps over "
+                                 f"{r['circulations']} circulations")
+    if out[0]["gathered"] != history["digest"]:
+        raise AssertionError("ranks (phase r): the gathered state differs from the unsharded "
+                             "run's")
+    ticks = len(want)
+    for r in out:
+        log(f"ranks (phase r) rank {r['rank']}: startup {r['startup_s']:.2f} s (spawn to its "
+            f"mesh and book); median tick {statistics.median(r['tick_ms']):.3f} ms over "
+            f"{ticks} ticks (min {min(r['tick_ms']):.3f}, max {max(r['tick_ms']):.3f}); host "
+            f"syncs a tick {statistics.median(r['syncs'])} (median; total {sum(r['syncs'])}); "
+            f"peak {r['step_peak'] / 2**30:.3f} GiB + receive buffers "
+            f"{r['buffer_bytes'] / 2**30:.3f} GiB = "
+            f"{(r['step_peak'] + r['buffer_bytes']) / history['step_peak']:.3f} of the "
+            f"unsharded step's {history['step_peak'] / 2**30:.3f} GiB; peer hops "
+            f"{r['hop_launches_steps']} over {r['circulations']} circulations, FarmHash "
+            f"{r['launches']['farmhash32']}")
+    hop = out[0]["hop"]
+    log(f"ranks (phase r): {RANKS} ranks on the card, n={N_MAIN} loss=0.01, node {VICTIM} "
+        f"faulty everywhere and views converged {history['detected']} ticks after the kill, "
+        f"as the unsharded run; every tick's metrics equal; each rank's rows and rank 0's "
+        f"gathered state equal the unsharded run's (sha256); {N_MAIN - 1} live checksums in "
+        f"one group; {time.perf_counter() - t0:.1f} s")
+    for r in out:
+        h = r["hop"]
+        log(f"ranks (phase r) peer hop on rank {r['rank']} at int32[{rows}, {N_MAIN}]: hop "
+            f"{h['ms']:.4f} ms (barriers and syncs included), launch alone "
+            f"{h['launch_ms']:.4f} ms, copy_ into the mapped tensor {h['library_ms']:.4f} ms, "
+            f"plain (gloo, CPU) {h['plain_ms']:.4f} ms, bound {h['bound_ms']:.4f} ms "
+            f"({h['moved']} B at 3.35 TB/s); exact, and at bool[37, 1001]")
+    return {
+        "name": "peer_hop", "route": "cuda", "source": "ringpop_tpu_torch/csrc/ring_hop.cu",
+        "replaces": "ringpop_tpu/ops/gossip_remote_copy.py:184",
+        "launches": sum(r["launches"]["peer_hop"] for r in out),
+        "max_abs_err": max(r["hop"]["max_abs_err"] for r in out),
+        "ms": statistics.median(r["hop"]["ms"] for r in out),
+        "plain_ms": statistics.median(r["hop"]["plain_ms"] for r in out),
+        "bound_ms": hop["bound_ms"], "bound_by": "bytes",
+        "library_ms": statistics.median(r["hop"]["library_ms"] for r in out),
+    }
+
+
+STREAM_PHASES = ("sweeps", "serving", "provenance", "incidents", "audit", "host")
 STREAM_TIMEOUT = 1000  # s from the stream's start (the script's limit is 1 200)
 STREAM_CPU_THREADS = 2  # torch's CPU threads in each of the two processes from go on
 
@@ -5841,8 +6117,8 @@ def stream_phases(path: str) -> int:
     """The stream, the whole script's second process on the card: it
     starts the CPU sides of phases k1, l, m1 and n1, waits for ``go`` on
     its standard input (the kernels' times are taken by then), starts
-    phase o's audit child, runs phases k, m, n, o and l, and writes
-    each phase's launches to ``path`` as JSON.  Phase l comes last: its
+    phase o's audit child, runs phases k, m, n, o, l and p, and writes
+    each phase's launches to ``path`` as JSON.  Phase l comes late: its
     CPU side takes longest."""
     refs = {phase: CpuReference(phase) for phase in "lnkm"}
     threading.Thread(target=_end_with_parent, args=(os.getppid(),), daemon=True).start()
@@ -5862,7 +6138,8 @@ def stream_phases(path: str) -> int:
         finally:
             audit_child.stop()
         out["serving"] = serving_phase(torch, refs["l"])
-        log(f"stream: phases k, m, n, o and l in {time.perf_counter() - t0:.1f} s")
+        out["host"] = host_phase(torch)
+        log(f"stream: phases k, m, n, o, l and p in {time.perf_counter() - t0:.1f} s")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({phase: out[phase] for phase in STREAM_PHASES}, f, default=int)
@@ -5995,6 +6272,10 @@ def main() -> int:
                          "over TCP, their rings on the card: join, kill, revive, the workers "
                          "on the card, 2 000 lookups against the plain ring); print no result "
                          "line")
+    ap.add_argument("--ranks", action="store_true",
+                    help="only run the dense main path and phase r (BASELINE config 3 in four "
+                         "rank processes on the card, each holding its own rows, every hop a "
+                         "peer write, against the main path's run); print no result line")
     ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
                     help=argparse.SUPPRESS)
@@ -6115,6 +6396,12 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         proc_phase(torch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.ranks:
+        history = main_path(torch)[3]
+        torch.cuda.empty_cache()
+        ranks_phase(torch, history)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.split_of:
         log(f"split of the package under {root}")
         check_recv_merge(torch, dev)
@@ -6132,7 +6419,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # lockstep phases that run on the CPU themselves
     stream = Stream()
     refs.append(stream)
-    launches, converged_dense, c = main_path(torch)
+    launches, converged_dense, c, dense_history = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
     launches_delta, converged_delta, searchsorted_shapes, c = delta_main_path(torch)
@@ -6154,11 +6441,11 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
     launches_faults = faults_phase(torch)
     launches_scen = scenarios_phase(torch)
-    launches_host = host_phase(torch)
     streamed = stream.result()
-    launches_sweeps, launches_serving, launches_prov, launches_inc, launches_audit = (
-        streamed[p] for p in STREAM_PHASES)
+    (launches_sweeps, launches_serving, launches_prov, launches_inc, launches_audit,
+     launches_host) = (streamed[p] for p in STREAM_PHASES)
     launches_proc = proc_phase(torch)
+    rows.append(ranks_phase(torch, dense_history))
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
@@ -6167,7 +6454,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # delta kernels on the delta path, both config-4 paths and the delta
     # runs of phases h-n (kernel 3 also at phase i's block search and
     # phase m's fold); the hop on the three ring paths and phase l5.
-    # (phases k-o's are counted in the stream, phase n's in its own processes
+    # (phases k-p's are counted in the stream, phase n's in its own processes
     # on the card, and phase o's in its audit child and in the stream);
     # phase p's FarmHash launches (the host rings' batches, the tensor
     # cluster's checksums);
@@ -6178,6 +6465,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
                                     + launches_audit["farmhash32_short"]
                                     + launches_host["farmhash32_short"]
                                     + launches_proc["farmhash32_short"])
+    launches["peer_hop"] = rows[-1]["launches"]
     launches["ring_hop"] = (launches_ring["ring_hop"] + launches_ring_delta["ring_hop"]
                             + launches_ring_sided["ring_hop"] + launches_serving["ring_hop"]
                             + launches_audit["ring_hop"])

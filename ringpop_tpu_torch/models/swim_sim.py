@@ -224,7 +224,9 @@ class ClusterState(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.view_key.shape[0]
+        """The member count (the columns: a rank of a process group's
+        ring holds a block of the rows)."""
+        return self.view_key.shape[1]
 
     @property
     def view_status(self) -> torch.Tensor:
@@ -418,7 +420,7 @@ def _distinct_ranks(
     """``m`` distinct uniform ranks in ``[0, count)`` per row, by
     sequential shifted-uniform draws: (ranks int32[N, m], valid bool[N, m])."""
     n = count.shape[0]
-    u = prng.uniform(key, (n, m), device=count.device)
+    u = _uniform_rows(key, (n, m), count.device)
     ranks: list[torch.Tensor] = []
     valids = []
     for t in range(m):
@@ -457,7 +459,7 @@ def _choose_targets_and_witnesses(
     the block prefix (the block by the row-searchsorted kernel over the
     block offsets, the column by a compare-count inside the gathered
     int8 block), the same picks bit for bit."""
-    n = pingable.shape[0]
+    n = pingable.shape[1]
     count = pingable.sum(dim=1, dtype=torch.int32)
     ranks, valid = _distinct_ranks(count, k + 1, key)
     if n - 1 <= _SPARSE_SMALL_N:
@@ -491,7 +493,7 @@ def _drop(key: torch.Tensor, shape: tuple, loss: float, device: torch.device) ->
     """Per-message Bernoulli loss draw (True = dropped); no draw at 0."""
     if loss <= 0.0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
-    u = prng.uniform(key, shape, device=device)
+    u = _uniform_rows(key, shape, device)
     # float32 threshold made by a fill: a host tensor would be copied in
     # and wait for the card
     return u < torch.full((), loss, dtype=torch.float32, device=device)
@@ -524,7 +526,7 @@ def _drop_net(
     # separate float32 ops, no fused multiply-add: the threshold rounds
     # as the reference's does
     thr = base + (1.0 - base) * lp
-    return prng.uniform(key, shape, device=dev) < thr
+    return _uniform_rows(key, shape, dev) < thr
 
 
 def _link_delay_bounds(net: NetState, rows, cols) -> tuple[torch.Tensor, torch.Tensor]:
@@ -545,7 +547,7 @@ def _message_delay(net: NetState, key: torch.Tensor, rows, cols, shape: tuple) -
     """int32 latency per message: the rule base plus a uniform draw in
     {0..jitter}; one draw per message whatever the rules' activity."""
     base, bound = _link_delay_bounds(net, rows, cols)
-    u = prng.uniform(key, shape, device=rows.device)
+    u = _uniform_rows(key, shape, rows.device)
     extra = torch.minimum((u * (bound + 1).to(torch.float32)).to(torch.int32), bound)
     return base + extra
 
@@ -581,7 +583,7 @@ def _stagger_send_gate(
     div = _sweep_divisor(phase_mod, per)
     if div is None:
         return sends
-    ids = torch.arange(n, dtype=torch.int64, device=sends.device)
+    ids = _row_ids(sends.shape[0], sends.device)
     phase = _wrap_i32(ids * 0x9E37) % div  # floored, as in the reference
     return sends & (tick % div == phase)
 
@@ -594,11 +596,64 @@ def _adj(net: NetState, rows, cols) -> torch.Tensor | bool:
         return True
     if net.adj.dim() == 1:
         return net.adj[rows] == net.adj[cols]
+    if _grc.active_rank() is not None:
+        # a rank holds its rows of the mask: other rows come over the ring
+        return _grc.ring_take_at(net.adj, rows, cols)
     return net.adj[rows, cols]
 
 
 def _ids(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# this process's rows.  On a process group's ring (``parallel.make_mesh(
+# group=...)``) a rank holds a block of the rows of every [N, N] plane and
+# the [N] vectors whole, and the step runs on its block: each read across
+# rows is a ring primitive or one of the ring's collectives
+# (``ring_allgather``, ``ring_sum``), the identity anywhere else, where the
+# helpers below give the whole.
+# ---------------------------------------------------------------------------
+
+
+def _rank_off(rows: int) -> int:
+    """The global id of this process's first row."""
+    rk = _grc.active_rank()
+    return 0 if rk is None else rk[0] * rows
+
+
+def _row_ids(rows: int, device: torch.device) -> torch.Tensor:
+    """int64[rows]: the global ids of this process's rows."""
+    off = _rank_off(rows)
+    return torch.arange(off, off + rows, dtype=torch.int64, device=device)
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """This process's rows of a replicated [N, ...] vector."""
+    rk = _grc.active_rank()
+    if rk is None:
+        return x
+    rows = x.shape[0] // rk[1]
+    return x[rk[0] * rows:(rk[0] + 1) * rows]
+
+
+def _eye(rows: int, n: int, device: torch.device) -> torch.Tensor:
+    """bool[rows, n]: the self entries of this process's rows."""
+    if _grc.active_rank() is None:
+        return torch.eye(n, dtype=torch.bool, device=device)
+    return _row_ids(rows, device)[:, None] == _ids(n, device)[None, :]
+
+
+def _uniform_rows(key: torch.Tensor, shape: tuple, device: torch.device) -> torch.Tensor:
+    """``prng.uniform(key, shape)`` with ``shape[0]`` this process's
+    rows: a rank draws the whole [N, ...] and keeps its rows, the same
+    numbers in either threefry mode."""
+    rk = _grc.active_rank()
+    if rk is None:
+        return prng.uniform(key, shape, device=device)
+    rows = shape[0]
+    u = prng.uniform(key, (rows * rk[1], *shape[1:]), device=device)
+    return u[rk[0] * rows:(rk[0] + 1) * rows]
 
 
 def _on_ring() -> bool:
@@ -611,7 +666,7 @@ def _on_ring() -> bool:
 def _diag(plane: torch.Tensor) -> torch.Tensor:
     """``torch.diagonal(plane)``, routed like ``_row_at``."""
     if _on_ring():
-        return _grc.ring_take_per_row(plane, _ids(plane.shape[0], plane.device))
+        return _grc.ring_take_per_row(plane, _row_ids(plane.shape[0], plane.device))
     return torch.diagonal(plane)
 
 
@@ -682,11 +737,12 @@ def _merge_incoming(
     With damping planes, ``flapped`` marks the applied transitions
     between alive and suspect/faulty (either way)."""
     n = state.n
+    rows = in_key.shape[0]
     dev = in_key.device
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    eye = _eye(rows, n, dev)
     cur_key = state.view_key
     # Refutation: only the diagonal can carry a rumor about self.
-    in_self = torch.diagonal(in_key)
+    in_self = torch.diagonal(in_key, _rank_off(rows))
     self_status = in_self & 7
     refuted = active & ((self_status == SUSPECT) | (self_status == FAULTY))
     self_inc = _diag(cur_key) >> 3
@@ -705,7 +761,7 @@ def _merge_incoming(
     view_key = torch.where(apply, in_key, cur_key)
     pb = torch.where(apply, 0, state.pb)
 
-    ids = _ids(n, dev)
+    ids = _row_ids(rows, dev)
     diag_key = torch.where(refuted, new_self_inc * 8 + ALIVE, _diag(view_key))
     # both planes are this merge's own new tensors: written in place
     view_key = _row_update_owned(view_key, ids, diag_key.to(torch.int32))
@@ -734,7 +790,7 @@ def _declare(
     """Local declaration (makeSuspect / makeFaulty): viewer i re-labels
     ``subject[i]`` at its known incarnation where the lattice admits it."""
     n = state.n
-    ids = _ids(n, state.view_key.device)
+    ids = _row_ids(state.view_key.shape[0], state.view_key.device)
     subj = torch.clamp(subject, 0, n - 1)
     cur = _row_at(state.view_key, subj)
     in_key = torch.where(cur > 0, (cur >> 3) * 8 + new_status, 0)
@@ -831,6 +887,23 @@ def _check_supported(
             )
         if state.damp is not None:
             raise NotImplementedError("sparse_cap does not support damping tensors")
+    if _grc.active_rank() is not None:
+        arms = (
+            ("flap damping (ClusterState.damp)", state.damp is not None),
+            ("the delay buffer (ClusterState.pending)", state.pending is not None),
+            ("link rules (NetState.link_*)", net.link_src is not None),
+            ("gray periods (NetState.period)", net.period is not None),
+            ("phase_mod > 1", params.phase_mod > 1),
+            ("relay_full_sync", bool(params.relay_full_sync)),
+            ("knob runs (SwimKnobs)", knobs is not None),
+            ("the provenance plane (prov=True)", prov),
+        )
+        for what, present in arms:
+            if present:
+                raise NotImplementedError(
+                    f"{what} on a process group's ring is not ported (ROADMAP.md queue 1 "
+                    "item 11); run it on the one-process mesh, make_mesh(devices=[device] * D)"
+                )
     if net.period is not None and params.phase_mod > 1:
         raise ValueError(
             "per-node periods (NetState.period, the gray-failure model) "
@@ -848,8 +921,9 @@ def _phase01_select(
 ) -> _Selection:
     """Phase 0 (derived views) + phase 1 (probe targets and witnesses)."""
     n = state.n
+    rows = state.view_key.shape[0]
     dev = state.view_key.device
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    eye = _eye(rows, n, dev)
     status = state.view_key & 7
     status_ok = (status == ALIVE) | (status == SUSPECT)
     pingable = status_ok & ~eye
@@ -857,7 +931,7 @@ def _phase01_select(
     maxpb = _max_piggyback(status_ok, int(kn.piggyback_factor))
     h_pre = _view_hash(state.view_key)
     own_status = _diag(status)
-    gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
+    gossiping = _own(net.up & net.responsive) & ((own_status == ALIVE) | (own_status == SUSPECT))
     per = torch.clamp(net.period, min=1) if net.period is not None else None
     target, has_target, wit, wit_valid = _choose_targets_and_witnesses(
         pingable, params.ping_req_size, k_sel
@@ -873,7 +947,7 @@ def _phase01_select(
         mult = 0x9E37
         while math.gcd(mult, n) != 1:
             mult += 1
-        start = (_ids(n, dev) * mult) % n
+        start = (_row_ids(rows, dev) * mult) % n
         # with staggered periods the sweep advances once per period
         div = _sweep_divisor(kn.phase_mod, per)
         swept = (start + state.tick.to(torch.int64) // (1 if div is None else div)) % n
@@ -920,10 +994,12 @@ def _max_into(acc: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(acc, x, out=acc)
 
 
-def _inbound_counts(t_safe: torch.Tensor, fwd_ok: torch.Tensor) -> torch.Tensor:
-    """int32[N] delivered-ping count per receiver (sorted receivers and
-    run bounds, no scatter)."""
-    n = t_safe.shape[0]
+def _inbound_counts(
+    t_safe: torch.Tensor, fwd_ok: torch.Tensor, n: int | None = None
+) -> torch.Tensor:
+    """int32[n] delivered-ping count per receiver (sorted receivers and
+    run bounds, no scatter); ``n`` defaults to the senders' count."""
+    n = t_safe.shape[0] if n is None else n
     recv_sorted = torch.sort(torch.where(fwd_ok, t_safe, n)).values
     bounds = torch.searchsorted(recv_sorted, _ids(n + 1, t_safe.device))
     return (bounds[1:] - bounds[:-1]).to(torch.int32)
@@ -994,14 +1070,15 @@ def _phase5_pingreq(
     proven no-op, so both give the same values."""
     state = hand.take()
     n = state.n
+    nrows = state.view_key.shape[0]
     dev = state.view_key.device
-    ids = _ids(n, dev)
+    ids = _row_ids(nrows, dev)
     resp = net.up & net.responsive
     t_safe = sel.t_safe
     failed = sel.sends & ~ack
     k_a, k_b, k_c, k_d = prng.split(k_loss3, 4)
     kk = params.ping_req_size
-    kshape = (n, kk)
+    kshape = (nrows, kk)
     loss = float(params.loss)
     wit_safe = torch.clamp(sel.wit, 0, n - 1)
     # hop deliveries: source->witness request, witness->target ping,
@@ -1038,13 +1115,15 @@ def _phase5_pingreq(
     flaps: list[torch.Tensor | None] = [None]
 
     def slot_counts(recv_idx: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        # a rank counts its senders' pings at every receiver, the ring sums
+        # the counts, and the rank keeps its own receivers'
         total = torch.zeros(n, dtype=torch.int32, device=dev)
         for m in range(kk):
-            total = total + _inbound_counts(recv_idx[:, m], masks[:, m])
-        return total
+            total = total + _inbound_counts(recv_idx[:, m], masks[:, m], n)
+        return _own(_grc.ring_sum(total))
 
     def stage_merge(st, applied, pred, build_in, active):
-        if not bool(pred):
+        if not bool(_grc.ring_sum(pred)):
             return st, applied
         mrg = _merge_incoming(st, build_in(st), active, sl_start)
         flaps[0] = _or(flaps[0], mrg.flapped)
@@ -1055,9 +1134,11 @@ def _phase5_pingreq(
     # With no active change anywhere the whole exchange is a proven no-op;
     # under relay_full_sync it is not (a diverged but quiet target must
     # still answer full rows).
-    xch_pred = req_del.any()
-    if not build_fs:
-        xch_pred = xch_pred & (state.pb >= 0).any()
+    if build_fs:
+        xch_pred = _grc.ring_sum(req_del.any())
+    else:
+        # each any() over every rank before the and
+        xch_pred = _grc.ring_sum(torch.stack([req_del.any(), (state.pb >= 0).any()])).all()
     if bool(xch_pred):
         # The stage merges rebind ``st``, so the entry state is dropped as
         # they go, and each stage's masks as soon as it is done: at
@@ -1159,7 +1240,7 @@ def _phase5_pingreq(
         any_resp = resp_del.any(dim=1)
 
         def in_d(st2):
-            acc = torch.zeros((n, n), dtype=torch.int32, device=dev)
+            acc = torch.zeros((nrows, n), dtype=torch.int32, device=dev)
             for m in range(kk):
                 rows = _claim_rows(st2.view_key, issue_wit2, wit_safe[:, m])
                 drop = rows == st2.view_key
@@ -1175,7 +1256,7 @@ def _phase5_pingreq(
         state = st
 
     # the declaration sees the post-exchange view
-    was_alive_at_target = (state.view_key[ids, t_safe] & 7) == ALIVE
+    was_alive_at_target = (state.view_key[_ids(nrows, dev), t_safe] & 7) == ALIVE
     state, declared = _declare(state, declare_suspect, t_safe, SUSPECT, sl_start)
     return _PingReq(
         state, failed, declare_suspect, declared, was_alive_at_target, applied,
@@ -1202,6 +1283,8 @@ def _phase6_expiry(
 
 def converged_impl(state: ClusterState, net: NetState) -> torch.Tensor:
     """Exact view agreement among live (gossiping) nodes: bool[]."""
+    if _grc.active_rank() is not None:
+        return _converged_ranks(state, net)
     own = torch.diagonal(state.view_key) & 7
     live = net.up & net.responsive & ((own == ALIVE) | (own == SUSPECT))
     # the reference row by a one-row gather (indexing with a tensor
@@ -1209,6 +1292,20 @@ def converged_impl(state: ClusterState, net: NetState) -> torch.Tensor:
     ref = torch.argmax(live.to(torch.uint8)).reshape(1)
     row_same = (state.view_key == state.view_key.index_select(0, ref)).all(dim=1)
     return torch.where(live, row_same, True).all() | (live.sum() <= 1)
+
+
+def _converged_ranks(state: ClusterState, net: NetState) -> torch.Tensor:
+    """``converged_impl`` on this rank's rows: the live mask goes round
+    the ring, the reference row comes over it, and the ranks' splits are
+    summed."""
+    rows = state.view_key.shape[0]
+    own = torch.diagonal(state.view_key, _rank_off(rows)) & 7
+    live = _own(net.up & net.responsive) & ((own == ALIVE) | (own == SUSPECT))
+    live_all = _grc.ring_allgather(live)
+    ref = torch.argmax(live_all.to(torch.uint8)).reshape(1)
+    row_same = (state.view_key == _grc.ring_fetch_global(state.view_key, ref)).all(dim=1)
+    split = _grc.ring_sum((live & ~row_same).any())
+    return ~split | (live_all.sum() <= 1)
 
 
 def swim_step_impl(
@@ -1251,6 +1348,7 @@ def _swim_step_handed(
         return _swim_step_sparse(hand, net, key, params, sl_start)
     state = hand.take()
     n = state.n
+    rows = state.view_key.shape[0]
     dev = state.view_key.device
     has_delay = state.pending is not None
     if has_delay:
@@ -1259,7 +1357,7 @@ def _swim_step_handed(
         k_sel, k_loss1, k_loss2, k_loss3, k_j1, k_j2 = prng.split(key, 6)
     else:
         k_sel, k_loss1, k_loss2, k_loss3 = prng.split(key, 4)
-    ids = _ids(n, dev)
+    ids = _row_ids(rows, dev)
     loss = float(params.loss)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -1285,7 +1383,7 @@ def _swim_step_handed(
     fwd_ok = (
         sends
         & _adj(net, ids, t_safe)
-        & ~_drop_net(k_loss1, (n,), loss, net, ids, t_safe)
+        & ~_drop_net(k_loss1, (rows,), loss, net, ids, t_safe)
         & resp[t_safe]
     )
     delivered = issued_s & fwd_ok[:, None]
@@ -1326,12 +1424,12 @@ def _swim_step_handed(
     rep_row = _gather_rows(rep_issuable, t_safe) & ~(
         delivered & (reply_key == state.view_key)
     )
-    full_sync = fwd_ok & ~rep_row.any(dim=1) & (h_post[t_safe] != h_pre)
+    full_sync = fwd_ok & ~rep_row.any(dim=1) & (_grc.ring_allgather(h_post)[t_safe] != h_pre)
     send_row = torch.where(full_sync[:, None], reply_key > 0, rep_row)
     ack = (
         fwd_ok
         & _adj(net, t_safe, ids)
-        & ~_drop_net(k_loss2, (n,), loss, net, t_safe, ids)
+        & ~_drop_net(k_loss2, (rows,), loss, net, t_safe, ids)
     )
     in2_key = torch.where(send_row & ack[:, None], reply_key, 0)
     del reply_key, rep_row, send_row
@@ -1385,6 +1483,10 @@ def _swim_step_handed(
         "damped_pairs": n_damped,
         "relay_full_syncs": pr.relay_full_syncs,
     }
+    if _grc.active_rank() is not None:
+        # the whole cluster's counts: one sum over the ranks
+        total = _grc.ring_sum(torch.stack(list(metrics.values())))
+        metrics = dict(zip(metrics, total.unbind(0)))
     if has_delay:
         metrics["delayed_claims"] = dly3.sum(dtype=torch.int32) + dly4.sum(dtype=torch.int32)
         metrics["matured_applied"] = mat_applied

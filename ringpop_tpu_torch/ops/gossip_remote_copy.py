@@ -19,14 +19,24 @@ commutative combiner, never a re-association):
 * ``ring_take_per_row`` / ``ring_update_per_row`` -- each viewer row reads
   or writes one of its own columns: row-local, no hop.
 
-Placement: all D shards live on one card.  A primitive holds its D
-blocks as one stacked ``[D, n/D, ...]`` tensor and runs the per-shard
-body of the reference primitive batched over the shard axis, so one hop
-is one launch of the CUDA kernel ``csrc/ring_hop.cu`` (the port of the
-TPU kernel ``_hop_kernel``), which copies block i into block
-(i + 1) mod D of a fresh stack.  CPU tensors take ``hop_plain``.  The
-hop stays a copy into the neighbour's buffer, never a relabelling of
-blocks: across cards it becomes the peer write.
+Two placements, one body each:
+
+* one process a shard (a process group's mesh, ``mesh.on_ranks``): a
+  primitive runs the per-shard body of the reference primitive on this
+  rank's own block, and each hop is a peer write into the right
+  neighbour's memory (``ops/peer_hop.py``: the kernel ``rp_peer_hop`` of
+  ``csrc/ring_hop.cu`` on the card, gloo on the CPU).  The same hop
+  carries the ring's collectives, ``ring_allgather`` and ``ring_sum``,
+  which the step uses where it reads across rows outside these seams,
+  and ``ring_take_at``, an element gather of a row-split plane;
+* all D shards in one process (``make_mesh(devices=[dev] * D)``): a
+  primitive holds its D blocks as one stacked ``[D, n/D, ...]`` tensor
+  and runs the per-shard body batched over the shard axis, so one hop is
+  one launch of ``rp_ring_hop`` (the port of the TPU kernel
+  ``_hop_kernel``), which copies block i into block (i + 1) mod D of a
+  fresh stack.  CPU tensors take ``hop_plain``.
+
+Both forms give the same values.
 
 The ring the primitives run over comes from an ambient context, not an
 argument: ``parallel/mesh.py`` opens ``ring_mesh(mesh)`` around its calls
@@ -44,6 +54,7 @@ import torch
 
 from ringpop_tpu_torch import _build
 from ringpop_tpu_torch.obs import annotate
+from ringpop_tpu_torch.ops import peer_hop
 
 # ---------------------------------------------------------------------------
 # Ambient ring context
@@ -78,6 +89,33 @@ def ring_devices() -> int:
         return 0
     mesh, axis = ring
     return mesh.shape[axis]
+
+
+def active_rank() -> tuple[int, int] | None:
+    """(rank, D) when the active ring runs one process a shard, else None."""
+    mesh = _rank_mesh()
+    return None if mesh is None else (mesh.rank, mesh.size)
+
+
+def _rank_mesh() -> Any:
+    """The active ring's mesh when it is a process group's, else None."""
+    ring = active_ring()
+    if ring is None or not getattr(ring[0], "on_ranks", False):
+        return None
+    return ring[0]
+
+
+def _peer(mesh: Any, blocks: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """One rightward hop of this rank's ``blocks`` to the next rank."""
+    return peer_hop.peer_hop(blocks, mesh.peers)
+
+
+def _circulate() -> None:
+    """Count one circulation (D - 1 hops) of this rank's blocks."""
+    _circulate.count += 1
+
+
+_circulate.count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +252,9 @@ def ring_recv_merge(
     to a spare slot ``n_loc`` that is cut off.  Max and add commute
     over the hop order, so the fold is exact.  (The caller,
     ``swim_sim._receiver_merge``, carries the ``swim.recv_merge`` label.)"""
+    mesh = _rank_mesh()
+    if mesh is not None:
+        return _rank_recv_merge(mesh, t_safe, fwd_ok, claim_rows)
     n = t_safe.shape[0]
     d, n_loc = _require_ring(n)
     dev = claim_rows.device
@@ -239,6 +280,58 @@ def ring_recv_merge(
     inbound = inb[:, :n_loc]
     in_key = torch.where((inbound > 0)[:, :, None], acc[:, :n_loc], 0)
     return in_key.reshape(n, n), inbound.reshape(n)
+
+
+def _rank_recv_merge(
+    mesh: Any, t_safe: torch.Tensor, fwd_ok: torch.Tensor, claim_rows: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shard body of ``ring_recv_merge`` on this rank's senders
+    (``claim_rows`` [N/D, N]): (in_key [N/D, N], inbound [N/D]) of its
+    own receivers."""
+    d, me = mesh.size, mesh.rank
+    n_loc, n = claim_rows.shape
+    dev = claim_rows.device
+    off = me * n_loc
+    _circulate()
+    acc = torch.zeros((n_loc + 1, n), dtype=torch.int32, device=dev)
+    inb = torch.zeros((n_loc + 1,), dtype=torch.int32, device=dev)
+    blk = (t_safe.to(torch.int32), fwd_ok.to(torch.bool), claim_rows.to(torch.int32))
+    for h in range(d):
+        bdest, bok, brows = blk
+        tgt = bdest.to(torch.int64) - off
+        tgt = torch.where(bok & (tgt >= 0) & (tgt < n_loc), tgt, n_loc)
+        acc.scatter_reduce_(
+            0, tgt[:, None].expand(n_loc, n), torch.where(bok[:, None], brows, 0),
+            reduce="amax", include_self=True,
+        )
+        inb.scatter_add_(0, tgt, torch.ones_like(bdest))
+        if h < d - 1:
+            blk = _peer(mesh, blk)
+    inbound = inb[:n_loc]
+    return torch.where((inbound > 0)[:, None], acc[:n_loc], 0), inbound
+
+
+def _rank_fetch(
+    mesh: Any, cur: torch.Tensor, il: torch.Tensor, cols: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The shard body of the fetch primitives on this rank: ``cur`` its
+    block [N/D, ...] of the plane, ``il`` global row ids (any shape).  At
+    hop h the rank holds the block of rank ``(me - h) mod D`` and
+    resolves the ids in its range; with ``cols`` (the shape of ``il``)
+    it picks the element ``plane[il, cols]`` instead of the row."""
+    d, me = mesh.size, mesh.rank
+    n_loc = cur.shape[0]
+    _circulate()
+    out = None
+    for h in range(d):
+        src = (me - h) % d
+        sel = torch.div(il, n_loc, rounding_mode="floor") == src
+        loc = torch.clamp(il - src * n_loc, 0, n_loc - 1)
+        got = cur[loc] if cols is None else cur[loc, cols]
+        out = torch.where(_bcast(sel, got.dim()), got, torch.zeros_like(got) if out is None else out)
+        if h < d - 1:
+            (cur,) = _peer(mesh, (cur,))
+    return out
 
 
 def _fetch_blocks(cur: torch.Tensor, il: torch.Tensor, n_loc: int) -> torch.Tensor:
@@ -268,6 +361,12 @@ def ring_fetch_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     index shape); output shape ``idx.shape + plane.shape[1:]``.  The
     plane's blocks circulate the ring; a pure gather, so exact."""
     with annotate.scope("gossip.ring_fetch"):
+        mesh = _rank_mesh()
+        if mesh is not None:
+            if idx.shape[0] != plane.shape[0]:
+                raise ValueError(f"idx must be aligned to the rank's rows ({plane.shape[0]}), "
+                                 f"got {list(idx.shape)}")
+            return _rank_fetch(mesh, plane, idx.to(torch.int64))
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         if idx.shape[0] != n:
@@ -280,6 +379,11 @@ def ring_take_per_row(plane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     """``plane[arange(N), col]``: each viewer row reads one of its own
     columns (the diagonal when ``col = arange(N)``).  Row-local: no hop."""
     with annotate.scope("gossip.per_row"):
+        mesh = _rank_mesh()
+        if mesh is not None:
+            r = torch.arange(plane.shape[0], dtype=torch.int64, device=plane.device)
+            n = plane.shape[0] * mesh.size
+            return plane[r, torch.clamp(col.to(torch.int64), 0, n - 1)]
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         dev = plane.device
@@ -297,6 +401,14 @@ def ring_update_per_row(
     if op not in ("set", "max"):
         raise ValueError(f"op={op!r}: set|max")
     with annotate.scope("gossip.per_row"):
+        mesh = _rank_mesh()
+        if mesh is not None:
+            r = torch.arange(plane.shape[0], dtype=torch.int64, device=plane.device)
+            cl = torch.clamp(col.to(torch.int64), 0, plane.shape[0] * mesh.size - 1)
+            vl = values.to(plane.dtype)
+            if op == "max":
+                vl = torch.maximum(plane[r, cl], vl)
+            return plane.index_put((r, cl), vl)
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         dev = plane.device
@@ -315,7 +427,61 @@ def ring_fetch_global(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     replicated, and so the output: every shard watches all D blocks pass
     and resolves the full index set alike; shard 0's copy is returned."""
     with annotate.scope("gossip.ring_fetch"):
+        mesh = _rank_mesh()
+        if mesh is not None:
+            return _rank_fetch(mesh, plane, idx.to(torch.int64))
         n = plane.shape[0]
         d, n_loc = _require_ring(n)
         il = idx.to(torch.int64)[None].expand(d, *idx.shape)
         return _fetch_blocks(_cut(plane, d), il, n_loc)[0]
+
+
+# ---------------------------------------------------------------------------
+# The ring's collectives on a process group's mesh (the identity elsewhere)
+# ---------------------------------------------------------------------------
+
+
+def ring_allgather(*xs: torch.Tensor) -> Any:
+    """Each of ``xs``, this rank's rows [N/D, ...], as the whole [N, ...]
+    on every rank: D - 1 hops, all of ``xs`` in each.  Outside a process
+    group's ring, ``xs`` as they are.  One tensor in, one out."""
+    mesh = _rank_mesh()
+    if mesh is None:
+        return xs[0] if len(xs) == 1 else xs
+    with annotate.scope("gossip.allgather"):
+        _circulate()
+        d, me = mesh.size, mesh.rank
+        parts = [[None] * d for _ in xs]
+        cur = tuple(xs)
+        for h in range(d):
+            for p, x in zip(parts, cur):
+                p[(me - h) % d] = x
+            if h < d - 1:
+                cur = _peer(mesh, cur)
+        out = tuple(torch.cat(p) for p in parts)
+    return out[0] if len(xs) == 1 else out
+
+
+def ring_sum(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of ``x`` over the ranks (integer or bool
+    counts: exact in any order), in ``x``'s dtype; ``x`` outside a
+    process group's ring."""
+    if _rank_mesh() is None:
+        return x
+    every = ring_allgather(x.reshape(1, *x.shape))
+    if x.dtype == torch.bool:
+        return every.any(dim=0)
+    return every.sum(dim=0, dtype=x.dtype)
+
+
+def ring_take_at(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``plane[rows, cols]`` of a row-split plane on a process group's
+    ring (``rows`` global ids, any shape, ``cols`` broadcast to it): the
+    plane's blocks circulate and each rank picks its elements out of the
+    passing block.  Outside it, the plain gather."""
+    mesh = _rank_mesh()
+    rows, cols = torch.broadcast_tensors(rows.to(torch.int64), cols.to(torch.int64))
+    if mesh is None:
+        return plane[rows, cols]
+    with annotate.scope("gossip.ring_fetch"):
+        return _rank_fetch(mesh, plane, rows, cols)

@@ -1,9 +1,16 @@
 """Row sharding of the SWIM simulation over a ring of shards: see
-``ringpop_tpu_torch.parallel.mesh``."""
+``ringpop_tpu_torch.parallel.mesh`` (one process a shard over a process
+group, or every shard in one process) and ``parallel.ranks`` (the
+launcher of the ranks)."""
 
 from ringpop_tpu_torch.parallel.mesh import (
     Mesh,
+    checksums,
+    converged,
+    gather_cluster,
+    init_cluster,
     make_mesh,
+    revive,
     shard_cluster,
     shard_delta,
     sharded_delta_run,
@@ -15,7 +22,12 @@ from ringpop_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "Mesh",
+    "checksums",
+    "converged",
+    "gather_cluster",
+    "init_cluster",
     "make_mesh",
+    "revive",
     "shard_cluster",
     "shard_delta",
     "sharded_delta_run",

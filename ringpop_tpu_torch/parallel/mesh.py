@@ -16,12 +16,26 @@ reference's ``_receiver_merge``, ``_gather_rows``, ``_row_at``, ``_diag``
 and ``_row_update`` take their ring branch, the port calls its ring
 primitive, which moves blocks between shards only through the hop.
 
-Placement: the D shards live on one card (or, in the tests, on the
-CPU), asked for explicitly with ``make_mesh(devices=[dev] * D)``.  Two
-things wait for a machine with several cards, and ``make_mesh`` raises
-``NotImplementedError`` when given distinct devices: the hop as a peer
-write across cards, and each shard's rows staying resident on their own
-card between steps.
+Two placements:
+
+* across processes, the cross-device form: ``make_mesh(group=...)`` over
+  a ``torch.distributed`` process group (``parallel.ranks`` starts one
+  and its processes), one rank a shard.  Each rank holds rows
+  ``[r * N/D, (r + 1) * N/D)`` of every row-split field and the
+  replicated fields whole (``shard_cluster``, ``init_cluster``); the
+  dense step runs on those rows, every read across rows an explicit
+  collective of the ring (``models/swim_sim.py``), and each hop a peer
+  write into the right neighbour's memory (``ops/peer_hop.py``).  Each
+  rank's device is ``cuda:{rank % device_count}`` unless the caller asks
+  for the CPU; on one card all D ranks share it.  ``gather_cluster``
+  puts the global state back together, for checks;
+* in one process, ``make_mesh(devices=[dev] * D)``: the D shards live on
+  one device (or, in the tests, on the CPU) as stacks, each hop one
+  launch over all of them.  The delta step, sided mode and serving run
+  here only.
+
+Two distinct devices in one process are refused: the cross-device form
+is one process a device.
 """
 
 from __future__ import annotations
@@ -31,8 +45,10 @@ import dataclasses
 from typing import Any, Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from ringpop_tpu_torch.models.swim_delta import DeltaState, delta_run_impl, delta_step_impl
+from ringpop_tpu_torch.models import swim_sim as _sim
 from ringpop_tpu_torch.models.swim_sim import (
     ClusterState,
     NetState,
@@ -46,10 +62,20 @@ AXIS = "nodes"
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh of D shards along the member axis (the reference's
-    one-axis ``jax.sharding.Mesh``); ``devices[i]`` holds shard i."""
+    one-axis ``jax.sharding.Mesh``); ``devices[i]`` holds shard i.  On a
+    process group's mesh ``rank`` is this process's shard, ``group`` the
+    group and ``peers`` its end of the ring (``ops.peer_hop.PeerRing``)."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...] = (AXIS,)
+    rank: int | None = None
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    peers: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def on_ranks(self) -> bool:
+        """One process a shard (``make_mesh(group=...)``)?"""
+        return self.rank is not None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -61,8 +87,20 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device every shard lives on."""
-        return self.devices[0]
+        """This process's device: the one every shard lives on, or on a
+        process group's mesh this rank's."""
+        return self.devices[self.rank or 0]
+
+    def rows(self, n: int) -> tuple[int, int]:
+        """(first row, row count) of this rank's block of an [n, ...] plane."""
+        if not self.on_ranks:
+            return 0, n
+        return self.rank * (n // self.size), n // self.size
+
+    def close(self) -> None:
+        """Free this rank's receive buffers (a collective of the group)."""
+        if self.peers is not None:
+            self.peers.close()
 
 
 def _canonical(device: Any) -> torch.device:
@@ -72,12 +110,39 @@ def _canonical(device: Any) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: int | None = None, devices: Any = None) -> Mesh:
-    """A 1-D mesh over ``n_devices`` (default: all) of ``devices``
-    (default: the visible cards).  D shards on one card are asked for
-    explicitly: ``devices=[torch.device("cuda")] * D``.  Raises when
-    fewer devices are given than asked for, and ``NotImplementedError``
-    for two distinct devices (the cross-card ring is not ported)."""
+def rank_device(rank: int, device: Any = None) -> torch.device:
+    """A rank's device: ``cuda:{rank % device_count}``, or the CPU when
+    the caller asks for it."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run the ranks on "
+                           "the host")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def make_mesh(
+    n_devices: int | None = None, devices: Any = None, *, group: Any = None, device: Any = None
+) -> Mesh:
+    """A 1-D mesh of D shards.
+
+    ``group=`` (a ``torch.distributed`` process group, e.g.
+    ``torch.distributed.group.WORLD``): the cross-device form, one rank a
+    shard, each on ``rank_device(rank, device)``.  Otherwise the
+    one-process form over ``n_devices`` (default: all) of ``devices``
+    (default: the visible cards); D shards on one device are asked for
+    explicitly, ``devices=[torch.device("cuda")] * D``.  Raises when fewer
+    devices are given than asked for, and ``NotImplementedError`` for
+    distinct devices in one process."""
+    if group is not None:
+        from ringpop_tpu_torch.ops.peer_hop import PeerRing
+
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        if n_devices is not None and n_devices != size:
+            raise ValueError(f"requested {n_devices} shards on a group of {size} ranks")
+        devs = tuple(rank_device(r, device) for r in range(size))
+        return Mesh(devs, rank=rank, group=group,
+                    peers=PeerRing(group, rank, size, devs[rank]))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -94,10 +159,11 @@ def make_mesh(n_devices: int | None = None, devices: Any = None) -> Mesh:
         raise ValueError("a mesh needs at least one device")
     if len(set(devices)) > 1:
         raise NotImplementedError(
-            f"a ring over distinct devices {sorted(set(map(str, devices)))} needs the "
-            "cross-card peer hop and row-resident shards (ROADMAP.md queue 2 item 6, "
-            "'Cross-card ring hop and resident shards'); put the "
-            "D shards on one device: devices=[device] * D"
+            f"one process holds the shards of one device, not {sorted(set(map(str, devices)))}: "
+            "the Cross-card ring hop runs one process a shard, "
+            "make_mesh(group=torch.distributed.group.WORLD) in each rank "
+            "(parallel.ranks starts them); or put the D shards on one device: "
+            "devices=[device] * D"
         )
     return Mesh(tuple(devices))
 
@@ -204,8 +270,10 @@ def _field_split(specs: dict[str, str], field: str, value: Any) -> int | None:
 
 
 def _place(mesh: Mesh, specs: dict[str, str], value: Any) -> Any:
-    """``value`` (a state NamedTuple) on the mesh's device, every field
-    checked against its layout: a split axis must divide into D."""
+    """``value`` (a state NamedTuple, unsharded) on the mesh's device,
+    every field checked against its layout: a split axis must divide
+    into D.  On a process group's mesh only this rank's block of each
+    split field is kept."""
     d = mesh.size
     fields = {}
     for f in type(value)._fields:
@@ -218,6 +286,9 @@ def _place(mesh: Mesh, specs: dict[str, str], value: Any) -> Any:
             raise ValueError(
                 f"{f}: axis {axis} of length {v.shape[axis]} must be divisible by mesh size {d}"
             )
+        if mesh.on_ranks and axis is not None:
+            lo, rows = mesh.rows(v.shape[axis])
+            v = v.narrow(axis, lo, rows).clone()
         fields[f] = v.to(mesh.device)
     return type(value)(**fields)
 
@@ -228,7 +299,8 @@ def _check_divisible(n: int, mesh: Mesh) -> None:
 
 
 def shard_cluster(state: ClusterState, net: NetState, mesh: Mesh) -> tuple[ClusterState, NetState]:
-    """Place an (unsharded) dense simulation onto the mesh."""
+    """Place an (unsharded) dense simulation onto the mesh: on a process
+    group's mesh, this rank's rows of it."""
     _check_divisible(state.n, mesh)
     return _place(mesh, CLUSTER_FIELD_SPECS, state), _place(mesh, NET_FIELD_SPECS, net)
 
@@ -237,8 +309,142 @@ def shard_delta(state: DeltaState, mesh: Mesh) -> DeltaState:
     """Place an (unsharded) delta state onto the mesh.  A sided state's
     [G, N] base rows and rank planes, its ``merge_to`` flip table and
     its ``side`` vector are replicated; its tables split by rows."""
+    _reject_ranks(mesh, "the sharded delta step")
     _check_divisible(state.n, mesh)
     return _place(mesh, DELTA_FIELD_SPECS, state)
+
+
+# ---------------------------------------------------------------------------
+# a process group's mesh: its rank's rows, built, checked and gathered
+# ---------------------------------------------------------------------------
+
+_QUEUE = "ROADMAP.md queue 1 item 11"
+
+
+def _reject_ranks(mesh: Mesh, what: str) -> None:
+    if mesh.on_ranks:
+        raise NotImplementedError(
+            f"{what} on a process group's mesh is not ported ({_QUEUE}); run it on the "
+            "one-process mesh, make_mesh(devices=[device] * D)"
+        )
+
+
+def init_cluster(
+    n: int, mesh: Mesh, inc: Any = None, *, mode: str = "converged"
+) -> tuple[ClusterState, NetState]:
+    """A fresh dense simulation on the mesh (``swim_sim.init_state`` and
+    ``make_net``), built on a process group's mesh as this rank's rows
+    only: no rank allocates the [N, N] planes."""
+    _check_divisible(n, mesh)
+    dev = mesh.device
+    if not mesh.on_ranks:
+        return shard_cluster(_sim.init_state(n, inc, mode=mode, device=dev),
+                             _sim.make_net(n, device=dev), mesh)
+    if inc is None:
+        inc = torch.zeros(n, dtype=torch.int32, device=dev)
+    inc = torch.as_tensor(inc, device=dev).to(torch.int32)
+    _sim._check_inc(inc)
+    lo, rows = mesh.rows(n)
+    alive_key = inc * 8 + _sim.ALIVE
+    if mode == "converged":
+        view_key = alive_key[None, :].expand(rows, n).clone()
+    elif mode == "self":
+        own = torch.arange(lo, lo + rows, device=dev)[:, None] == torch.arange(n, device=dev)
+        view_key = torch.where(own, alive_key[None, :], 0).to(torch.int32)
+    else:
+        raise ValueError(f"unknown init mode: {mode}")
+    state = ClusterState(
+        view_key=view_key,
+        pb=torch.full((rows, n), -1, dtype=torch.int8, device=dev),
+        suspect_left=torch.full((rows, n), -1, dtype=torch.int8, device=dev),
+        tick=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return state, _sim.make_net(n, device=dev)
+
+
+def _check_rows(mesh: Mesh, state: ClusterState, net: NetState) -> None:
+    """A process group's step takes this rank's rows: [N/D, N] planes and
+    a bool adjacency mask of [N/D, N]."""
+    n = state.n
+    want = (n // mesh.size, n)
+    if n % mesh.size or tuple(state.view_key.shape) != want:
+        raise ValueError(
+            f"a rank of a {mesh.size}-rank mesh steps its own rows, {list(want)}, not "
+            f"{list(state.view_key.shape)}: place the state with shard_cluster or init_cluster"
+        )
+    if net.adj is not None and net.adj.dim() == 2 and tuple(net.adj.shape) != want:
+        raise ValueError(f"adj mask of {list(net.adj.shape)} is not this rank's rows "
+                         f"{list(want)}: place the net with shard_cluster")
+
+
+def gather_cluster(state: ClusterState, mesh: Mesh) -> ClusterState:
+    """The global state back from every rank's rows (for checks and
+    comparisons: it allocates the [N, N] planes), on every rank, over the
+    ring.  The one-process mesh holds it already."""
+    if not mesh.on_ranks:
+        return state
+    fields = {}
+    with _grc.ring_mesh(mesh):
+        for f in ClusterState._fields:
+            v = getattr(state, f)
+            axis = None if v is None else _field_split(CLUSTER_FIELD_SPECS, f, v)
+            if axis not in (None, 0):
+                raise NotImplementedError(f"{f} on ranks ({_QUEUE})")
+            fields[f] = v if axis is None else _grc.ring_allgather(v)
+    return ClusterState(**fields)
+
+
+def revive(state: ClusterState, node: int, inc: int, mesh: Mesh) -> ClusterState:
+    """``swim_sim.revive`` on the mesh: on a process group's mesh the
+    rank that holds ``node``'s row wipes it; the others keep theirs."""
+    if not mesh.on_ranks:
+        return _sim.revive(state, node, inc)
+    if state.damp is not None:
+        raise NotImplementedError(f"the damping planes on ranks ({_QUEUE})")
+    # audit: allow=RPL005 a host int's range check
+    _sim._check_inc(torch.tensor([int(inc)]))
+    lo, rows = mesh.rows(state.n)
+    if not lo <= node < lo + rows:
+        return state
+    r = node - lo
+    n = state.n
+    dev = state.view_key.device
+    vk = state.view_key.clone()
+    pb = state.pb.clone()
+    sl = state.suspect_left.clone()
+    vk[r] = torch.where(torch.arange(n, device=dev) == node, int(inc) * 8 + _sim.ALIVE, 0).to(
+        torch.int32)
+    pb[r] = -1
+    sl[r] = -1
+    return state._replace(view_key=vk, pb=pb, suspect_left=sl)
+
+
+def converged(state: ClusterState, net: NetState, mesh: Mesh) -> bool:
+    """``swim_sim.converged_impl`` on the mesh, read on the host (every
+    rank gets the same answer)."""
+    if not mesh.on_ranks:
+        return bool(_sim.converged_impl(state, net))
+    with _grc.ring_mesh(mesh):
+        return bool(_sim.converged_impl(state, net))
+
+
+def checksums(state: ClusterState, net: NetState, book: Any, mesh: Mesh) -> torch.Tensor:
+    """The reference-format checksum of every live node's view, int64[L]
+    (uint32 values) in node order: each rank hashes its own live rows
+    with the FarmHash kernel (``ops.checksum_device``), and only the
+    checksums go round the ring, never the rows.  ``book`` is a
+    ``checksum_device.DeviceBook`` on this rank's device."""
+    from ringpop_tpu_torch.ops import checksum_device as ckdev
+
+    lo, rows = mesh.rows(state.n)
+    own = torch.diagonal(state.view_key, lo) & 7
+    up = (net.up & net.responsive)[lo:lo + rows]
+    live = up & ((own == _sim.ALIVE) | (own == _sim.SUSPECT))
+    sums = ckdev.view_checksums_device(book, state.view_key)
+    if mesh.on_ranks:
+        with _grc.ring_mesh(mesh):
+            sums, live = _grc.ring_allgather(sums, live)
+    return sums[live]
 
 
 # ---------------------------------------------------------------------------
@@ -305,20 +511,33 @@ def _check_adj_layout(net: NetState, expect: int | None) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _rank_entry(mesh: Mesh, gossip: str | None) -> None:
+    """A process group's mesh runs the dense step over the ring only."""
+    if mesh.on_ranks and gossip_mode(gossip) != "ring":
+        raise ValueError("a process group's mesh gossips over the ring; gossip='gather' needs "
+                         "every row in one process")
+
+
 def sharded_step(
     mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
 ) -> Callable:
     """``swim_step_impl`` over the mesh: (state, net, key, params) ->
-    (state, metrics).  The inputs are placed on the mesh first
-    (``shard_cluster``), as the reference's ``in_shardings`` place them.
-    ``net_like=net`` fixes the adjacency layout the step accepts;
-    ``gossip`` picks the plane (see ``gossip_mode``)."""
+    (state, metrics).  On the one-process mesh the inputs are placed on
+    it first (``shard_cluster``), as the reference's ``in_shardings``
+    place them; on a process group's mesh the state is this rank's rows
+    (``shard_cluster``, ``init_cluster``) and stays so, and the metrics
+    are the whole cluster's.  ``net_like=net`` fixes the adjacency layout
+    the step accepts; ``gossip`` picks the plane (see ``gossip_mode``)."""
     gossip_mode(gossip)
+    _rank_entry(mesh, gossip)
     expect_adj = _adj_layout(net_like)
 
     def step(state, net, key, params):
         _check_adj_layout(net, expect_adj)
-        state, net = shard_cluster(state, net, mesh)
+        if mesh.on_ranks:
+            _check_rows(mesh, state, net)
+        else:
+            state, net = shard_cluster(state, net, mesh)
         with mesh_gossip(mesh, gossip):
             return swim_step_impl(state, net, key, params)
 
@@ -331,11 +550,15 @@ def sharded_run(
     """``swim_run_impl`` (``ticks`` periods) over the mesh.  See
     ``sharded_step``."""
     gossip_mode(gossip)
+    _rank_entry(mesh, gossip)
     expect_adj = _adj_layout(net_like)
 
     def run(state, net, key, params, ticks):
         _check_adj_layout(net, expect_adj)
-        state, net = shard_cluster(state, net, mesh)
+        if mesh.on_ranks:
+            _check_rows(mesh, state, net)
+        else:
+            state, net = shard_cluster(state, net, mesh)
         with mesh_gossip(mesh, gossip):
             return swim_run_impl(state, net, key, params, ticks)
 
@@ -348,6 +571,7 @@ def sharded_delta_step(
     """``delta_step_impl`` over the mesh.  The cross-shard traffic is the
     claim routing and the row fetches of the replies, full syncs and
     ping-req stages: in ring mode their payload rows hop the ring."""
+    _reject_ranks(mesh, "the sharded delta step")
     gossip_mode(gossip)
     expect_adj = _adj_layout(net_like)
 
@@ -365,6 +589,7 @@ def sharded_delta_run(
     mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
 ) -> Callable:
     """``delta_run_impl`` (``ticks`` periods) over the mesh."""
+    _reject_ranks(mesh, "the sharded delta step")
     gossip_mode(gossip)
     expect_adj = _adj_layout(net_like)
 
@@ -394,6 +619,7 @@ def sharded_serve(mesh: Mesh, *, static: Any, gossip: str | None = None) -> Call
     the rows are plain gathers."""
     from ringpop_tpu_torch.traffic import engine as _tengine
 
+    _reject_ranks(mesh, "sharded serving")
     gossip_mode(gossip)
 
     def serve(view_rows, up, responsive, tensors, t):

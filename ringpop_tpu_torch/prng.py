@@ -79,24 +79,36 @@ def _mode(partitionable: bool | None) -> bool:
     return _PARTITIONABLE if partitionable is None else bool(partitionable)
 
 
+def _i32(v: int) -> int:
+    """A uint32 word as the int32 with the same bits."""
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) | (x >> (32 - d))) & _M32
+    """Rotate int32 words left by ``d``: the arithmetic right shift's sign
+    bits are masked off, so the bits are those of a uint32 rotation."""
+    low = x >> (32 - d)
+    low &= (1 << d) - 1
+    return low.bitwise_or_(x << d)
 
 
 def threefry2x32(
     k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The Threefry-2x32 block (20 rounds) on uint32 words held in int64."""
-    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
+    """The Threefry-2x32 block (20 rounds) on uint32 words held in int64.
+    The rounds run on int32 words, whose additions wrap as uint32's do,
+    in place on the block's own temporaries: half the bytes of int64
+    words, and no mask after each add."""
+    words = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x0 = x0.to(torch.int32) + _i32(words[0])
+    x1 = x1.to(torch.int32) + _i32(words[1])
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
+            x0 += x1
+            x1 = _rotl(x1, r).bitwise_xor_(x0)
+        x0 += _i32(words[(i + 1) % 3])
+        x1 += _i32((words[(i + 2) % 3] + i + 1) & _M32)
+    return x0.to(torch.int64) & _M32, x1.to(torch.int64) & _M32
 
 
 def _words(key: torch.Tensor) -> tuple[int, int]:
@@ -257,11 +269,12 @@ CATEGORICAL_BLOCK = 1 << 24
 
 def _fma(a: torch.Tensor | float, b: torch.Tensor | float, c: torch.Tensor | float) -> torch.Tensor:
     """float32 ``a * b + c`` with the product exact: float64 product and
-    sum, then one cast to float32, each a separate op (none can fuse)."""
+    sum, then one cast to float32, each a separate op (none can fuse).
+    ``b`` may come widened already (a float32 value held in float64)."""
     def dbl(v):
         return v.to(torch.float64) if torch.is_tensor(v) else v
     prod = dbl(a) * dbl(b)
-    return (prod + dbl(c)).to(torch.float32)
+    return prod.add_(dbl(c)).to(torch.float32)
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:
@@ -281,16 +294,20 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     x = x + tmp
     x2 = x * x
     x3 = x2 * x
+    # each widened once for the nine multiply-adds
+    xd, x3d = x.to(torch.float64), x3.to(torch.float64)
     p = _LOG_P
-    y = _fma(p[0], x, p[1])
-    y1 = _fma(p[3], x, p[4])
-    y2 = _fma(p[6], x, p[7])
-    y = _fma(y, x, p[2])
-    y1 = _fma(y1, x, p[5])
-    y2 = _fma(y2, x, p[8])
-    y = _fma(y, x3, y1)
-    y = _fma(y, x3, y2)
-    y = _fma(y, x3, e * _LOG_Q1)
+    y = _fma(p[0], xd, p[1])
+    y1 = _fma(p[3], xd, p[4])
+    y2 = _fma(p[6], xd, p[7])
+    y = _fma(y, xd, p[2])
+    y1 = _fma(y1, xd, p[5])
+    y2 = _fma(y2, xd, p[8])
+    del xd
+    y = _fma(y, x3d, y1)
+    y = _fma(y, x3d, y2)
+    y = _fma(y, x3d, e * _LOG_Q1)
+    del x3d
     x = x - x2 * 0.5
     x = x + y
     return x + e * _LOG_Q2

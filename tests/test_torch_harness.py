@@ -548,7 +548,12 @@ def run_reference_calls(
 # backend ``"sides"`` (sided mode: halves split by ``make_sides`` and the
 # group-id adjacency) with ``"heal_at"`` (the step from which the
 # adjacency is all one group) and ``"rebase_at"`` (the steps before which
-# the state is rebased, ``anti_entropy=True``).  It records the start
+# the state is rebased, ``anti_entropy=True``).  A dense case may give
+# ``"adj"`` (``{"groups": [N]}`` or ``{"mask": [[N] x N]}``, installed on
+# the net before the start, the step built for its layout) and
+# ``"events"`` (``{"t": [["kill", i] | ["revive", i, inc], ...]}``, applied
+# before step t: a kill clears ``up[i]``, a revive is ``sim.revive`` and
+# sets it again).  It records the start
 # state and net, the keys, and the state and metrics after every step
 # (``{name}/{t}/...``, ``{name}/m{t}/...``) or after the run
 # (``{name}/run/...``, ``{name}/mrun/...``).  A case with ``"faults":
@@ -614,6 +619,11 @@ for case in cases:
         fn = build(mesh, gossip=case.get("gossip"), **like)
     else:
         params = swim
+        adj = case.get("adj")
+        if adj is not None:
+            net = net._replace(adj=jax.numpy.asarray(
+                np.array(adj["groups"], np.int32) if "groups" in adj
+                else np.array(adj["mask"], bool)))
         state = sim.init_state(n, mode=case.get("init", "converged"),
                                damping=case.get("damping", False))
         if case.get("joins"):
@@ -623,7 +633,7 @@ for case in cases:
             d = faults["depth"]
             state = state._replace(pending=jax.numpy.zeros((d, n, n), jax.numpy.int32))
         record(f"{name}/init", state._asdict())
-        like = dict(like=state, net_like=net) if faults else {}
+        like = dict(like=state, net_like=net) if faults or adj is not None else {}
         state, net = parallel.shard_cluster(state, net, mesh)
         build = parallel.sharded_step if case["entry"] == "step" else parallel.sharded_run
         fn = build(mesh, gossip=case.get("gossip"), **like)
@@ -636,6 +646,11 @@ for case in cases:
                 net = net._replace(adj=jax.numpy.zeros(n, jax.numpy.int32))
             if t in case.get("rebase_at", []):
                 state = parallel.shard_delta(sd.rebase(state, anti_entropy=True), mesh)
+            for ev in case.get("events", {}).get(str(t), []):
+                if ev[0] == "revive":
+                    state = sim.revive(state, ev[1], ev[2])
+                net = net._replace(up=net.up.at[ev[1]].set(ev[0] == "revive"))
+                state, net = parallel.shard_cluster(state, net, mesh)
             state, m = fn(state, net, k, params)
             record(f"{name}/{t}", state._asdict())
             record(f"{name}/m{t}", m)
