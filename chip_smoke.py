@@ -128,7 +128,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     loss, gray periods, delay with jitter, each with a kill) and the
     kill alone as a control, at BASELINE config 3 on the dense backend
     (n = 10,000, 1% loss, seed 0), and the delay and gray families and
-    the control on the delta main path (n = 65,536, default caps), each
+    the control on the delta main path (n = 65,536, default caps; these
+    three run in the stream, after phase p), each
     ticked on until the killed node is faulty in every live
     view and the views agree, to one checksum group (all live rows
     dense, the sample delta); each prints its ticks to convergence
@@ -324,7 +325,8 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     An unhealthy worker or one left after the shutdown fails the phase;
 25. (phase r) the dense sharded step across processes: BASELINE config
     3 in four rank processes on the card (``parallel.ranks.launch``,
-    ``make_mesh(group=...)``), each holding 2 500 rows of every plane,
+    ``make_mesh(group=...)``, started once for phases r and r2), each
+    holding 2 500 rows of every plane,
     every hop the peer-hop kernel's write into the right neighbour's
     memory (CUDA IPC): the main path's history (5 ticks, kill node 4242,
     tick to detection) with every tick's metrics, the kill-to-convergence
@@ -338,10 +340,27 @@ Phases, in order (any failure is an uncaught exception, exit != 0):
     timed beside its launch alone and a ``copy_`` into the mapped
     neighbour's buffer; each rank's per-tick ms, host syncs a tick and
     startup s are printed;
-26. print the ``kernels`` JSON line (each kernel's launches summed over
+26. (phase r2) the delta sharded step across processes, in the same four
+    ranks, their receive buffers freed after r: the delta main path's
+    cluster (n = 65,536, default caps, 1% loss, seed 0, kill node 54321)
+    through ``sharded_delta_step``, each rank holding 16,384 rows of the
+    tables and the digest (``parallel.init_delta``): every tick's
+    metrics, the kill-to-convergence ticks and the final rows (each
+    rank's, and rank 0's gathered state, by sha256) equal to the delta
+    main path's unsharded run, the sampled viewers' device checksums
+    (each rank hashing the ones it holds) in one group and equal to the
+    unsharded run's, each rank's tables [16,384, 256], its peak plus its
+    receive buffers under the unsharded step's peak, the row-searchsorted,
+    the merge-insert and FarmHash launched on every rank and the peer hop
+    D - 1 times a circulation; each rank's ms a tick (median and range),
+    host syncs a tick, collectives a tick (``ring_sum`` and
+    ``ring_allgather`` calls, circulations, peer hops) and its peak share
+    are printed;
+27. print the ``kernels`` JSON line (each kernel's launches summed over
     the main paths it runs on, each path counted from 0; FarmHash's two
-    kernels on rows apart; phase q's counted in its workers, phase r's
-    peer hop summed over its ranks), then the result line.
+    kernels on rows apart; phase q's counted in its workers, phases r's
+    and r2's summed over their ranks: the peer hop on both, FarmHash on
+    both, the delta kernels on r2), then the result line.
 
 ``python3 chip_smoke.py --split-of ROOT`` runs only the checks and times
 of the receiver merge and the merge-insert (phase 3's part for them) on
@@ -353,8 +372,8 @@ only phase c to convergence (up to the bench's 800 heal ticks), then
 only phase j, ``--sweeps`` only phase k, ``--serving`` only phase l,
 ``--provenance`` only phase m, ``--incidents`` only phase n,
 ``--audit`` only phase o, ``--host`` only phase p, ``--proc`` only
-phase q and ``--ranks`` the dense main path and phase r; none prints a
-result line.  The CPU sides of
+phase q and ``--ranks`` both main paths and phases r and r2; none
+prints a result line.  The CPU sides of
 phases k1, l, m1 and n1 run in child processes (``--sweeps-cpu``,
 ``--serving-cpu``, ``--provenance-cpu``, ``--incidents-cpu``), started
 after phase a.
@@ -363,12 +382,13 @@ The whole script runs in two processes on the card.  After phase a it
 starts the second, the stream (``--stream PATH``), which starts those
 CPU sides at once and then waits.  When phase f (the last kernel time
 of the ``kernels`` line) is done, the stream starts phase o's audit
-child and runs phases k, m, n, o, l and p, in that order, while this
-process runs phases i, h and j.  This
-process then waits for the stream, prints its log and runs phases q
-(q2 reads the card's memory) and r alone on the card.  So the kernels'
-times are taken on an idle card, and the per-tick times of phases h-p
-beside the other process's work.  From ``go`` on each of the two runs torch on
+child and runs phases k, m, n, o, l and p, in that order, then phase
+h's delta families, while this process runs phases i, h (the lockstep
+and the dense families) and j.  This process then waits for the
+stream, prints its log and runs phases q (q2 reads the card's memory), r
+and r2 alone on the card.  So the kernels' times are taken on an idle
+card, and the per-tick times of phases h-p beside the other process's
+work.  From ``go`` on each of the two runs torch on
 ``STREAM_CPU_THREADS`` CPU threads.
 """
 
@@ -1209,7 +1229,9 @@ def main_path(torch) -> dict:
 def delta_main_path(torch) -> dict:
     """The 65,536-node cluster of the BASELINE north star on config 3's
     protocol (1% loss, kill one node) with the reference's default caps;
-    returns launches per kernel."""
+    returns launches per kernel, the kill-to-convergence ticks, the
+    searchsorted's shapes, the cluster and what phase r2's ranks must
+    reproduce."""
     import numpy as np
 
     from ringpop_tpu_torch.models import swim_delta as sdelta
@@ -1261,6 +1283,7 @@ def delta_main_path(torch) -> dict:
             break
     if detected is None:
         raise AssertionError(f"node {VICTIM_DELTA} not faulty everywhere after {MAX_TICKS} ticks")
+    step_peak = torch.cuda.max_memory_allocated()
 
     # converged() is exact agreement of every live view, so all live rows
     # hash alike; a sweep of all 65,535 rows (2.2 MB strings each) is out
@@ -1301,7 +1324,15 @@ def delta_main_path(torch) -> dict:
     if host != {a: sums[a] for a in host}:
         raise AssertionError(f"delta device checksums != host on rows {host_rows}")
     log(f"delta checksums: device == host (pure Python) on live rows {host_rows}")
-    return launches, detected, shapes, c
+    # what phase r2's ranks must reproduce: every tick's metrics, the final
+    # tables' digests (by rank block and whole), the sample's checksums
+    history = {"metrics": [{k: v for k, v in m.items() if k != "ticks"} for m in c.metrics_log],
+               "detected": detected, "step_peak": step_peak, "tick_ms": tick_ms,
+               "syncs": syncs, "sample": sample,
+               "sample_sums": [sums[c.book.addresses[i]] for i in spread],
+               "digests": state_digests(c.state, RANKS, DELTA_ROWS),
+               "digest": state_digests(c.state, 1, DELTA_ROWS)[0]}
+    return launches, detected, shapes, c, history
 
 
 def _same_state(torch, a, b, what: str) -> None:
@@ -2306,13 +2337,19 @@ def fault_run(torch, backend: str, family: str, spec_dict: dict, n: int, caps: d
     return r
 
 
-def faults_phase(torch) -> dict:
+def faults_phase(torch, part: str = "all") -> dict:
     """Phase h: the lockstep, then the full-width families; returns the
-    kernels' launches summed over the full-width runs."""
-    check_faults_cuda_equals_cpu(torch)
+    kernels' launches summed over the full-width runs.  The whole script
+    runs it in two parts: ``"dense"`` (the lockstep and the dense
+    families) in this process and ``"delta"`` (the delta families) in
+    the stream, after phase p."""
+    runs = []
+    if part in ("all", "dense"):
+        check_faults_cuda_equals_cpu(torch)
+        runs += [("dense", fam, N_MAIN, {}) for fam in ("link_loss", "gray", "delay", "kill_only")]
+    if part in ("all", "delta"):
+        runs += [("delta", fam, N_DELTA, DELTA_CAPS) for fam in ("delay", "gray", "kill_only")]
     launches: dict[str, int] = {}
-    runs = [("dense", fam, N_MAIN, {}) for fam in ("link_loss", "gray", "delay", "kill_only")]
-    runs += [("delta", fam, N_DELTA, DELTA_CAPS) for fam in ("delay", "gray", "kill_only")]
     for backend, fam, n, caps in runs:
         r = fault_run(torch, backend, fam, fam_specs(n, FAULT_TICKS)[fam], n, caps)
         for k, v in r["launches"].items():
@@ -5856,16 +5893,20 @@ RANKS = 4
 RANK_WARM_TICKS = 5  # the main path's ticks before the kill
 
 
-def state_digests(state, parts: int) -> list:
-    """sha256 of the view_key, pb and suspect_left bytes of each of
-    ``parts`` row blocks of ``state`` (the blocks the ranks hold)."""
+DENSE_ROWS = ("view_key", "pb", "suspect_left")
+DELTA_ROWS = ("d_subj", "d_key", "d_pb", "d_sl", "digest")  # the delta state's row-split fields
+
+
+def state_digests(state, parts: int, fields: tuple = DENSE_ROWS) -> list:
+    """sha256 of the bytes of ``fields`` in each of ``parts`` row blocks
+    of ``state`` (the blocks the ranks hold)."""
     import hashlib
 
-    rows = state.view_key.shape[0] // parts
+    rows = getattr(state, fields[0]).shape[0] // parts
     out = []
     for p in range(parts):
         h = hashlib.sha256()
-        for f in ("view_key", "pb", "suspect_left"):
+        for f in fields:
             h.update(getattr(state, f)[p * rows:(p + 1) * rows].contiguous().cpu().numpy()
                      .tobytes())
         out.append(h.hexdigest())
@@ -5966,7 +6007,7 @@ def rank_phase_r(mesh, t_spawn: float) -> dict:
     grc._circulate.count = 0
     farmhash32_batch.launches = 0
     state, net = parallel.init_cluster(N_MAIN, mesh)
-    shapes = {f: list(getattr(state, f).shape) for f in ("view_key", "pb", "suspect_left")}
+    shapes = {f: list(getattr(state, f).shape) for f in DENSE_ROWS}
     params = sim.SwimParams(loss=0.01)
     step = parallel.sharded_step(mesh)
     key = prng.PRNGKey(0)
@@ -6014,40 +6055,214 @@ def rank_phase_r(mesh, t_spawn: float) -> dict:
     }
 
 
-def ranks_phase(torch, history: dict) -> dict:
-    """Phase r: ``RANKS`` rank processes on the card run BASELINE config 3
-    on their own rows (``rank_phase_r``) and are held to the main path's
-    unsharded run: every tick's metrics, the kill-to-convergence ticks,
-    the final state (each rank's block and rank 0's gathered state, by
-    digest) and one checksum group; each rank's peak (plus its receive
-    buffers) under half the unsharded step's; the peer hop launched on
-    every rank, D - 1 times a circulation, FarmHash on every rank.
-    Returns the peer hop's row of the kernels line."""
+def _rank_delta_detected(torch, state, net, mesh) -> bool:
+    """The delta main path's stop on a rank's rows: every live view holds
+    the victim faulty, and the views converged (the answers summed)."""
+    from ringpop_tpu_torch import parallel
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.ops import gossip_remote_copy as grc
+
+    lo, rows = mesh.rows(state.n)
+    ids = torch.arange(lo, lo + rows, dtype=torch.int32, device=mesh.device)
+    own = sdelta.view_lookup(state, ids) & 7
+    live = (net.up & net.responsive)[lo:lo + rows] & ((own == sim.ALIVE) | (own == sim.SUSPECT))
+    col = sdelta.view_lookup(state, torch.full_like(ids, VICTIM_DELTA)) & 7
+    with grc.ring_mesh(mesh):
+        missed = grc.ring_sum((live & (col != sim.FAULTY)).any())
+    return not bool(missed) and parallel.converged(state, net, mesh)
+
+
+@contextlib.contextmanager
+def _hop_waits(torch, spent: dict):
+    """Add to ``spent`` the host's seconds blocked in stream syncs (the
+    rank's queued kernels draining, time-sliced with the other ranks')
+    and in gloo barriers (waiting for the other ranks) while the block
+    runs: the two waits of each peer hop."""
+    import torch.distributed as dist
+
+    real_sync, real_barrier = torch.cuda.Stream.synchronize, dist.barrier
+
+    def sync(self):
+        t0 = time.perf_counter()
+        real_sync(self)
+        spent["sync"] += time.perf_counter() - t0
+
+    def barrier(*args, **kwargs):
+        t0 = time.perf_counter()
+        real_barrier(*args, **kwargs)
+        spent["barrier"] += time.perf_counter() - t0
+
+    torch.cuda.Stream.synchronize, dist.barrier = sync, barrier
+    try:
+        yield
+    finally:
+        torch.cuda.Stream.synchronize, dist.barrier = real_sync, real_barrier
+
+
+def rank_phase_r2(mesh, sample: list) -> dict:
+    """One rank of phase r2: the delta main path's cluster (n = 65 536,
+    the default caps, loss 0.01, seed 0) through ``sharded_delta_step`` on
+    this rank's rows, its history (5 ticks, kill ``VICTIM_DELTA``, tick
+    until detected); then the device checksums of the sampled viewers it
+    holds, gathered, and the digests of its rows and of the gathered
+    state."""
+    import torch
+
+    from ringpop_tpu_torch import parallel, prng
+    from ringpop_tpu_torch.models import checksum as cksum
+    from ringpop_tpu_torch.models import swim_delta as sdelta
+    from ringpop_tpu_torch.models import swim_sim as sim
+    from ringpop_tpu_torch.models.cluster import DEFAULT_BASE_INC
+    from ringpop_tpu_torch.ops import checksum_device as ckdev
+    from ringpop_tpu_torch.ops import gossip_remote_copy as grc
+    from ringpop_tpu_torch.ops import peer_hop
+    from ringpop_tpu_torch.ops.delta_merge import merge_insert
+    from ringpop_tpu_torch.ops.farmhash import farmhash32_batch
+    from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
+
+    # the cluster's book, as the main path's SimCluster hashes with
+    book = ckdev.DeviceBook(cksum.default_addresses(N_DELTA), DEFAULT_BASE_INC,
+                            device=mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peer_hop.peer_hop.launches = 0
+    grc._circulate.count = grc.ring_sum.calls = grc.ring_allgather.calls = 0
+    farmhash32_batch.launches = row_searchsorted.launches = merge_insert.launches = 0
+    state = parallel.init_delta(N_DELTA, mesh, capacity=DELTA_CAPS["capacity"])
+    net = sim.make_net(N_DELTA, device=mesh.device)
+    shapes = {f: list(getattr(state, f).shape) for f in DELTA_ROWS}
+    params = sdelta.DeltaParams(swim=sim.SwimParams(loss=0.01), wire_cap=DELTA_CAPS["wire_cap"],
+                                claim_grid=DELTA_CAPS["claim_grid"])
+    step = parallel.sharded_delta_step(mesh)
+    key = prng.PRNGKey(0)
+    tick_ms, metrics, sync_counts, per_tick, waits = [], [], [], [], []
+    detected = None
+    for t in range(RANK_WARM_TICKS + MAX_TICKS):
+        if t == RANK_WARM_TICKS:
+            up = net.up.clone()
+            up[VICTIM_DELTA] = False
+            net = net._replace(up=up)
+        key, sub = prng.split(key)
+        before = (grc.ring_sum.calls, grc.ring_allgather.calls, grc._circulate.count,
+                  peer_hop.peer_hop.launches)
+        spent = {"sync": 0.0, "barrier": 0.0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, _hop_waits(torch, spent):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, m = step(state, net, sub, params)
+                vals = torch.stack(list(m.values())).tolist()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        waits.append([spent["sync"] * 1e3, spent["barrier"] * 1e3])
+        sync_counts.append(sum("synchroniz" in str(w.message) for w in caught))
+        per_tick.append([b - a for a, b in zip(before, (
+            grc.ring_sum.calls, grc.ring_allgather.calls, grc._circulate.count,
+            peer_hop.peer_hop.launches))])
+        metrics.append(dict(sorted(zip(m, vals))))
+        if t >= RANK_WARM_TICKS and _rank_delta_detected(torch, state, net, mesh):
+            detected = t + 1 - RANK_WARM_TICKS
+            break
+    step_peak = torch.cuda.max_memory_allocated()
+    buffer_bytes = mesh.peers.buffer_bytes()
+    hop_launches, circulations = peer_hop.peer_hop.launches, grc._circulate.count
+    sums = parallel.checksums(state, net, book, mesh, sample=sample).tolist()
+    launches = {"peer_hop": peer_hop.peer_hop.launches, "farmhash32": farmhash32_batch.launches,
+                "row_searchsorted": row_searchsorted.launches,
+                "merge_insert": merge_insert.launches}
+    own = state_digests(state, 1, DELTA_ROWS)[0]
+    whole = parallel.gather_delta(state, mesh)
+    gathered = state_digests(whole, 1, DELTA_ROWS)[0] if mesh.rank == 0 else None
+    del whole, state
+    torch.cuda.empty_cache()
+    return {
+        "rank": mesh.rank, "shapes": shapes, "detected": detected, "metrics": metrics,
+        "tick_ms": tick_ms, "syncs": sync_counts, "per_tick": per_tick, "waits": waits,
+        "step_peak": step_peak,
+        "buffer_bytes": buffer_bytes, "hop_launches_steps": hop_launches,
+        "circulations": circulations, "launches": launches, "sums": sums, "digest": own,
+        "gathered": gathered,
+    }
+
+
+def rank_phases(mesh, t_spawn: float, sample: list) -> dict:
+    """One rank of phases r and r2, in one spawn: the dense run, its
+    receive slots freed, then the delta run (whose slots are its own)."""
+    r = rank_phase_r(mesh, t_spawn)
+    mesh.peers.close()
+    return {"r": r, "r2": rank_phase_r2(mesh, sample)}
+
+
+def ranks_phase(torch, history: dict, delta_history: dict) -> tuple[dict, dict]:
+    """Phases r and r2: ``RANKS`` rank processes on the card, started once,
+    run BASELINE config 3 (``rank_phase_r``) and then the delta main
+    path's cluster (``rank_phase_r2``) on their own rows, each held to its
+    main path's unsharded run.  Returns the peer hop's row of the kernels
+    line (its launches summed over both runs) and the other kernels'
+    launches on the ranks (FarmHash on both runs, the delta kernels on
+    r2)."""
     from ringpop_tpu_torch.parallel import ranks
 
     t0 = time.perf_counter()
-    out = ranks.launch("chip_smoke:rank_phase_r", RANKS,
-                       {"t_spawn": time.time()},
+    out = ranks.launch("chip_smoke:rank_phases", RANKS,
+                       {"t_spawn": time.time(), "sample": delta_history["sample"]},
                        workdir=os.path.join(REPO, "ringpop_tpu_torch", "_build", "phase_r"),
-                       timeout=600)
+                       timeout=900)
+    row = _check_phase_r(torch, [o["r"] for o in out], history)
+    launches = _check_phase_r2(torch, [o["r2"] for o in out], delta_history)
+    row["launches"] += launches.pop("peer_hop")
+    launches["farmhash32"] += sum(o["r"]["launches"]["farmhash32"] for o in out)
+    log(f"ranks (phases r and r2): {time.perf_counter() - t0:.1f} s")
+    return row, launches
+
+
+def _check_rank_run(phase: str, r: dict, history: dict, shapes: dict, kernels: tuple) -> None:
+    """One rank of a rank run held to its main path's unsharded run:
+    the shapes it held, every tick's metrics, the kill-to-convergence
+    ticks, its final rows (by digest), the ``kernels`` launched and the
+    peer hop D - 1 times a circulation."""
+    k, want = r["rank"], history["metrics"]
+    if r["shapes"] != shapes:
+        raise AssertionError(f"ranks (phase {phase}): rank {k} held {r['shapes']}")
+    if r["detected"] != history["detected"] or r["metrics"] != want:
+        bad = next((t for t, (a, b) in enumerate(zip(r["metrics"], want)) if a != b),
+                   min(len(r["metrics"]), len(want)))
+        raise AssertionError(
+            f"ranks (phase {phase}): rank {k} detected after {r['detected']} ticks (unsharded "
+            f"{history['detected']}); first differing tick {bad}: "
+            f"{r['metrics'][bad] if bad < len(r['metrics']) else None} against "
+            f"{want[bad] if bad < len(want) else None}")
+    if r["digest"] != history["digests"][k]:
+        raise AssertionError(f"ranks (phase {phase}): rank {k}'s final rows differ from the "
+                             "unsharded run's")
+    if (min(r["launches"][name] for name in kernels) <= 0 or r["hop_launches_steps"] <= 0
+            or r["hop_launches_steps"] != (RANKS - 1) * r["circulations"]):
+        raise AssertionError(f"ranks (phase {phase}): rank {k} launches {r['launches']}, "
+                             f"{r['hop_launches_steps']} hops in the steps over "
+                             f"{r['circulations']} circulations")
+
+
+def _check_phase_r(torch, out: list, history: dict) -> dict:
+    """Phase r: the ranks held to the dense main path's unsharded run:
+    every tick's metrics, the kill-to-convergence ticks, the final state
+    (each rank's block and rank 0's gathered state, by digest) and one
+    checksum group; each rank's peak (plus its receive buffers) under
+    half the unsharded step's; the peer hop launched on every rank, D - 1
+    times a circulation, FarmHash on every rank.  Returns the peer hop's
+    row of the kernels line."""
     want = history["metrics"]
     rows = N_MAIN // RANKS
     half = history["step_peak"] / 2
     for r in out:
         k = r["rank"]
-        if r["shapes"] != {f: [rows, N_MAIN] for f in ("view_key", "pb", "suspect_left")}:
-            raise AssertionError(f"ranks (phase r): rank {k} held {r['shapes']}")
-        if r["detected"] != history["detected"] or r["metrics"] != want:
-            bad = next((t for t, (a, b) in enumerate(zip(r["metrics"], want)) if a != b),
-                       min(len(r["metrics"]), len(want)))
-            raise AssertionError(
-                f"ranks (phase r): rank {k} detected after {r['detected']} ticks (unsharded "
-                f"{history['detected']}); first differing tick {bad}: "
-                f"{r['metrics'][bad] if bad < len(r['metrics']) else None} against "
-                f"{want[bad] if bad < len(want) else None}")
-        if r["digest"] != history["digests"][k]:
-            raise AssertionError(f"ranks (phase r): rank {k}'s final rows differ from the "
-                                 "unsharded run's")
+        _check_rank_run("r", r, history, {f: [rows, N_MAIN] for f in DENSE_ROWS},
+                        ("farmhash32",))
         if r["groups"] != 1 or r["live"] != N_MAIN - 1:
             raise AssertionError(f"ranks (phase r): rank {k}: {r['live']} live checksums in "
                                  f"{r['groups']} groups")
@@ -6055,11 +6270,6 @@ def ranks_phase(torch, history: dict) -> dict:
         if used >= half:
             raise AssertionError(f"ranks (phase r): rank {k} peak {used} B (with its receive "
                                  f"buffers) not under half the unsharded {history['step_peak']}")
-        if (r["hop_launches_steps"] <= 0 or r["launches"]["farmhash32"] <= 0
-                or r["hop_launches_steps"] != (RANKS - 1) * r["circulations"]):
-            raise AssertionError(f"ranks (phase r): rank {k} launches {r['launches']}, "
-                                 f"{r['hop_launches_steps']} hops in the steps over "
-                                 f"{r['circulations']} circulations")
     if out[0]["gathered"] != history["digest"]:
         raise AssertionError("ranks (phase r): the gathered state differs from the unsharded "
                              "run's")
@@ -6080,7 +6290,7 @@ def ranks_phase(torch, history: dict) -> dict:
         f"faulty everywhere and views converged {history['detected']} ticks after the kill, "
         f"as the unsharded run; every tick's metrics equal; each rank's rows and rank 0's "
         f"gathered state equal the unsharded run's (sha256); {N_MAIN - 1} live checksums in "
-        f"one group; {time.perf_counter() - t0:.1f} s")
+        f"one group")
     for r in out:
         h = r["hop"]
         log(f"ranks (phase r) peer hop on rank {r['rank']} at int32[{rows}, {N_MAIN}]: hop "
@@ -6100,7 +6310,65 @@ def ranks_phase(torch, history: dict) -> dict:
     }
 
 
-STREAM_PHASES = ("sweeps", "serving", "provenance", "incidents", "audit", "host")
+def _check_phase_r2(torch, out: list, history: dict) -> dict:
+    """Phase r2: the ranks held to the delta main path's unsharded run:
+    every tick's metrics, the kill-to-convergence ticks, the final tables
+    and digests (each rank's block and rank 0's gathered state, by
+    sha256), the sampled viewers' checksums in one group and equal to the
+    unsharded run's, each rank's [N/D, C] tables; each rank's peak plus
+    its receive buffers under the unsharded step's peak; the searchsorted,
+    the merge-insert and FarmHash launched on every rank, and the peer hop
+    D - 1 times a circulation.  Returns r2's launches summed over the
+    ranks."""
+    rows = N_DELTA // RANKS
+    c = DELTA_CAPS["capacity"]
+    for r in out:
+        k = r["rank"]
+        _check_rank_run("r2", r, history, {**{f: [rows, c] for f in DELTA_ROWS[:4]},
+                                           "digest": [rows]},
+                        ("row_searchsorted", "merge_insert", "farmhash32"))
+        if r["sums"] != history["sample_sums"] or len(set(r["sums"])) != 1:
+            raise AssertionError(f"ranks (phase r2): rank {k}'s sampled checksums "
+                                 f"({len(set(r['sums']))} groups of {len(r['sums'])}) differ "
+                                 "from the unsharded run's")
+        used = r["step_peak"] + r["buffer_bytes"]
+        if used >= history["step_peak"]:
+            raise AssertionError(f"ranks (phase r2): rank {k} peak {used} B (with its receive "
+                                 f"buffers) not under the unsharded {history['step_peak']}")
+    if out[0]["gathered"] != history["digest"]:
+        raise AssertionError("ranks (phase r2): the gathered state differs from the unsharded "
+                             "run's")
+    ticks = len(history["metrics"])
+    for r in out:
+        per = list(zip(*r["per_tick"]))  # ring_sum, ring_allgather, circulations, peer hops
+        sync_ms, barrier_ms = (statistics.median(w) for w in zip(*r["waits"]))
+        used = r["step_peak"] + r["buffer_bytes"]
+        log(f"ranks (phase r2) rank {r['rank']}: median tick "
+            f"{statistics.median(r['tick_ms']):.3f} ms over {ticks} ticks (min "
+            f"{min(r['tick_ms']):.3f}, max {max(r['tick_ms']):.3f}; unsharded median "
+            f"{statistics.median(history['tick_ms']):.3f}); host syncs a tick "
+            f"{statistics.median(r['syncs'])} (median; unsharded "
+            f"{statistics.median(history['syncs'])}); a tick (median, max): ring_sum calls "
+            f"{statistics.median(per[0])}, {max(per[0])}, ring_allgather calls (ring_sum's "
+            f"included) {statistics.median(per[1])}, {max(per[1])}, circulations "
+            f"{statistics.median(per[2])}, {max(per[2])}, peer hops {statistics.median(per[3])}, "
+            f"{max(per[3])}; a tick's host time blocked (median) in stream syncs (its kernels "
+            f"draining, time-sliced with the other ranks') {sync_ms:.3f} ms and in the hops' "
+            f"gloo barriers {barrier_ms:.3f} ms; peak {r['step_peak'] / 2**30:.3f} GiB + "
+            f"receive buffers "
+            f"{r['buffer_bytes'] / 2**30:.3f} GiB = {used / history['step_peak']:.3f} of the "
+            f"unsharded step's {history['step_peak'] / 2**30:.3f} GiB; launches {r['launches']}")
+    log(f"ranks (phase r2): {RANKS} ranks on the card, n={N_DELTA} {DELTA_CAPS} loss=0.01, "
+        f"{rows} rows each; node {VICTIM_DELTA} faulty in every live view and converged() "
+        f"{history['detected']} ticks after the kill, as the unsharded run; every tick's "
+        f"metrics equal; each rank's rows and rank 0's gathered state equal the unsharded "
+        f"run's (sha256); the {len(history['sample_sums'])} sampled live viewers' checksums in "
+        f"one group, equal to the unsharded run's")
+    return {name: sum(r["launches"][name] for r in out)
+            for name in ("peer_hop", "row_searchsorted", "merge_insert", "farmhash32")}
+
+
+STREAM_PHASES = ("sweeps", "serving", "provenance", "incidents", "audit", "host", "faults")
 STREAM_TIMEOUT = 1000  # s from the stream's start (the script's limit is 1 200)
 STREAM_CPU_THREADS = 2  # torch's CPU threads in each of the two processes from go on
 
@@ -6117,9 +6385,10 @@ def stream_phases(path: str) -> int:
     """The stream, the whole script's second process on the card: it
     starts the CPU sides of phases k1, l, m1 and n1, waits for ``go`` on
     its standard input (the kernels' times are taken by then), starts
-    phase o's audit child, runs phases k, m, n, o, l and p, and writes
-    each phase's launches to ``path`` as JSON.  Phase l comes late: its
-    CPU side takes longest."""
+    phase o's audit child, runs phases k, m, n, o, l and p and phase h's
+    delta families, and writes each phase's
+    launches to ``path`` as JSON.  Phase l comes late: its CPU side takes
+    longest."""
     refs = {phase: CpuReference(phase) for phase in "lnkm"}
     threading.Thread(target=_end_with_parent, args=(os.getppid(),), daemon=True).start()
     try:
@@ -6139,7 +6408,10 @@ def stream_phases(path: str) -> int:
             audit_child.stop()
         out["serving"] = serving_phase(torch, refs["l"])
         out["host"] = host_phase(torch)
-        log(f"stream: phases k, m, n, o, l and p in {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        out["faults"] = faults_phase(torch, "delta")
+        log(f"stream: phases k, m, n, o, l and p in {t1 - t0:.1f} s, then phase h's delta "
+            f"families in {time.perf_counter() - t1:.1f} s")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({phase: out[phase] for phase in STREAM_PHASES}, f, default=int)
@@ -6273,9 +6545,10 @@ def main() -> int:
                          "on the card, 2 000 lookups against the plain ring); print no result "
                          "line")
     ap.add_argument("--ranks", action="store_true",
-                    help="only run the dense main path and phase r (BASELINE config 3 in four "
-                         "rank processes on the card, each holding its own rows, every hop a "
-                         "peer write, against the main path's run); print no result line")
+                    help="only run both main paths and phases r and r2 (BASELINE config 3 and "
+                         "the delta main path's n = 65 536 cluster in four rank processes on "
+                         "the card, each holding its own rows, every hop a peer write, against "
+                         "the main paths' runs); print no result line")
     ap.add_argument("--incidents-cpu", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--incidents-card", nargs=2, metavar=("KIND:I:K", "PATH"),
                     help=argparse.SUPPRESS)
@@ -6399,7 +6672,9 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     if args.ranks:
         history = main_path(torch)[3]
         torch.cuda.empty_cache()
-        ranks_phase(torch, history)
+        delta_history = delta_main_path(torch)[4]
+        torch.cuda.empty_cache()
+        ranks_phase(torch, history, delta_history)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.split_of:
@@ -6422,7 +6697,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     launches, converged_dense, c, dense_history = main_path(torch)
     short_launches = lookup_surface(torch, c, f"dense, n={N_MAIN}")
     del c
-    launches_delta, converged_delta, searchsorted_shapes, c = delta_main_path(torch)
+    launches_delta, converged_delta, searchsorted_shapes, c, delta_history = delta_main_path(torch)
     short_launches += lookup_surface(torch, c, f"delta, n={N_DELTA}")
     del c
     launches_ring = ring_path(torch, "dense", converged_dense)
@@ -6439,13 +6714,17 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     torch.set_num_threads(STREAM_CPU_THREADS)
     stream.go()
     launches_arms, arms_errs = arms_phase(torch, converged_dense, converged_delta)
-    launches_faults = faults_phase(torch)
+    launches_faults = faults_phase(torch, "dense")
     launches_scen = scenarios_phase(torch)
+    log(f"this process: phases i, h (its dense families) and j done "
+        f"{time.perf_counter() - stream.t_go:.1f} s after go")
     streamed = stream.result()
     (launches_sweeps, launches_serving, launches_prov, launches_inc, launches_audit,
-     launches_host) = (streamed[p] for p in STREAM_PHASES)
+     launches_host, launches_faults_streamed) = (streamed[p] for p in STREAM_PHASES)
     launches_proc = proc_phase(torch)
-    rows.append(ranks_phase(torch, dense_history))
+    torch.cuda.empty_cache()
+    peer_row, launches_ranks = ranks_phase(torch, dense_history, delta_history)
+    rows.append(peer_row)
     # each kernel's launches on the main paths it belongs to, each path
     # counted from 0 (each printed above): the dense path and the dense
     # runs of phases h-n for the receiver merge; FarmHash's warp kernel on
@@ -6454,11 +6733,13 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     # delta kernels on the delta path, both config-4 paths and the delta
     # runs of phases h-n (kernel 3 also at phase i's block search and
     # phase m's fold); the hop on the three ring paths and phase l5.
-    # (phases k-p's are counted in the stream, phase n's in its own processes
-    # on the card, and phase o's in its audit child and in the stream);
-    # phase p's FarmHash launches (the host rings' batches, the tensor
-    # cluster's checksums);
-    # phase q's, counted in its worker processes since their warm-up
+    # (phases k-p's and h's streamed delta families are counted in the
+    # stream, phase n's in its own processes on the card, and phase o's in
+    # its audit child and in the stream); phase p's FarmHash launches (the
+    # host rings' batches, the tensor cluster's checksums);
+    # phase q's, counted in its worker processes since their warm-up;
+    # phases r's and r2's, summed over their ranks (the peer hop on both,
+    # the delta kernels on r2)
     launches["farmhash32_short"] = (short_launches + config5_launches
                                     + launches_serving["farmhash32_short"]
                                     + launches_inc["farmhash32_short"]
@@ -6473,8 +6754,11 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
         launches[name] = launches_delta[name]
     for name in ("farmhash32", "row_searchsorted", "merge_insert"):
         launches[name] += launches_c4[name] + launches_c4_full[name]
+    for name in ("farmhash32", "row_searchsorted", "merge_insert"):
+        launches[name] += launches_ranks[name]
     for name in ("recv_merge", "farmhash32", "row_searchsorted", "merge_insert"):
-        launches[name] += (launches_faults[name] + launches_arms.get(name, 0)
+        launches[name] += (launches_faults[name] + launches_faults_streamed.get(name, 0)
+                           + launches_arms.get(name, 0)
                            + launches_scen.get(name, 0) + launches_sweeps.get(name, 0)
                            + launches_serving.get(name, 0) + launches_prov.get(name, 0)
                            + launches_inc.get(name, 0) + launches_audit.get(name, 0)
@@ -6482,6 +6766,7 @@ def run_phases(torch, args, root: str, dev, refs: list, t_start: float) -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], arms_errs.get(row["name"], 0))
+    log(card_line())
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

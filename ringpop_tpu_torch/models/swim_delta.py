@@ -47,6 +47,13 @@ factor, a knob ``phase_mod`` and the capacity-padded ``ping_req_size``).
 The maintenance and admin operations
 (``rebase``, ``make_sides``, ``fold_to_single``, joins, revives) are
 host numpy, as in the reference.
+
+On a process group's ring (``parallel.make_mesh(group=...)``) the step
+runs on one rank's rows of the tables and the digest, the base whole:
+each read across rows is a collective of the ring, each predicate whose
+branch holds one is decided on the whole cluster (``_cluster_any``), and
+the metrics and ``overflow_drops`` are summed over the ranks
+(``_cluster_metrics``); the same values as the unsharded step.
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ from ringpop_tpu_torch.models.swim_sim import (
     _gather_rows,
     _message_delay,
     _on_ring,
+    _own,
+    _rank_off,
     _scoped,
     _stagger_send_gate,
     _sweep_divisor,
@@ -83,6 +92,7 @@ from ringpop_tpu_torch.models.swim_sim import (
 )
 from ringpop_tpu_torch.obs import annotate
 from ringpop_tpu_torch.ops import bitpack
+from ringpop_tpu_torch.ops import gossip_remote_copy as _grc
 from ringpop_tpu_torch.ops.delta_merge import merge_insert
 from ringpop_tpu_torch.ops.farmhash import mul32
 from ringpop_tpu_torch.ops.searchsorted import row_searchsorted
@@ -188,6 +198,53 @@ def _ids(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
+# ---------------------------------------------------------------------------
+# this process's rows.  On a process group's ring (``parallel.make_mesh(
+# group=...)``) a rank holds rows [r * N/D, (r + 1) * N/D) of the tables
+# and the digest, and the base, its rank structures and the counters
+# whole; the step runs on its rows, and each read across rows is one of
+# the ring's collectives (``ops/gossip_remote_copy.py``), the identity
+# anywhere else.  A predicate whose branch reads only the rank's own rows
+# stays the rank's: skipping it where those rows hold nothing is a no-op.
+# ---------------------------------------------------------------------------
+
+
+def _on_ranks() -> bool:
+    """Does this process step one rank's rows of a process group's ring?
+    Then the reads across rows below are collectives of the ring
+    (``ring_fetch_many``, ``ring_allgather``, ``ring_sum``) instead of
+    the one-process ring's hops and plain gathers."""
+    return _grc.active_rank() is not None
+
+
+def _vids(rows: int, device: torch.device) -> torch.Tensor:
+    """int32[rows]: the global ids of this process's viewer rows (every
+    id off a process group's ring)."""
+    off = _rank_off(rows)
+    return torch.arange(off, off + rows, dtype=torch.int32, device=device)
+
+
+def _cluster_any(*xs: torch.Tensor) -> bool:
+    """Does each of ``xs`` hold a True somewhere on the cluster?  (One
+    host read: a reference ``lax.cond`` predicate.)  On a process group's
+    ring the ranks' own answers go round in one circulation and every
+    rank decides alike: a branch that holds a collective must be taken on
+    every rank or on none.  A decision where the ranks' answers differ is
+    counted in ``_cluster_any.one_sided``."""
+    local = torch.stack([x.any() for x in xs])
+    if not _on_ranks():
+        # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
+        return bool(local.all() if len(xs) > 1 else local[0])
+    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
+    every = _grc.ring_allgather(local.reshape(1, -1)).tolist()
+    cols = [[bool(row[i]) for row in every] for i in range(len(xs))]
+    _cluster_any.one_sided += sum(any(c) and not all(c) for c in cols)
+    return all(any(c) for c in cols)
+
+
+_cluster_any.one_sided = 0
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``take_along_axis(x, idx, axis=1)`` with in-range ``idx``."""
     return torch.gather(x, 1, idx.long())
@@ -197,14 +254,35 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` along the first axis: a plain gather, also under a
     gossip ring, where the reference gathers plainly too (``h_post[t_safe]``
     in phase 4, ``materialize_rows``).  Where the reference calls
-    ``_gather_rows``, the port calls ``swim_sim._gather_rows``, which runs
-    as ring hops under a ring.  Those sites, port function then
+    ``_gather_rows``, the port calls ``_fetch_rows`` (or, in the routing,
+    ``swim_sim._gather_rows``), which runs as ring hops under a ring.
+    Those sites, port function then
     ``ringpop_tpu/models/swim_delta.py`` lines: the ack replies in
     ``delta_step_impl`` (:1743-1744), ``_ack_full_sync`` (:1821-1822),
     stage 5b ``segs_b`` (:2102-2103), 5c ``segs_c`` (:2145-2146, and the
     witness anti-echo :2153, :2156, :2167), 5d ``segs_d`` (:2212-2213)
     and the ring form of ``_route_claims_multi`` (:1360-1361)."""
     return x.index_select(0, idx.long())
+
+
+def _fetch_rows(planes: tuple[torch.Tensor, ...], idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``plane[idx]`` of each of ``planes`` (row-split planes with the
+    same rows; ``idx`` global row ids aligned to them, [rows] or
+    [rows, K]).  On a process group's ring one circulation carries them
+    all; under the one-process ring each [N, W] plane, for each column of
+    ``idx``, circulates on its own (the reference's ``_gather_rows``),
+    and a member vector (the digest) is a plain gather; elsewhere plain
+    gathers."""
+    if _on_ranks() or not _on_ring():
+        return _grc.ring_fetch_many(planes, idx)
+    cols = [idx] if idx.dim() == 1 else [idx[:, m] for m in range(idx.shape[1])]
+    out = []
+    for p in planes:
+        got = []
+        for c in cols:
+            got.append(_rows(p, c) if p.dim() == 1 else _grc.ring_fetch_rows(p, c))
+        out.append(got[0] if idx.dim() == 1 else torch.stack(got, 1))
+    return tuple(out)
 
 
 def _i8(v: int, device: torch.device) -> torch.Tensor:
@@ -235,10 +313,13 @@ def init_delta(
     capacity: int = 256,
     mode: str = "converged",
     device: torch.device | str | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> DeltaState:
     """Fresh delta state (the dense ``init_state`` twin): ``'converged'``
     (every view equals the all-alive base, tables empty) or ``'self'``
-    (base all-nonexistent, each viewer holds its own alive entry)."""
+    (base all-nonexistent, each viewer holds its own alive entry).
+    ``rows=(first, count)`` builds only those viewers' rows of the
+    tables (a process group's rank), the base whole."""
     dev = resolve_device(device)
     if inc is None:
         inc = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -247,14 +328,15 @@ def init_delta(
     _check_inc(inc)
     alive_key = inc * 8 + ALIVE
     c = capacity
-    d_subj = torch.full((n, c), SENTINEL, dtype=torch.int32, device=dev)
-    d_key = torch.zeros((n, c), dtype=torch.int32, device=dev)
+    lo, count = (0, n) if rows is None else rows
+    d_subj = torch.full((count, c), SENTINEL, dtype=torch.int32, device=dev)
+    d_key = torch.zeros((count, c), dtype=torch.int32, device=dev)
     if mode == "converged":
         base_key = alive_key
     elif mode == "self":
         base_key = torch.zeros(n, dtype=torch.int32, device=dev)
-        d_subj[:, 0] = _ids(n, dev)
-        d_key[:, 0] = alive_key
+        d_subj[:, 0] = torch.arange(lo, lo + count, dtype=torch.int32, device=dev)
+        d_key[:, 0] = alive_key[lo:lo + count]
     else:
         raise ValueError(f"unknown init mode: {mode}")
     bp_mask, bp_rank, bp_list = _base_rank_structs(base_key)
@@ -265,8 +347,8 @@ def init_delta(
         bp_list=bp_list,
         d_subj=d_subj,
         d_key=d_key,
-        d_pb=torch.full((n, c), -1, dtype=torch.int8, device=dev),
-        d_sl=torch.full((n, c), -1, dtype=torch.int8, device=dev),
+        d_pb=torch.full((count, c), -1, dtype=torch.int8, device=dev),
+        d_sl=torch.full((count, c), -1, dtype=torch.int8, device=dev),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
         overflow_drops=torch.zeros((), dtype=torch.int32, device=dev),
     )
@@ -550,8 +632,7 @@ def _check_carry(state: DeltaState) -> None:
 
 
 def _phase0_stats(state: DeltaState) -> _Stats:
-    n = state.n
-    ids = _ids(n, state.device)
+    ids = _vids(state.d_subj.shape[0], state.device)
     live = state.d_subj < SENTINEL
     subj_safe = torch.where(live, state.d_subj, 0)
     d_status = state.d_key & 7
@@ -646,12 +727,12 @@ def _selection(
     sw = params.swim
     n = state.n
     dev = state.device
-    ids = _ids(n, dev)
+    ids = _vids(state.d_subj.shape[0], dev)
     k = sw.ping_req_size
     per = torch.clamp(net.period, min=1) if net.period is not None else None
 
     own_status = stats.own_key & 7
-    gossiping = net.up & net.responsive & ((own_status == ALIVE) | (own_status == SUSPECT))
+    gossiping = _own(net.up & net.responsive) & ((own_status == ALIVE) | (own_status == SUSPECT))
 
     live, ping_now, ping_base = stats.live, stats.ping_now, stats.ping_base
     is_self = state.d_subj == ids[:, None]
@@ -752,10 +833,10 @@ def _merge_claims(
     is refuted at ``max(incs) + 1``, and claims about subjects without a
     slot are inserted through the merge-insert kernel (dropped past the
     row's free slots, counted in ``overflow_drops``)."""
-    n, cap = state.n, state.capacity
+    cap = state.capacity
     dev = state.device
     kk = c_subj.shape[1]
-    ids = _ids(n, dev)
+    ids = _vids(c_subj.shape[0], dev)
 
     is_self = valid & (c_subj == ids[:, None])
     c_status = c_key & 7
@@ -959,43 +1040,53 @@ def _route_claims_multi(
             "_route_claims_multi segments must share one claim width; got "
             f"{[s[0].shape[1] for s in segments]}"
         )
+    rows = segments[0][0].shape[0]  # this process's sender (and receiver) rows
     dev = segments[0][0].device
     nrows = n * len(segments)
-    row_recv = torch.cat([torch.where(v.any(dim=1), r, n) for _, _, v, r in segments])
-    rows_subj = torch.cat([torch.where(v, s, SENTINEL) for s, _, v, _ in segments])
-    rows_key = torch.cat([torch.where(v, k, 0) for _, k, v, _ in segments])
-    rows_nvalid = (rows_subj < SENTINEL).sum(dim=1, dtype=torch.int32)
+    subj_p = torch.stack([torch.where(v, sj, SENTINEL) for sj, _, v, _ in segments], 1)
+    key_p = torch.stack([torch.where(v, k, 0) for _, k, v, _ in segments], 1)  # [rows, S, W]
+    recv = torch.stack([torch.where(v.any(dim=1), r.to(torch.int64), n)
+                        for _, _, v, r in segments], 1)
+    nvalid = (subj_p < SENTINEL).sum(dim=2, dtype=torch.int32)  # [rows, S]
+    # on a process group's ring every sender row's receiver and claim
+    # count go round it, and the routing runs over all of them, in the
+    # unsharded (segment-major) order, for this rank's receivers
+    recv_all, nvalid_all = _grc.ring_allgather(recv, nvalid)
+    row_recv = recv_all.t().reshape(-1)  # [S * N]
+    rows_nvalid = nvalid_all.t().reshape(-1)
 
     order = torch.argsort(row_recv, stable=True)
     starts, ends = _run_bounds(row_recv[order], n)
+    lo = _rank_off(rows)
+    starts, ends = starts[lo:lo + rows], ends[lo:lo + rows]
     counts = ends - starts  # sending rows per receiver
     r = min(2 * -(-grid // w), nrows)
     ar = torch.arange(r, dtype=torch.int64, device=dev)
     idx = torch.clamp(starts[:, None] + ar[None, :], max=nrows - 1)
     row_ok = ar[None, :] < counts[:, None]
     src = torch.where(row_ok, order[idx], 0)
-    if _on_ring():
-        # the ring form: each segment's [N, W] payload block circulates
-        # the ring on its own and a receiver keeps the <= R rows addressed
-        # to it; the row-id arithmetic above stays replicated
-        seg_i = torch.div(src, n, rounding_mode="floor")
-        snd = src - seg_i * n  # [N, R] sender row within its segment
-        g_subj = torch.full((n, r, w), SENTINEL, dtype=torch.int32, device=dev)
-        g_key = torch.zeros((n, r, w), dtype=torch.int32, device=dev)
-        for s_i, (subj, key, valid, _) in enumerate(segments):
+    seg_i = torch.div(src, n, rounding_mode="floor")
+    snd = src - seg_i * n  # [rows, R] sender row within its segment
+    if _on_ring() and not _on_ranks():
+        # the one-process ring: each segment's [N, W] payload block
+        # circulates on its own and a receiver keeps the <= R rows
+        # addressed to it
+        g_subj = torch.full((rows, r, w), SENTINEL, dtype=torch.int32, device=dev)
+        g_key = torch.zeros((rows, r, w), dtype=torch.int32, device=dev)
+        for s_i in range(len(segments)):
             pick = row_ok & (seg_i == s_i)
             snd_s = torch.where(pick, snd, 0)
-            f_subj = _gather_rows(torch.where(valid, subj, SENTINEL), snd_s)
-            f_key = _gather_rows(torch.where(valid, key, 0), snd_s)
-            g_subj = torch.where(pick[:, :, None], f_subj, g_subj)
-            g_key = torch.where(pick[:, :, None], f_key, g_key)
-        g_subj = g_subj.reshape(n, r * w)
-        g_key = g_key.reshape(n, r * w)
+            g_subj = torch.where(pick[:, :, None], _gather_rows(subj_p[:, s_i], snd_s), g_subj)
+            g_key = torch.where(pick[:, :, None], _gather_rows(key_p[:, s_i], snd_s), g_key)
     else:
-        g_subj = torch.where(row_ok[:, :, None], rows_subj[src], SENTINEL).reshape(n, r * w)
-        g_key = torch.where(row_ok[:, :, None], rows_key[src], 0).reshape(n, r * w)
+        # one circulation on a process group's ring, a plain gather elsewhere
+        g_subj, g_key = _grc.ring_fetch_many((subj_p, key_p), snd, cols=seg_i)
+    g_subj = torch.where(row_ok[:, :, None], g_subj, SENTINEL).reshape(rows, r * w)
+    g_key = torch.where(row_ok[:, :, None], g_key, 0).reshape(rows, r * w)
     kept = torch.where(row_ok, rows_nvalid[src], 0).sum(dtype=torch.int32)
-    dropped = rows_nvalid.sum(dtype=torch.int32) - kept
+    # this process's senders' claims less its receivers' kept ones (the
+    # metrics sum it over the ranks)
+    dropped = nvalid.sum(dtype=torch.int32) - kept
 
     g_subj, g_key, g_valid = _sort_claim_rows(g_subj, g_key, g_subj < SENTINEL)
     if r * w > grid:
@@ -1073,6 +1164,27 @@ def _check_supported(
             "per-node periods (NetState.period) do not compose with the "
             "static phase_mod stagger: a row of P subsumes phase_mod=P"
         )
+    if _on_ranks():
+        arms = (
+            ("sided mode (DeltaState.side/merge_to)",
+             state.side is not None or state.merge_to is not None),
+            ("the delay lanes (DeltaState.pend_*)", state.pend_subj is not None),
+            ("the carried slot-base planes (DeltaState.d_bpmask/d_bprank)",
+             state.d_bpmask is not None),
+            ("link rules (NetState.link_*)", net.link_src is not None),
+            ("gray periods (NetState.period)", net.period is not None),
+            ("phase_mod > 1", sw.phase_mod > 1),
+            ("knob runs (SwimKnobs)", knobs is not None),
+            ("the provenance plane (prov=True)", prov),
+            ("truncated steps (upto < 7)", upto < 7),
+        )
+        for what, present in arms:
+            if present:
+                raise NotImplementedError(
+                    f"{what} of the delta step on a process group's ring is not ported "
+                    "(ROADMAP.md queue 1 item 11); run it on the one-process mesh, "
+                    "make_mesh(devices=[device] * D)"
+                )
 
 
 def _cut(state: DeltaState, t: torch.Tensor) -> tuple[DeltaState, dict[str, torch.Tensor]]:
@@ -1107,9 +1219,11 @@ def delta_step_impl(
     _check_supported(state, net, params, upto, knobs, prov)
     sw = params.swim
     n = state.n
+    rows = state.d_subj.shape[0]
     dev = state.device
     w = params.wire_cap
-    ids = _ids(n, dev)
+    ids = _vids(rows, dev)
+    drops0 = state.overflow_drops
     sl_start = _validate_params(n, sw)
     if knobs is not None:
         # the knob's countdown start; the delta backend has no damping
@@ -1166,7 +1280,7 @@ def delta_step_impl(
     fwd_ok = (
         sends
         & _adj(net, ids, t_safe)
-        & ~_drop_net(k_loss1, (n,), loss, net, ids, t_safe)
+        & ~_drop_net(k_loss1, (rows,), loss, net, ids, t_safe)
         & resp[t_safe.long()]
     )
     # the delivered set (anti-echo reference): a delayed claim counts too
@@ -1180,7 +1294,7 @@ def delta_step_impl(
         # an empty list into a cell that is already empty (it was last
         # written D ticks ago and cleared when it matured), so it runs
         # every tick, without a host sync.
-        d3 = _message_delay(net, k_j1, ids, t_safe, (n,))
+        d3 = _message_delay(net, k_j1, ids, t_safe, (rows,))
         dly3 = fwd_ok & (d3 > 0)
         sent_merge = (send_subj < SENTINEL) & (fwd_ok & ~dly3)[:, None]
         delayed_claims = (sent_valid & dly3[:, None]).sum(dtype=torch.int32)
@@ -1188,8 +1302,7 @@ def delta_step_impl(
     else:
         sent_merge = sent_valid
     ping_applied, claims_dropped = zero, mat_late
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool(sent_merge.any()):
+    if _cluster_any(sent_merge):
         g_subj, g_key, g_valid, late = _route_claims(
             n, send_subj, send_key, sent_merge, t_safe, params.claim_grid
         )
@@ -1201,12 +1314,9 @@ def delta_step_impl(
 
     # -- phase 4: receiver replies; sender merges the ack ---------------------
     has_change2 = state.d_pb >= 0
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool(has_change2.any() & fwd_ok.any()):
+    if _cluster_any(has_change2, fwd_ok):
         d_pb = state.d_pb
-        tgt_sorted = torch.sort(torch.where(fwd_ok, t_safe, n)).values
-        starts, ends = _run_bounds(tgt_sorted, n)
-        inbound = (ends - starts).to(torch.int32)
+        inbound = _role_counts(t_safe, fwd_ok, n)
         rep_possible2 = has_change2 & (inbound > 0)[:, None]
         rep_issuable = rep_possible2 & (d_pb + 1 <= maxpb[:, None])
         within_rep = _rotating_window(rep_issuable, w, state.tick)
@@ -1221,9 +1331,9 @@ def delta_step_impl(
     # the rolling digest is the post-merge value
     h_post = state.digest
     rep_subj, rep_key = _windowed_changes(state, within_rep, w)
-    ack = fwd_ok & _adj(net, t_safe, ids) & ~_drop_net(k_loss2, (n,), loss, net, t_safe, ids)
-    a_subj = _gather_rows(rep_subj, t_safe)  # [N, W]
-    a_key = _gather_rows(rep_key, t_safe)
+    ack = fwd_ok & _adj(net, t_safe, ids) & ~_drop_net(k_loss2, (rows,), loss, net, t_safe, ids)
+    # the target's reply rows [N, W] and its post-merge digest
+    a_subj, a_key, h_tgt = _fetch_rows((rep_subj, rep_key, h_post), t_safe)
     a_subj_q = torch.where(a_subj < SENTINEL, a_subj, 0)
 
     # anti-echo: drop reply claims about a subject this sender delivered
@@ -1239,20 +1349,19 @@ def delta_step_impl(
     # full sync: nothing issuable for this sender but the digests differ
     a_raw = (a_subj < SENTINEL) & ~echo
     rep_any = a_raw.any(dim=1)
-    full_sync = fwd_ok & ~rep_any & (_rows(h_post, t_safe) != h_pre)
+    full_sync = fwd_ok & ~rep_any & (h_tgt != h_pre)
     fs_apply = full_sync & ack
     if has_delay:
         # the reply claims ride the receiver->sender link and park at the
         # sender's row; the ack, and a full sync's flip, land in-tick
-        d4 = _message_delay(net, k_j2, t_safe, ids, (n,))
+        d4 = _message_delay(net, k_j2, t_safe, ids, (rows,))
         dly4 = ack & (d4 > 0)
         a_valid = a_raw & (ack & ~dly4)[:, None]
         delayed_claims = delayed_claims + (a_raw & dly4[:, None]).sum(dtype=torch.int32)
         state = _pend_write(state, 1, d4, dly4, a_subj, a_key, a_raw, ids)
     else:
         a_valid = a_raw & ack[:, None]
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    any_fs = bool(fs_apply.any())
+    any_fs = _cluster_any(fs_apply)
     ack_applied = zero
     if any_fs:
         state, ack_applied = _ack_full_sync(
@@ -1270,7 +1379,7 @@ def delta_step_impl(
     failed = sends & ~ack
     k_a, k_b, k_c, k_d = prng.split(k_loss3, 4)
     kk = sw.ping_req_size
-    kshape = (n, kk)
+    kshape = (rows, kk)
     wit_safe = torch.clamp(wit, 0, n - 1)
     t_col = t_safe[:, None]
     req_del = (
@@ -1301,8 +1410,7 @@ def delta_step_impl(
     declare_suspect = failed & ~any_success & definite_fail
 
     pingreq_applied = zero
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool(req_del.any() & (state.d_pb >= 0).any()):
+    if _cluster_any(req_del, state.d_pb >= 0):
         with annotate.scope("delta.exchange"):
             state, pingreq_applied, late = _exchange(
                 state, params, maxpb, failed, t_safe, wit_safe, wit_valid,
@@ -1359,6 +1467,8 @@ def delta_step_impl(
         "overflow_drops": state.overflow_drops,
         "max_occupancy": (state.d_subj < SENTINEL).sum(dim=1, dtype=torch.int32).max(),
     }
+    if _on_ranks():
+        state, metrics = _cluster_metrics(state, metrics, drops0)
     if has_delay:
         metrics["delayed_claims"] = delayed_claims
         metrics["matured_applied"] = mat_applied
@@ -1385,6 +1495,26 @@ def delta_step_impl(
             pv_decl=dec_valid,
         )
     return state, metrics
+
+
+def _cluster_metrics(
+    state: DeltaState, metrics: dict[str, torch.Tensor], drops0: torch.Tensor
+) -> tuple[DeltaState, dict[str, torch.Tensor]]:
+    """The whole cluster's metrics and ``overflow_drops`` from this rank's,
+    in one circulation: the counts summed, ``max_occupancy`` the widest
+    row of any rank, and the table-capacity drops of every rank's merges
+    (its ``overflow_drops`` less the step's entry value) added to the
+    entry value, so that every rank's copy is the global count."""
+    names = [k for k in metrics if k not in ("overflow_drops", "max_occupancy")]
+    local = torch.stack([metrics[k] for k in names]
+                        + [state.overflow_drops - drops0, metrics["max_occupancy"]])
+    every = _grc.ring_allgather(local[None])  # [D, M]
+    total = every.sum(dim=0, dtype=torch.int32)
+    drops = drops0 + total[-2]
+    out = dict(zip(names, total[:-2].unbind(0)))
+    out["overflow_drops"] = drops
+    out["max_occupancy"] = every[:, -1].max()
+    return state._replace(overflow_drops=drops), {k: out[k] for k in metrics}
 
 
 @_scoped("delta.mature")
@@ -1441,14 +1571,12 @@ def _ack_full_sync(
     In sided mode a cross-side adopter first flips onto the merge row
     (and absorbs it), and a flip that leaves it suspect or faulty about
     itself is refuted at once."""
-    n = st.n
     dev = st.device
-    ids = _ids(n, dev)
+    ids = _vids(st.d_subj.shape[0], dev)
     # the provider's snapshot (table, and below its side and base) is
     # taken before the flip: a provider that flips as an adopter this
     # tick answered the ping with its pre-flip view
-    fs_subj0 = _gather_rows(st.d_subj, t_safe)  # [N, C]
-    fs_key0 = _gather_rows(st.d_key, t_safe)
+    fs_subj0, fs_key0 = _fetch_rows((st.d_subj, st.d_key), t_safe)  # [N, C]
     prov_side = None
     if st.side is not None:
         prov_side = st.side[t_safe.long()]
@@ -1524,10 +1652,12 @@ def _absorb_merge_row(st: DeltaState, flip: torch.Tensor, ids: torch.Tensor) -> 
 
 
 def _role_counts(recv2d: torch.Tensor, mask2d: torch.Tensor, n: int) -> torch.Tensor:
-    """int32[N] delivered-request count per receiver over all slots."""
+    """int32[N] delivered-request count per receiver over all slots; on a
+    process group's ring, this rank's receivers' counts over every rank's
+    senders (the ranks' counts summed)."""
     flat = torch.sort(torch.where(mask2d, recv2d, n).reshape(-1)).values
     s_, e_ = _run_bounds(flat, n)
-    return (e_ - s_).to(torch.int32)
+    return _own(_grc.ring_sum((e_ - s_).to(torch.int32)))
 
 
 def _stage(
@@ -1536,7 +1666,7 @@ def _stage(
     """Route + merge one exchange stage when some node holds a windowed
     change (``pred``); otherwise the stage is a proven no-op."""
     zero = torch.zeros((), dtype=torch.int32, device=st.device)
-    if not bool(pred):
+    if not _cluster_any(pred):
         return st, zero, zero
     g = _route_claims_multi(st.n, build_segs(st), params.claim_grid)
     out = _merge_claims(st, g[0], g[1], g[2], sl_start)
@@ -1559,20 +1689,22 @@ def _exchange(
 ) -> tuple[DeltaState, torch.Tensor, torch.Tensor]:
     """The ping-req piggyback exchange, stages 5a-5d, each run only when
     a node that issues in it holds an active change.  Returns (state,
-    applied, late)."""
+    applied, late).  On a process group's ring each stage's predicate is
+    the cluster's, the holders' change flags and the role counts go round
+    the ring, and the payload rows of a stage come in one circulation."""
     n = st.n
+    rows = st.d_subj.shape[0]
     dev = st.device
-    ids = _ids(n, dev)
+    ids = _vids(rows, dev)
     w = params.wire_cap
     kk = wit_safe.shape[1]
     applied = torch.zeros((), dtype=torch.int32, device=dev)
     late = torch.zeros((), dtype=torch.int32, device=dev)
-    w_empty = torch.full((n, min(w, st.capacity)), SENTINEL, dtype=torch.int32, device=dev)
+    w_empty = torch.full((rows, min(w, st.capacity)), SENTINEL, dtype=torch.int32, device=dev)
 
     # -- 5a: the ping-req body carries the source's changes
     sa_subj = w_empty
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool(((st.d_pb >= 0) & failed[:, None]).any()):
+    if _cluster_any((st.d_pb >= 0) & failed[:, None]):
         nreq = (failed[:, None] & wit_valid).sum(dim=1, dtype=torch.int32)
         st, win_a = _stage_issue_delta(st, nreq, maxpb, w)
         sa_subj, sa_key = _windowed_changes(st, win_a, w)
@@ -1590,9 +1722,8 @@ def _exchange(
 
     # -- 5b: the witness relay-pings the target with its changes
     wit_sent_subj = w_empty
-    hc_b = (st.d_pb >= 0).any(dim=1)
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool((req_del & hc_b[wit_safe.long()]).any()):
+    hc_b = _grc.ring_allgather((st.d_pb >= 0).any(dim=1))
+    if _cluster_any(req_del & hc_b[wit_safe.long()]):
         nsrv = _role_counts(wit_safe, req_del, n)
         st, win_b = _stage_issue_delta(st, nsrv, maxpb, w)
         sb_subj, sb_key = _windowed_changes(st, win_b, w)
@@ -1600,9 +1731,9 @@ def _exchange(
 
         def segs_b(st3):
             segs = []
+            got_subj, got_key = _fetch_rows((sb_subj, sb_key), wit_safe)
             for m in range(kk):
-                b_subj = _gather_rows(sb_subj, wit_safe[:, m])
-                b_key = _gather_rows(sb_key, wit_safe[:, m])
+                b_subj, b_key = got_subj[:, m], got_key[:, m]
                 segs.append((b_subj, b_key, (b_subj < SENTINEL) & ping_del[:, m][:, None], t_safe))
             return segs
 
@@ -1612,28 +1743,28 @@ def _exchange(
         wit_sent_subj = torch.where((nping_del > 0)[:, None], sb_subj, SENTINEL)
 
     # -- 5c: the target's ack carries its changes back
-    hc_c = (st.d_pb >= 0).any(dim=1)
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool((ping_del & hc_c[t_safe.long()][:, None]).any()):
-        ntgt = _role_counts(t_safe[:, None].expand(n, kk), ping_del, n)
+    hc_c = _grc.ring_allgather((st.d_pb >= 0).any(dim=1))
+    if _cluster_any(ping_del & hc_c[t_safe.long()][:, None]):
+        ntgt = _role_counts(t_safe[:, None].expand(rows, kk), ping_del, n)
         st, win_c = _stage_issue_delta(st, ntgt, maxpb, w)
         sc_subj, sc_key = _windowed_changes(st, win_c, w)
 
         def segs_c(st3):
             segs = []
-            subj = _gather_rows(sc_subj, t_safe)
-            key_c = _gather_rows(sc_key, t_safe)
+            subj, key_c = _fetch_rows((sc_subj, sc_key), t_safe)
+            wit = _fetch_rows((wit_sent_subj, st3.d_subj, st3.d_key), wit_safe)
             subj_q = torch.where(subj < SENTINEL, subj, 0)
             for m in range(kk):
                 w_m = wit_safe[:, m]
+                w_sent, w_subj, w_key = (x[:, m] for x in wit)
                 # anti-echo: the witness delivered this subject in 5b and
                 # its current belief equals the claim
-                _, in_sent = _lookup_pos(_gather_rows(wit_sent_subj, w_m), subj_q)
-                pos_w, found_w = _lookup_pos(_gather_rows(st3.d_subj, w_m), subj_q)
+                _, in_sent = _lookup_pos(w_sent, subj_q)
+                pos_w, found_w = _lookup_pos(w_subj, subj_q)
                 # the witness's base row (its view is probed), not the source's
                 row_w = None if st3.side is None else st3.side[w_m.long()][:, None]
                 cur_w = torch.where(
-                    found_w, _take(_gather_rows(st3.d_key, w_m), pos_w),
+                    found_w, _take(w_key, pos_w),
                     _at_rows(st3.base_key, row_w, subj_q),
                 )
                 echo = in_sent & (key_c == cur_w)
@@ -1646,9 +1777,8 @@ def _exchange(
         applied, late = applied + ap, late + lt
 
     # -- 5d: the witness response carries its (fresh) changes
-    hc_d = (st.d_pb >= 0).any(dim=1)
-    # audit: allow=RPL001 the reference's lax.cond predicate: the branch is skipped when empty
-    if bool((req_del & hc_d[wit_safe.long()]).any()):
+    hc_d = _grc.ring_allgather((st.d_pb >= 0).any(dim=1))
+    if _cluster_any(req_del & hc_d[wit_safe.long()]):
         nsrv = _role_counts(wit_safe, req_del, n)
         st, win_d = _stage_issue_delta(st, nsrv, maxpb, w)
         sd_subj, sd_key = _windowed_changes(st, win_d, w)
@@ -1656,10 +1786,9 @@ def _exchange(
 
         def segs_d(st3):
             segs = []
+            got_subj, got_key = _fetch_rows((sd_subj, sd_key), wit_safe)
             for m in range(kk):
-                w_m = wit_safe[:, m]
-                subj = _gather_rows(sd_subj, w_m)
-                key_d = _gather_rows(sd_key, w_m)
+                subj, key_d = got_subj[:, m], got_key[:, m]
                 subj_q = torch.where(subj < SENTINEL, subj, 0)
                 _, in_sent = _lookup_pos(src_sent_subj, subj_q)
                 echo = in_sent & (key_d == view_lookup(st3, subj_q))
@@ -1702,7 +1831,10 @@ def materialize_rows(state: DeltaState, idx: Any) -> torch.Tensor:
     idx = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx,
                           device=state.device)
     idx = idx.to(dtype=torch.int64)
-    return _scatter_rows(_base_rows(state, idx), _rows(state.d_subj, idx), _rows(state.d_key, idx))
+    # any viewer's row, from whichever rank holds it (a plain gather off
+    # a process group's ring)
+    subj, key = _grc.ring_fetch_many((state.d_subj, state.d_key), idx)
+    return _scatter_rows(_base_rows(state, idx), subj, key)
 
 
 def _converged_impl(
@@ -1715,15 +1847,18 @@ def _converged_impl(
     sided mode: i's slots at the subjects where the reference row
     diverges from i's base row, counted)."""
     n, c = state.n, state.capacity
-    ids = _ids(n, state.device)
+    rows = state.d_subj.shape[0]
+    ids = _vids(rows, state.device)
     own = view_lookup(state, ids) & 7
-    live = up & responsive & ((own == ALIVE) | (own == SUSPECT))
+    live = _own(up & responsive) & ((own == ALIVE) | (own == SUSPECT))
+    # on a process group's ring the live mask goes round it, and the
+    # reference row comes over it
+    live_all = _grc.ring_allgather(live)
     # 0 for an all-False row; one-row gathers (indexing with a tensor
     # scalar would read it back to the host)
-    ref = torch.argmax(live.to(torch.uint8)).reshape(1)
+    ref = torch.argmax(live_all.to(torch.uint8)).reshape(1)
 
-    ref_subj = state.d_subj.index_select(0, ref)[0]  # [C]
-    ref_key = state.d_key.index_select(0, ref)[0]
+    ref_subj, ref_key = (x[0] for x in _grc.ring_fetch_many((state.d_subj, state.d_key), ref))
     ref_live = ref_subj < SENTINEL
     ref_base = _base_rows(state, ref)
     ref_row = _scatter_rows(ref_base, ref_subj[None, :], ref_key[None, :])[0]
@@ -1733,7 +1868,7 @@ def _converged_impl(
     ok_slots = torch.where(slots_live, state.d_key == ref_row[subj_safe.long()], True).all(dim=1)
     if state.side is None:
         div_ref = ref_live & (ref_key != ref_base[0][ref_subj.clamp(0, n - 1).long()])
-        q = torch.where(div_ref, ref_subj, 0)[None, :].expand(n, c).contiguous()
+        q = torch.where(div_ref, ref_subj, 0)[None, :].expand(rows, c).contiguous()
         _, found = _lookup_pos(state.d_subj, q)
         ok_cover = torch.where(div_ref[None, :], found, True).all(dim=1)
     else:
@@ -1743,6 +1878,9 @@ def _converged_impl(
             dim=1, dtype=torch.int32)
         ok_cover = have == need_count
     row_same = ok_slots & ok_cover
+    if _on_ranks():
+        split = _grc.ring_sum((live & ~row_same).any())
+        return ~split | (live_all.sum() <= 1)
     return torch.where(live, row_same, True).all() | (live.sum() <= 1)
 
 

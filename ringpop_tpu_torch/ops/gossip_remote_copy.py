@@ -28,7 +28,8 @@ Two placements, one body each:
   ``csrc/ring_hop.cu`` on the card, gloo on the CPU).  The same hop
   carries the ring's collectives, ``ring_allgather`` and ``ring_sum``,
   which the step uses where it reads across rows outside these seams,
-  and ``ring_take_at``, an element gather of a row-split plane;
+  ``ring_take_at``, an element gather of a row-split plane, and
+  ``ring_fetch_many``, the fetch of several planes in one circulation;
 * all D shards in one process (``make_mesh(devices=[dev] * D)``): a
   primitive holds its D blocks as one stacked ``[D, n/D, ...]`` tensor
   and runs the per-shard body batched over the shard axis, so one hop is
@@ -319,19 +320,31 @@ def _rank_fetch(
     hop h the rank holds the block of rank ``(me - h) mod D`` and
     resolves the ids in its range; with ``cols`` (the shape of ``il``)
     it picks the element ``plane[il, cols]`` instead of the row."""
+    return _rank_fetch_many(mesh, (cur,), il, cols)[0]
+
+
+def _rank_fetch_many(
+    mesh: Any, planes: tuple[torch.Tensor, ...], il: torch.Tensor,
+    cols: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """``_rank_fetch`` of several planes with the same rows (any dtypes
+    and trailing shapes), all of them in each hop of one circulation."""
     d, me = mesh.size, mesh.rank
-    n_loc = cur.shape[0]
+    n_loc = planes[0].shape[0]
     _circulate()
-    out = None
+    out: list = [None] * len(planes)
+    cur = tuple(planes)
     for h in range(d):
         src = (me - h) % d
         sel = torch.div(il, n_loc, rounding_mode="floor") == src
         loc = torch.clamp(il - src * n_loc, 0, n_loc - 1)
-        got = cur[loc] if cols is None else cur[loc, cols]
-        out = torch.where(_bcast(sel, got.dim()), got, torch.zeros_like(got) if out is None else out)
+        for i, c in enumerate(cur):
+            got = c[loc] if cols is None else c[loc, cols]
+            prev = torch.zeros_like(got) if out[i] is None else out[i]
+            out[i] = torch.where(_bcast(sel, got.dim()), got, prev)
         if h < d - 1:
-            (cur,) = _peer(mesh, (cur,))
-    return out
+            cur = _peer(mesh, cur)
+    return tuple(out)
 
 
 def _fetch_blocks(cur: torch.Tensor, il: torch.Tensor, n_loc: int) -> torch.Tensor:
@@ -448,6 +461,7 @@ def ring_allgather(*xs: torch.Tensor) -> Any:
     mesh = _rank_mesh()
     if mesh is None:
         return xs[0] if len(xs) == 1 else xs
+    ring_allgather.calls += 1
     with annotate.scope("gossip.allgather"):
         _circulate()
         d, me = mesh.size, mesh.rank
@@ -462,16 +476,41 @@ def ring_allgather(*xs: torch.Tensor) -> Any:
     return out[0] if len(xs) == 1 else out
 
 
+ring_allgather.calls = 0  # on a process group's ring, ``ring_sum``'s included
+
+
 def ring_sum(x: torch.Tensor) -> torch.Tensor:
     """The elementwise sum of ``x`` over the ranks (integer or bool
     counts: exact in any order), in ``x``'s dtype; ``x`` outside a
     process group's ring."""
     if _rank_mesh() is None:
         return x
+    ring_sum.calls += 1
     every = ring_allgather(x.reshape(1, *x.shape))
     if x.dtype == torch.bool:
         return every.any(dim=0)
     return every.sum(dim=0, dtype=x.dtype)
+
+
+ring_sum.calls = 0  # on a process group's ring
+
+
+def ring_fetch_many(
+    planes: tuple[torch.Tensor, ...], idx: torch.Tensor, cols: torch.Tensor | None = None
+) -> tuple[torch.Tensor, ...]:
+    """``plane[idx]`` (or ``plane[idx, cols]``, ``cols`` the shape of
+    ``idx``) of each of ``planes``, row-split planes with the same rows,
+    on a process group's ring: one circulation carries all of them and
+    each rank resolves ``idx`` (global row ids, any shape: aligned to its
+    rows or replicated) out of the passing blocks.  Outside it, the plain
+    gathers."""
+    mesh = _rank_mesh()
+    il = idx.to(torch.int64)
+    cl = None if cols is None else cols.to(torch.int64)
+    if mesh is None:
+        return tuple(p[il] if cl is None else p[il, cl] for p in planes)
+    with annotate.scope("gossip.ring_fetch"):
+        return _rank_fetch_many(mesh, tuple(planes), il, cl)
 
 
 def ring_take_at(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

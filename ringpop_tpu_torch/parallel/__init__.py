@@ -8,8 +8,11 @@ from ringpop_tpu_torch.parallel.mesh import (
     checksums,
     converged,
     gather_cluster,
+    gather_delta,
     init_cluster,
+    init_delta,
     make_mesh,
+    rebase,
     revive,
     shard_cluster,
     shard_delta,
@@ -25,8 +28,11 @@ __all__ = [
     "checksums",
     "converged",
     "gather_cluster",
+    "gather_delta",
     "init_cluster",
+    "init_delta",
     "make_mesh",
+    "rebase",
     "revive",
     "shard_cluster",
     "shard_delta",

@@ -25,14 +25,16 @@ Two placements:
   replicated fields whole (``shard_cluster``, ``init_cluster``); the
   dense step runs on those rows, every read across rows an explicit
   collective of the ring (``models/swim_sim.py``), and each hop a peer
-  write into the right neighbour's memory (``ops/peer_hop.py``).  Each
-  rank's device is ``cuda:{rank % device_count}`` unless the caller asks
-  for the CPU; on one card all D ranks share it.  ``gather_cluster``
-  puts the global state back together, for checks;
+  write into the right neighbour's memory (``ops/peer_hop.py``).  The
+  delta step runs so too (``shard_delta``, ``init_delta``: a rank's rows
+  of the tables and the digest, the base and its rank structures whole;
+  ``models/swim_delta.py``).  Each rank's device is ``cuda:{rank %
+  device_count}`` unless the caller asks for the CPU; on one card all D
+  ranks share it.  ``gather_cluster`` and ``gather_delta`` put the global
+  state back together, for checks;
 * in one process, ``make_mesh(devices=[dev] * D)``: the D shards live on
   one device (or, in the tests, on the CPU) as stacks, each hop one
-  launch over all of them.  The delta step, sided mode and serving run
-  here only.
+  launch over all of them.  Sided mode and serving run here only.
 
 Two distinct devices in one process are refused: the cross-device form
 is one process a device.
@@ -47,6 +49,7 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.distributed as dist
 
+from ringpop_tpu_torch.models import swim_delta as _sd
 from ringpop_tpu_torch.models.swim_delta import DeltaState, delta_run_impl, delta_step_impl
 from ringpop_tpu_torch.models import swim_sim as _sim
 from ringpop_tpu_torch.models.swim_sim import (
@@ -306,10 +309,11 @@ def shard_cluster(state: ClusterState, net: NetState, mesh: Mesh) -> tuple[Clust
 
 
 def shard_delta(state: DeltaState, mesh: Mesh) -> DeltaState:
-    """Place an (unsharded) delta state onto the mesh.  A sided state's
+    """Place an (unsharded) delta state onto the mesh: on a process
+    group's mesh, this rank's rows of the tables and the digest, with the
+    base, its rank structures and the counters whole.  A sided state's
     [G, N] base rows and rank planes, its ``merge_to`` flip table and
     its ``side`` vector are replicated; its tables split by rows."""
-    _reject_ranks(mesh, "the sharded delta step")
     _check_divisible(state.n, mesh)
     return _place(mesh, DELTA_FIELD_SPECS, state)
 
@@ -362,6 +366,57 @@ def init_cluster(
     return state, _sim.make_net(n, device=dev)
 
 
+def init_delta(
+    n: int, mesh: Mesh, inc: Any = None, *, capacity: int = 256, mode: str = "converged"
+) -> DeltaState:
+    """A fresh delta state on the mesh (``swim_delta.init_delta``), built
+    on a process group's mesh as this rank's rows of the tables only: no
+    rank allocates the [N, C] tables."""
+    _check_divisible(n, mesh)
+    state = _sd.init_delta(n, inc, capacity=capacity, mode=mode, device=mesh.device,
+                           rows=mesh.rows(n))
+    return state if mesh.on_ranks else shard_delta(state, mesh)
+
+
+def gather_delta(state: DeltaState, mesh: Mesh) -> DeltaState:
+    """The global delta state back from every rank's rows (for checks and
+    host operations: it allocates the [N, C] tables), on every rank, over
+    the ring.  The one-process mesh holds it already."""
+    if not mesh.on_ranks:
+        return state
+    fields = {}
+    with _grc.ring_mesh(mesh):
+        for f in DeltaState._fields:
+            v = getattr(state, f)
+            axis = None if v is None else _field_split(DELTA_FIELD_SPECS, f, v)
+            if axis not in (None, 0):
+                raise NotImplementedError(f"{f} on ranks ({_QUEUE})")
+            fields[f] = v if axis is None else _grc.ring_allgather(v)
+    return DeltaState(**fields)
+
+
+def rebase(state: DeltaState, mesh: Mesh, anti_entropy: bool = False) -> DeltaState:
+    """``swim_delta.rebase`` on the mesh: a host operation on the global
+    tables, as the reference runs it before it places the state again.
+    On a process group's mesh every rank gathers the state, folds it
+    alike and keeps its rows."""
+    if not mesh.on_ranks:
+        return _sd.rebase(state, anti_entropy=anti_entropy)
+    return shard_delta(_sd.rebase(gather_delta(state, mesh), anti_entropy=anti_entropy), mesh)
+
+
+def _check_delta_rows(mesh: Mesh, state: DeltaState) -> None:
+    """A process group's delta step takes this rank's rows: [N/D, C]
+    tables."""
+    n, c = state.n, state.capacity
+    want = (n // mesh.size, c)
+    if n % mesh.size or tuple(state.d_subj.shape) != want:
+        raise ValueError(
+            f"a rank of a {mesh.size}-rank mesh steps its own rows, {list(want)}, not "
+            f"{list(state.d_subj.shape)}: place the state with shard_delta or init_delta"
+        )
+
+
 def _check_rows(mesh: Mesh, state: ClusterState, net: NetState) -> None:
     """A process group's step takes this rank's rows: [N/D, N] planes and
     a bool adjacency mask of [N/D, N]."""
@@ -395,8 +450,11 @@ def gather_cluster(state: ClusterState, mesh: Mesh) -> ClusterState:
 
 
 def revive(state: ClusterState, node: int, inc: int, mesh: Mesh) -> ClusterState:
-    """``swim_sim.revive`` on the mesh: on a process group's mesh the
-    rank that holds ``node``'s row wipes it; the others keep theirs."""
+    """``swim_sim.revive`` (or ``swim_delta.revive`` of a delta state) on
+    the mesh: on a process group's mesh the rank that holds ``node``'s
+    row wipes it; the others keep theirs."""
+    if isinstance(state, DeltaState):
+        return _revive_delta(state, node, inc, mesh)
     if not mesh.on_ranks:
         return _sim.revive(state, node, inc)
     if state.damp is not None:
@@ -419,23 +477,47 @@ def revive(state: ClusterState, node: int, inc: int, mesh: Mesh) -> ClusterState
     return state._replace(view_key=vk, pb=pb, suspect_left=sl)
 
 
-def converged(state: ClusterState, net: NetState, mesh: Mesh) -> bool:
-    """``swim_sim.converged_impl`` on the mesh, read on the host (every
-    rank gets the same answer)."""
+def _revive_delta(state: DeltaState, node: int, inc: int, mesh: Mesh) -> DeltaState:
     if not mesh.on_ranks:
-        return bool(_sim.converged_impl(state, net))
-    with _grc.ring_mesh(mesh):
+        return _sd.revive(state, node, inc)
+    # audit: allow=RPL005 a host int's range check
+    _sim._check_inc(torch.tensor([int(inc)]))
+    lo, rows = mesh.rows(state.n)
+    if not lo <= node < lo + rows:
+        return state
+    # the row wiped to its one self slot (``swim_delta.revive`` at the
+    # local row, the subject the global id)
+    state = _sd._wipe_row(state, node - lo)
+    state = _sd._set_entry(state, node - lo, node, int(inc) * 8 + _sim.ALIVE, -1, -1)
+    return _sd.refresh_carried(state)
+
+
+def converged(state: ClusterState | DeltaState, net: NetState, mesh: Mesh) -> bool:
+    """``swim_sim.converged_impl`` (or ``swim_delta._converged_impl``) on
+    the mesh, read on the host (every rank gets the same answer)."""
+    with _grc.ring_mesh(mesh) if mesh.on_ranks else contextlib.nullcontext():
+        if isinstance(state, DeltaState):
+            return bool(_sd._converged_impl(state, net.up, net.responsive))
         return bool(_sim.converged_impl(state, net))
 
 
-def checksums(state: ClusterState, net: NetState, book: Any, mesh: Mesh) -> torch.Tensor:
+def checksums(
+    state: ClusterState | DeltaState, net: NetState, book: Any, mesh: Mesh, sample: Any = None
+) -> torch.Tensor:
     """The reference-format checksum of every live node's view, int64[L]
     (uint32 values) in node order: each rank hashes its own live rows
     with the FarmHash kernel (``ops.checksum_device``), and only the
     checksums go round the ring, never the rows.  ``book`` is a
-    ``checksum_device.DeviceBook`` on this rank's device."""
+    ``checksum_device.DeviceBook`` on this rank's device.  A delta state
+    takes ``sample``, the viewers to hash (default: all), and gives the
+    live ones' checksums in its order."""
     from ringpop_tpu_torch.ops import checksum_device as ckdev
 
+    if isinstance(state, DeltaState):
+        return _delta_checksums(state, net, book, mesh, sample)
+    if sample is not None:
+        raise ValueError("a dense state's checksums cover every node; sample= is for delta "
+                         "states")
     lo, rows = mesh.rows(state.n)
     own = torch.diagonal(state.view_key, lo) & 7
     up = (net.up & net.responsive)[lo:lo + rows]
@@ -444,6 +526,43 @@ def checksums(state: ClusterState, net: NetState, book: Any, mesh: Mesh) -> torc
     if mesh.on_ranks:
         with _grc.ring_mesh(mesh):
             sums, live = _grc.ring_allgather(sums, live)
+    return sums[live]
+
+
+_CHUNK_ELEMENTS = 1 << 26  # the view keys materialized at once for hashing
+
+
+def _delta_checksums(
+    state: DeltaState, net: NetState, book: Any, mesh: Mesh, sample: Any
+) -> torch.Tensor:
+    """``checksums`` of a delta state: each rank materializes and hashes
+    the sampled viewers it holds; a [S] vector of checksums and one of
+    live flags, zero at the others' viewers, are summed over the ranks."""
+    from ringpop_tpu_torch.ops import checksum_device as ckdev
+
+    n, dev = state.n, state.device
+    lo, rows = mesh.rows(n)
+    if sample is None:
+        sample = torch.arange(n, dtype=torch.int64, device=dev)
+    sample = torch.as_tensor(sample, device=dev).to(torch.int64)
+    mine = (sample >= lo) & (sample < lo + rows)
+    loc = torch.clamp(sample - lo, 0, rows - 1)
+    own = _sd.view_lookup(state, torch.arange(lo, lo + rows, dtype=torch.int32, device=dev)) & 7
+    up = (net.up & net.responsive)[lo:lo + rows]
+    live = mine & (up & ((own == _sim.ALIVE) | (own == _sim.SUSPECT)))[loc]
+    sums = torch.zeros(sample.shape, dtype=torch.int64, device=dev)
+    # audit: allow=RPL001 the sample's rows held here, a host list to cut in chunks
+    held = torch.nonzero(mine).flatten().tolist()
+    chunk = max(1, _CHUNK_ELEMENTS // n)
+    for i in range(0, len(held), chunk):
+        at = torch.as_tensor(held[i:i + chunk], dtype=torch.int64, device=dev)
+        r = loc[at]
+        view = _sd._scatter_rows(_sd._base_rows(state, sample[at]), state.d_subj[r],
+                                 state.d_key[r])
+        sums[at] = ckdev.view_checksums_device(book, view).to(torch.int64)
+    if mesh.on_ranks:
+        with _grc.ring_mesh(mesh):
+            sums, live = _grc.ring_sum(sums), _grc.ring_sum(live)
     return sums[live]
 
 
@@ -512,7 +631,7 @@ def _check_adj_layout(net: NetState, expect: int | None) -> None:
 
 
 def _rank_entry(mesh: Mesh, gossip: str | None) -> None:
-    """A process group's mesh runs the dense step over the ring only."""
+    """A process group's mesh runs the steps over the ring only."""
     if mesh.on_ranks and gossip_mode(gossip) != "ring":
         raise ValueError("a process group's mesh gossips over the ring; gossip='gather' needs "
                          "every row in one process")
@@ -570,15 +689,18 @@ def sharded_delta_step(
 ) -> Callable:
     """``delta_step_impl`` over the mesh.  The cross-shard traffic is the
     claim routing and the row fetches of the replies, full syncs and
-    ping-req stages: in ring mode their payload rows hop the ring."""
-    _reject_ranks(mesh, "the sharded delta step")
+    ping-req stages: in ring mode their payload rows hop the ring.  On a
+    process group's mesh the state is this rank's rows (``shard_delta``,
+    ``init_delta``) and stays so, and the metrics and ``overflow_drops``
+    are the whole cluster's."""
     gossip_mode(gossip)
+    _rank_entry(mesh, gossip)
     expect_adj = _adj_layout(net_like)
 
     def step(state, net, key, params, upto=7):
         _reject_adjacency(net)
         _check_adj_layout(net, expect_adj)
-        state, net = shard_delta(state, mesh), _place(mesh, NET_FIELD_SPECS, net)
+        state, net = _delta_inputs(mesh, state, net)
         with mesh_gossip(mesh, gossip):
             return delta_step_impl(state, net, key, params, upto)
 
@@ -588,19 +710,30 @@ def sharded_delta_step(
 def sharded_delta_run(
     mesh: Mesh, net_like: NetState | None = None, gossip: str | None = None
 ) -> Callable:
-    """``delta_run_impl`` (``ticks`` periods) over the mesh."""
-    _reject_ranks(mesh, "the sharded delta step")
+    """``delta_run_impl`` (``ticks`` periods) over the mesh.  See
+    ``sharded_delta_step``."""
     gossip_mode(gossip)
+    _rank_entry(mesh, gossip)
     expect_adj = _adj_layout(net_like)
 
     def run(state, net, key, params, ticks):
         _reject_adjacency(net)
         _check_adj_layout(net, expect_adj)
-        state, net = shard_delta(state, mesh), _place(mesh, NET_FIELD_SPECS, net)
+        state, net = _delta_inputs(mesh, state, net)
         with mesh_gossip(mesh, gossip):
             return delta_run_impl(state, net, key, params, ticks)
 
     return run
+
+
+def _delta_inputs(mesh: Mesh, state: DeltaState, net: NetState) -> tuple[DeltaState, NetState]:
+    """The delta step's inputs on the mesh: placed on the one-process
+    mesh, as the reference's ``in_shardings`` place them; on a process
+    group's mesh already this rank's rows (the net is replicated)."""
+    if mesh.on_ranks:
+        _check_delta_rows(mesh, state)
+        return state, net
+    return shard_delta(state, mesh), _place(mesh, NET_FIELD_SPECS, net)
 
 
 # ---------------------------------------------------------------------------

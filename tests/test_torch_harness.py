@@ -550,10 +550,11 @@ def run_reference_calls(
 # adjacency is all one group) and ``"rebase_at"`` (the steps before which
 # the state is rebased, ``anti_entropy=True``).  A dense case may give
 # ``"adj"`` (``{"groups": [N]}`` or ``{"mask": [[N] x N]}``, installed on
-# the net before the start, the step built for its layout) and
-# ``"events"`` (``{"t": [["kill", i] | ["revive", i, inc], ...]}``, applied
-# before step t: a kill clears ``up[i]``, a revive is ``sim.revive`` and
-# sets it again).  It records the start
+# the net before the start, the step built for its layout), and a case of
+# either backend ``"events"`` (``{"t": [["kill", i] | ["revive", i, inc],
+# ...]}``, applied before step t, after a rebase there: a kill clears
+# ``up[i]``, a revive is ``sim.revive`` (``sd.revive`` on the delta
+# backend) and sets it again).  It records the start
 # state and net, the keys, and the state and metrics after every step
 # (``{name}/{t}/...``, ``{name}/m{t}/...``) or after the run
 # (``{name}/run/...``, ``{name}/mrun/...``).  A case with ``"faults":
@@ -647,10 +648,14 @@ for case in cases:
             if t in case.get("rebase_at", []):
                 state = parallel.shard_delta(sd.rebase(state, anti_entropy=True), mesh)
             for ev in case.get("events", {}).get(str(t), []):
+                delta = case["backend"] == "delta"
                 if ev[0] == "revive":
-                    state = sim.revive(state, ev[1], ev[2])
+                    state = (sd if delta else sim).revive(state, ev[1], ev[2])
                 net = net._replace(up=net.up.at[ev[1]].set(ev[0] == "revive"))
-                state, net = parallel.shard_cluster(state, net, mesh)
+                if delta:
+                    state = parallel.shard_delta(state, mesh)
+                else:
+                    state, net = parallel.shard_cluster(state, net, mesh)
             state, m = fn(state, net, k, params)
             record(f"{name}/{t}", state._asdict())
             record(f"{name}/m{t}", m)

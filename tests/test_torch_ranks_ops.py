@@ -8,8 +8,8 @@ once for the module), against the same inputs in this process, exactly
   ``ring_fetch_rows``, ``ring_fetch_global``, ``ring_take_per_row``,
   ``ring_update_per_row``) on the rank's own block, equal to its stacked
   form on the one-process mesh, and the ring's collectives
-  (``ring_allgather``, ``ring_sum``, ``ring_take_at``) equal to the
-  plain gather, sum and index;
+  (``ring_allgather``, ``ring_sum``, ``ring_take_at``,
+  ``ring_fetch_many``) equal to the plain gather, sum and index;
 - the peer hop's plain version (gloo ``isend``/``recv``): each rank gets
   its left neighbour's tensors, of every dtype and odd sizes;
 - the device checksums of each rank's own rows (``parallel.checksums``)
@@ -79,6 +79,10 @@ def _primitives(grc, x: dict, own) -> dict[str, torch.Tensor]:
         "allgather_pair": torch.cat([gathered.reshape(-1), gathered_b.to(torch.int32)]),
         "sum": grc.ring_sum(own(x["vec"]).sum(dim=0, dtype=torch.int32)),
         "take_at": grc.ring_take_at(own(x["bplane"]), own(x["idx3"]), own(x["cols3"])),
+        "fetch_many": torch.cat([p.reshape(p.shape[0], -1).to(torch.int32) for p in grc.ring_fetch_many(
+            (own(x["plane"]), own(x["narrow"]), own(x["bplane"])), own(x["idx3"]))], dim=1),
+        "fetch_many_cols": grc.ring_fetch_many((own(x["vec"]),), own(x["idx3"]),
+                                               cols=own(x["cols3"]) % 3)[0],
     }
 
 
@@ -130,9 +134,16 @@ def _refusal(name: str, mesh) -> None:
         with grc.ring_mesh(mesh):
             tsim.swim_step_impl(state, net, key, params, knobs=tsim.swim_knob_arrays(params))
     elif name == "delta_step":
-        parallel.sharded_delta_step(mesh)
+        # the delta step runs on ranks; its delay lanes do not
+        whole = tdelta.install_pending(tdelta.init_delta(n, capacity=4, device=CPU), 2, 2)
+        parallel.sharded_delta_step(mesh)(parallel.shard_delta(whole, mesh), net, key,
+                                          tdelta.DeltaParams())
     elif name == "delta_run":
-        parallel.shard_delta(tdelta.init_delta(n, capacity=4, device=CPU), mesh)
+        # nor its sided mode
+        whole = tdelta.make_sides(tdelta.init_delta(n, capacity=4, device=CPU),
+                                  (np.arange(n) >= n // 2).astype(np.int32))
+        parallel.sharded_delta_run(mesh)(parallel.shard_delta(whole, mesh), net, key,
+                                         tdelta.DeltaParams(), 2)
     elif name == "serve":
         parallel.sharded_serve(mesh, static=None)
     elif name == "gather_mode":
@@ -225,7 +236,8 @@ def stacked():
 
 # the outputs split by rows (the rest are replicated: every rank holds all)
 ROW_SPLIT = {"recv_merge_in_key", "recv_merge_inbound", "fetch_rows", "fetch_rows_bool",
-             "take_per_row", "update_set", "update_max", "take_at"}
+             "take_per_row", "update_set", "update_max", "take_at", "fetch_many",
+             "fetch_many_cols"}
 
 
 @pytest.mark.parametrize("name", sorted(ROW_SPLIT | {"fetch_global", "allgather",
